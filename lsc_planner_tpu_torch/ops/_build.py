@@ -1,10 +1,11 @@
 """Build the package's CUDA sources with nvcc and load them with ctypes.
 
-The kernels in ``csrc/`` have a plain C interface, so one ``nvcc -shared``
-call builds them without compiling PyTorch's headers.  The build happens at
-first use, into ``lsc_planner_tpu_torch/_build/`` (listed in .gitignore),
-under a file name keyed by the source and flag hash, so an edited source
-is rebuilt and an unchanged one is loaded as it is.
+The kernels in ``csrc/`` have a plain C interface, so nvcc builds them
+without compiling PyTorch's headers: one ``nvcc -c`` a source, all started
+together, then one ``nvcc -shared`` link.  The build happens at first
+use, into ``lsc_planner_tpu_torch/_build/`` (listed in .gitignore), under
+a file name keyed by the source and flag hash, so an edited source is
+rebuilt and an unchanged one is loaded as it is.
 """
 from __future__ import annotations
 
@@ -22,15 +23,17 @@ import torch
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("chol.cu",)
+SOURCES = ("chol.cu", "ipm.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib = None
-# wall seconds of the nvcc call made by this process (None: loaded a
-# library built earlier, or nothing loaded yet)
+# wall seconds of the nvcc build made by this process, and nvcc's output
+# (ptxas: registers, shared memory, spills per kernel); None: loaded a
+# library built earlier, or nothing loaded yet
 build_seconds = None
+build_log = None
 
 _PTR = ctypes.c_void_p
 _SIGNATURES = {
@@ -42,6 +45,10 @@ _SIGNATURES = {
                              _PTR],
     "lsc_chol_resolve_f64": [_PTR, _PTR, _PTR, ctypes.c_int, ctypes.c_int,
                              _PTR],
+    # 10 inputs, 5 outputs; N, nf, Ru, C, M, n1, iters, correctors; reg,
+    # s_min, tol_gap, tol_rp, tol_rd, tol_step; stream
+    "lsc_ipm_fused_f32": [_PTR] * 15 + [ctypes.c_int] * 8 +
+                         [ctypes.c_float] * 6 + [_PTR],
 }
 
 
@@ -65,23 +72,30 @@ def library_path() -> Path:
 
 
 def _compile(out: Path) -> None:
-    global build_seconds
+    global build_seconds, build_log
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(str(CSRC_DIR / s) for s in SOURCES)]
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, Path(src).stem + ".o") for src in SOURCES]
+        cmds = [[_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, str(CSRC_DIR / src)]
+                for src, obj in zip(SOURCES, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]
+        logs = [proc.communicate()[0] for proc in procs]
+        for cmd, proc, log in zip(cmds, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError("nvcc failed:\n" + " ".join(cmd) + "\n" +
+                                   log)
+        lib = os.path.join(tmp, "lib.so")
+        link = [_nvcc(), "-shared", "-o", lib, *objs]
+        proc = subprocess.run(link, capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError("nvcc failed:\n" + " ".join(cmd) + "\n" +
+            raise RuntimeError("nvcc failed:\n" + " ".join(link) + "\n" +
                                proc.stdout + proc.stderr)
-        os.replace(tmp, out)      # atomic: concurrent builders never race
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+        os.replace(lib, out)      # atomic: concurrent builders never race
     build_seconds = time.perf_counter() - t0
+    build_log = "".join(logs)
 
 
 def load_library() -> ctypes.CDLL:

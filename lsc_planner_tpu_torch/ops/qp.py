@@ -1,5 +1,6 @@
 """Batched convex QP solver, primal-dual interior point (port of
-lsc_planner_tpu/ops/qp.py, dense rows and the non-fused factored rows).
+lsc_planner_tpu/ops/qp.py: dense rows, factored rows, and the factored
+rows' fused single-launch IPM in ``ops/ipm.py``).
 
     min_y  1/2 y^T P y + q^T y    s.t.  A y >= b          (rows maskable)
 
@@ -21,7 +22,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from . import chol
+from . import chol, ipm
 
 EXIT_CHECK_EVERY = 8
 FUSED_MODES = ("auto", "on", "off")
@@ -35,7 +36,9 @@ class QPSolution(NamedTuple):
     gap: torch.Tensor         # (...,)   complementarity mu
     warm_res: Optional[torch.Tensor] = None
     warm_row: Optional[torch.Tensor] = None
-    iters: Optional[torch.Tensor] = None   # () IPM iterations consumed
+    # IPM iterations consumed: () on the _ipm paths, (N,) per-tile counts
+    # on the fused path (as the JAX package reports them)
+    iters: Optional[torch.Tensor] = None
 
 
 def _masked(A, b, mask):
@@ -229,7 +232,7 @@ def solve_qp_lsc(P, q, A_st, b_st, normal, rhs, mask, F_seg, y0=None,
                  tol_gap: float = 1e-3, tol_rp: float = 1e-4,
                  tol_rd: float = 0.05, tol_step: float = 0.0,
                  correctors: int = 0) -> QPSolution:
-    """Factored-row QP solve (qp.py:431-659, the non-fused branch).
+    """Factored-row QP solve (qp.py:431-659).
 
     Static rows A_st (R_s, nv) are agent-shared with per-agent rhs b_st
     (N, R_s); every plane row is normal_{c,m} (x) F_seg[m, i, :] over the
@@ -238,9 +241,11 @@ def solve_qp_lsc(P, q, A_st, b_st, normal, rhs, mask, F_seg, y0=None,
     inv_row_perm) from TrajOptimizer.static_blocked enables the blocked
     static Gram.  Duals come back as [static rows, plane rows (c-major)].
 
-    fused_mode picks the single-launch IPM kernel on CUDA/float32 ("auto",
-    "on") when static_blocks and P_blk are given; that kernel is not
-    ported yet and raises NotImplementedError."""
+    With static_blocks and P_blk given, fused_mode picks the single-launch
+    IPM (``ipm.ipm_lsc_fused``, qp.py:618-648): "auto" on CUDA in float32,
+    "on" on any device (a CPU tensor runs its plain version; the tests'
+    counterpart of the JAX package's "interpret"), "off" never.  The fused
+    IPM is float32 only and raises for any other dtype."""
     if fused_mode not in FUSED_MODES:
         raise ValueError(f"fused_mode {fused_mode!r} not in {FUSED_MODES}")
     dtype, device = P.dtype, P.device
@@ -248,11 +253,6 @@ def solve_qp_lsc(P, q, A_st, b_st, normal, rhs, mask, F_seg, y0=None,
     M, n1, nf = F_seg.shape
     C = normal.shape[1]
     nv = P.shape[-1]
-    if (static_blocks is not None and P_blk is not None and
-            fused_mode != "off" and device.type == "cuda" and
-            dtype == torch.float32):
-        raise NotImplementedError("fused IPM kernel not yet ported "
-                                  "(ROADMAP queue 2, item 1)")
 
     sigma = _objective_sigma(P)
     F_seg = torch.as_tensor(F_seg, dtype=dtype, device=device)
@@ -351,6 +351,32 @@ def solve_qp_lsc(P, q, A_st, b_st, normal, rhs, mask, F_seg, y0=None,
         warm_res, warm_row = b.max(-1)
     else:
         warm_res = warm_row = None
+
+    use_fused = (static_blocks is not None and P_blk is not None and
+                 (fused_mode == "on" or
+                  (fused_mode == "auto" and device.type == "cuda" and
+                   dtype == torch.float32)))
+    if use_fused:
+        bp = b_st[:, row_perm]                           # pair-major
+        b_pairs = torch.stack([bp[:, 0::2], bp[:, 1::2]], dim=1)
+        P_blk = P_blk.to(dtype)
+        d, lam_s, lam_p, gap, it_used = ipm.ipm_lsc_fused(
+            P_blk, q, torch.zeros((N, nv), dtype=dtype, device=device), U,
+            b_pairs, nsc, scale, b_pl, F_seg, sigma, iters=iters, reg=reg,
+            s_min=s_min, tol_gap=tol_gap, tol_rp=tol_rp, tol_rd=tol_rd,
+            tol_step=tol_step, correctors=correctors)
+        primal_res = torch.clamp(b - mv(d), min=0.0).amax(-1)
+        y = d if y0 is None else y0 + d
+        # duals back to [static original order, plane rows]
+        lam_perm = torch.stack([lam_s[:, 0], lam_s[:, 1]],
+                               dim=-1).reshape(N, R_s)
+        lam = torch.cat([lam_perm[:, inv_row_perm], lam_p], dim=1)
+        y3 = y.reshape(N, kdim, nf)
+        obj = 0.5 * torch.einsum("nkf,nfg,nkg->n", y3, P_blk, y3) + \
+            (q_orig * y).sum(-1)
+        return QPSolution(y=y, lam=lam, obj=obj, primal_res=primal_res,
+                          gap=gap, warm_res=warm_res, warm_row=warm_row,
+                          iters=it_used)
 
     sol = _ipm(P, q, mv, rmv, gram, b, None, iters, reg, s_min,
                tol_gap=tol_gap, tol_rp=tol_rp, tol_rd=tol_rd,

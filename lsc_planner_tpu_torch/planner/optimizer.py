@@ -395,8 +395,9 @@ class TrajOptimizer:
 
         # row-representation dispatch (optimizer.py:541-578): dense rows
         # while the (N, C*M*(n+1), nv) row tensor stays under 48 MiB,
-        # factored rows above; the fused single-launch IPM ("tpu" read as
-        # "cuda") is not ported and raises inside solve_qp_lsc
+        # factored rows above, and on CUDA in float32 at N >=
+        # qp_fused_min_agents ("tpu" read as "cuda") the fused
+        # single-launch IPM kernel
         dense_bytes = N * C * M * (n + 1) * nv * \
             torch.finfo(dtype).bits // 8
         fused_ok = (dev.type == "cuda" and dtype == torch.float32 and

@@ -9,10 +9,14 @@ device; the cycle never syncs with the host (the QP's factored path syncs
 only for its early exit), and ``run`` reads one small stats tensor back
 per cycle.
 
-Off the ported slice (octomap worlds, static or dynamic obstacles, K-NN
-pruning, planner modes other than LSC, experiment-mode pose injection,
-fused multi-cycle dispatch) the constructor or the call raises
-NotImplementedError naming its ROADMAP item.
+With ``max_neighbors = K`` (0 < K < N) each agent keeps LSC rows only for
+its K nearest neighbours, and the cycle reports the density-overflow audit
+of that pruning in ``CycleInfo.knn_overflow``.
+
+Off the ported slice (octomap worlds, static or dynamic obstacles, planner
+modes other than LSC, experiment-mode pose injection, fused multi-cycle
+dispatch) the constructor or the call raises NotImplementedError naming
+its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -166,6 +170,19 @@ def _update_rescue(state, pos, desired_goal, stall_count, progress, p,
     return rescue_goal, active | engage, phase_new, stall_count
 
 
+def knn_select(pos, obs_pos, self_mask, K: int):
+    """The K nearest obstacles of each agent: (squared distances ascending
+    (L, K), indices (L, K)).  The squares are summed over the axes in the
+    JAX order, and a stable sort breaks ties by the lower index as
+    ``lax.top_k`` does (a circle puts neighbours i - k and i + k at equal
+    distances, so the K-th pick depends on it)."""
+    diff = obs_pos[None, :, :] - pos[:, None, :]
+    d2 = diff[..., 0] ** 2 + diff[..., 1] ** 2 + diff[..., 2] ** 2
+    d2 = torch.where(self_mask, float("inf"), d2)
+    sel_d2, nbr = torch.sort(d2, dim=-1, stable=True)
+    return sel_d2[:, :K], nbr[:, :K]
+
+
 def _no_rescue(state):
     return state.rescue_goal, torch.zeros_like(state.rescue_active), \
         torch.zeros_like(state.rescue_phase)
@@ -199,9 +216,6 @@ class SyncSimulator:
         if self.mission.obstacles:
             raise NotImplementedError("dynamic obstacles are not ported "
                                       "(ROADMAP queue 1, item 12)")
-        if 0 < p.max_neighbors < self.N:
-            raise NotImplementedError("K-NN neighbour pruning is not ported "
-                                      "(ROADMAP queue 1, item 8)")
         if p.multisim_experiment:
             raise NotImplementedError("experiment-mode pose injection and "
                                       "slack rows are not ported (ROADMAP "
@@ -225,6 +239,11 @@ class SyncSimulator:
         self.world_max = t(self.mission.world_max)
         self.self_mask = torch.eye(self.N, dtype=torch.bool,
                                    device=self.device)
+        # K-NN interaction-ball radius (simulator.py:343-350): a feasible
+        # trajectory stays within vmax * horizon of its start, so pairs
+        # farther apart than this cannot interact within one horizon
+        self._knn_cutoff = float(2.0 * np.max(arrs["max_vel"]) * p.M * p.dt +
+                                 2.0 * np.max(arrs["radius"]))
 
     # ------------------------------------------------------------------
     def initial_state(self) -> SwarmState:
@@ -298,8 +317,10 @@ class SyncSimulator:
                    max_acc, desired_goal, rescue_goal=None,
                    rescue_active=None):
         """Plan one block of agents (L, ...) against the global obstacle
-        view (N_total, ...): goals, LSC planes, QP.  Returns (QPResult,
-        current_goal, path_floor)."""
+        view (N_total, ...): goals, K-NN pruning, LSC planes, QP.  Returns
+        (QPResult, current_goal, knn_overflow, path_floor); knn_overflow
+        (L,) flags agents whose K-th nearest neighbour is still inside the
+        interaction ball (None without pruning)."""
         p = self.param
         L = pos.shape[0]
         O = pred_global.shape[0]
@@ -315,13 +336,27 @@ class SyncSimulator:
             current_goal = torch.where(rescue_active[:, None], rescue_goal,
                                        current_goal)
 
-        obs_pred = pred_global[None].expand(L, O, M, n + 1, 3)
+        K = p.max_neighbors
+        knn_overflow = None
+        if 0 < K < O:
+            # K-NN pruning of the LSC pairs (simulator.py:611-662); an
+            # index gather replaces the TPU's one-hot selection matmul
+            sel_d2, nbr = knn_select(pos, obs_pos_global, self_mask, K)
+            r2 = self._knn_cutoff * self._knn_cutoff
+            knn_overflow = sel_d2[:, -1] < r2
+            obs_pred = pred_global[nbr]                     # (L, K, M, n1, 3)
+            obs_radius, obs_downwash = self.radius[nbr], self.downwash[nbr]
+            obs_mask = sel_d2 <= r2
+            O = K
+        else:
+            obs_pred = pred_global[None].expand(L, O, M, n + 1, 3)
+            obs_radius = self.radius[None, :].expand(L, O)
+            obs_downwash = self.downwash[None, :].expand(L, O)
+            obs_mask = ~self_mask
         planes = cons.lsc_planes(
-            init, obs_pred, radius, downwash,
-            self.radius[None, :].expand(L, O),
-            self.downwash[None, :].expand(L, O),
+            init, obs_pred, radius, downwash, obs_radius, obs_downwash,
             torch.ones((L, O), dtype=torch.bool, device=pos.device),
-            ~self_mask, guard_margin=p.lsc_guard_margin)
+            obs_mask, guard_margin=p.lsc_guard_margin)
         planes = cons.concat_planes(planes, n_ctrl=n + 1)
 
         # warm start from the (feasible) shifted previous solution
@@ -331,7 +366,7 @@ class SyncSimulator:
             max_vel=max_vel, max_acc=max_acc, planes=planes,
             world_min=self.world_min, world_max=self.world_max,
             y_warm=y_warm, dtype=self.dtype)
-        return res, current_goal, path_floor
+        return res, current_goal, knn_overflow, path_floor
 
     def _patrol_swap(self, state: SwarmState, pos):
         """PATROL: swap start and desired goal at the goal
@@ -369,7 +404,7 @@ class SyncSimulator:
 
         init, prediction = self.predict_and_init(state.traj, pos, vel,
                                                  state.seq)
-        res, current_goal, path_floor = self.plan_block(
+        res, current_goal, knn_overflow, path_floor = self.plan_block(
             pos, vel, acc, init, state.seq, pred_global=prediction,
             obs_pos_global=pos, obs_goal_global=desired_goal,
             obs_prev_global=state.traj, self_mask=self.self_mask,
@@ -412,7 +447,8 @@ class SyncSimulator:
                       else torch.zeros_like(res.cost)),
             warm_row=(res.warm_row if res.warm_row is not None
                       else torch.zeros_like(res.cost, dtype=torch.int32)),
-            qp_failed=qp_failed, qp_iters=res.iters)
+            qp_failed=qp_failed, knn_overflow=knn_overflow,
+            qp_iters=res.iters)
         return new_state, info
 
     # ------------------------------------------------------------------

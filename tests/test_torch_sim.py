@@ -96,8 +96,65 @@ def test_circle8_f32_run_matches_jax_behaviour():
     assert chol.factor_solve_launches == 0 and chol.resolve_launches == 0
 
 
+def _knn_mission():
+    return make_circle_mission(12, radius=2.0, world=(-4, -4, 0, 4, 4, 2.5))
+
+
+def test_knn_cycle_matches_from_converted_state():
+    """K-NN pruning (K = 4 of 12): one full f64 cycle from the state after
+    3 JAX cycles gives the same trajectories (<= 1e-6 m), the same overflow
+    flags and, at that state and at the tie-laden start of the circle, the
+    same neighbours as lax.top_k."""
+    import jax
+
+    from lsc_planner_tpu_torch.sim.simulator import knn_select
+
+    p = Param(goal_mode=GoalMode.PRIOR_BASED, max_neighbors=4)
+    jsim = JSim(_knn_mission(), p, dtype=jnp.float64)
+    tsim = TSim(_knn_mission(), p, dtype=torch.float64)
+    state = jsim.initial_state()
+    states = [state]
+    for _ in range(3):
+        state, _ = jsim._cycle_jit(state)
+    states.append(state)
+    j1, jinfo = jsim._cycle_jit(state)
+    t1, tinfo = tsim.cycle(state_from_numpy(_to_numpy(state),
+                                            dtype=torch.float64))
+    assert np.abs(t1.traj.numpy() - np.asarray(j1.traj)).max() <= 1e-6
+    np.testing.assert_array_equal(tinfo.knn_overflow.numpy(),
+                                  np.asarray(jinfo.knn_overflow))
+    eye = np.eye(12, dtype=bool)
+    for s in states:
+        pos = np.array(jsim.propagate(s)[0])
+        d2 = jnp.sum((pos[None, :, :] - pos[:, None, :]) ** 2, axis=-1)
+        _, j_nbr = jax.lax.top_k(-jnp.where(eye, jnp.inf, d2), 4)
+        _, t_nbr = knn_select(torch.as_tensor(pos), torch.as_tensor(pos),
+                              torch.as_tensor(eye), 4)
+        np.testing.assert_array_equal(t_nbr.numpy(), np.asarray(j_nbr))
+
+
+@pytest.mark.parametrize("ring", ["tight", "sparse"])
+def test_knn_overflow_audit_matches_jax(ring):
+    """The two rings of test_simulator.py:208-236 (K = 3 of 8): the tight
+    ring flags every agent, the sparse one none and stays finite; the port
+    gives JAX's flags."""
+    import math
+
+    p = Param(goal_mode=GoalMode.PRIOR_BASED, qp_iterations=14,
+              max_neighbors=3)
+    r = 1.0 if ring == "tight" else 8.0 / (2 * math.sin(math.pi / 8))
+    ring_kw = dict(radius=r, world=(-r - 2, -r - 2, 0, r + 2, r + 2, 2.5))
+    jsim = JSim(make_circle_mission(8, **ring_kw), p, dtype=jnp.float64)
+    _, jinfo = jsim._cycle_jit(jsim.initial_state())
+    tsim = TSim(make_circle_mission(8, **ring_kw), p, dtype=torch.float64)
+    tstate, tinfo = tsim.cycle(tsim.initial_state())
+    flags = tinfo.knn_overflow.numpy()
+    np.testing.assert_array_equal(flags, np.asarray(jinfo.knn_overflow))
+    assert flags.all() if ring == "tight" else not flags.any()
+    assert torch.isfinite(tstate.traj).all()
+
+
 @pytest.mark.parametrize("change,item", [
-    (dict(max_neighbors=4), "item 8"),
     (dict(planner_mode=PlannerMode.BVC), "items 12-13"),
     (dict(world_use_octomap=True), "item 10"),
     (dict(multisim_experiment=True), "item 12"),
