@@ -5,21 +5,23 @@ reference).  Module paths mirror the JAX package; plain tensor code is
 PyTorch, and the TPU kernels on the ported path are CUDA kernels written
 for Hopper (``csrc/``), built with nvcc at first use.
 
-The package imports torch and numpy and never jax.  It reuses the JAX
-package's two jax-free host modules, ``config`` and ``missions``.
+The package imports torch, numpy and scipy, and nothing of jax or of the
+JAX package: ``config`` and ``missions`` are the port's own copies of the
+JAX package's host modules.  Entry points run on the CUDA device unless
+the caller passes ``device="cpu"``.
 """
-from lsc_planner_tpu.config import (GoalMode, InitialTrajMode, Param,
-                                    PlannerMode, PredictionMode, SlackMode)
-from lsc_planner_tpu.missions import (AgentSpec, Mission, load_mission,
-                                      make_circle_mission,
-                                      make_random_mission,
-                                      make_square_mission)
+from .config import (GoalMode, InitialTrajMode, Param, PlannerMode,
+                     PredictionMode, SlackMode)
+from .missions import (AgentSpec, Mission, ObstacleSpec, load_mission,
+                       make_circle_mission, make_random_mission,
+                       make_square_mission)
 
 from .device import exact_float32
 
 exact_float32()
 
-__all__ = ["AgentSpec", "GoalMode", "InitialTrajMode", "Mission", "Param",
-           "PlannerMode", "PredictionMode", "SlackMode", "exact_float32",
-           "load_mission", "make_circle_mission", "make_random_mission",
+__all__ = ["AgentSpec", "GoalMode", "InitialTrajMode", "Mission",
+           "ObstacleSpec", "Param", "PlannerMode", "PredictionMode",
+           "SlackMode", "exact_float32", "load_mission",
+           "make_circle_mission", "make_random_mission",
            "make_square_mission"]

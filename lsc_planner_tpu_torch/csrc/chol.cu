@@ -1,8 +1,11 @@
 // Batched Cholesky factor + triangular solves for the interior-point QP.
 //
 // Replaces lsc_planner_tpu/ops/chol_pallas.py::_factor_solve_kernel
-// (factor H = L L^T, then solve L L^T x = rhs) and ::_resolve_kernel
-// (solve again with a kept factor).  Same semantics: right-looking lower
+// (factor H = L L^T, then solve L L^T x = rhs), ::_resolve_kernel
+// (solve again with a kept factor) and ::_chol_kernel (the factor alone,
+// cholesky_batched: a non-SPD entry's lower triangle is all NaN, so the
+// kernel and its plain version, cholesky_ex with a NaN fill, agree on
+// where the NaNs are).  Same semantics: right-looking lower
 // Cholesky with NO pivot floor, forward then backward substitution, and a
 // non-SPD instance turns into NaN in its own batch entry only (the IPM's
 // degeneracy guard absorbs it).  The factor leaves the kernel as a plain
@@ -68,23 +71,19 @@ __device__ void solve_warp(const T* L, int n, const T* rhs, T* x) {
   if (r1 < n) x[r1] = z1;
 }
 
+// Factor the n x n matrix in shared memory A in place (lower triangle ->
+// L) with the whole block, col (n) as scratch.  Returns true when a pivot
+// was not positive (the same answer in every thread: each reads the pivot
+// after a barrier).
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-factor_solve_kernel(const T* __restrict__ H, const T* __restrict__ rhs,
-                    T* __restrict__ L_out, T* __restrict__ x, int n) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* A = reinterpret_cast<T*>(smem);   // n x n working matrix -> L
-  T* col = A + n * n;                  // scaled column k
-  const int nn = n * n;
-  const size_t b = blockIdx.x;
-  const T* Hb = H + b * nn;
-  for (int e = threadIdx.x; e < nn; e += blockDim.x) A[e] = Hb[e];
-  __syncthreads();
-
+__device__ bool factor_block(T* A, T* col, int n) {
+  bool failed = false;
   for (int k = 0; k < n; ++k) {
     // no pivot floor: a non-positive pivot gives NaN/inf, which spreads
     // through this instance only
-    const T inv = T(1) / sqrt(A[k * n + k]);
+    const T pivot = A[k * n + k];
+    failed |= !(pivot > T(0));
+    const T inv = T(1) / sqrt(pivot);
     for (int i = k + threadIdx.x; i < n; i += blockDim.x)
       col[i] = A[i * n + k] * inv;
     __syncthreads();
@@ -99,6 +98,22 @@ factor_solve_kernel(const T* __restrict__ H, const T* __restrict__ rhs,
       A[i * n + k] = col[i];
     __syncthreads();
   }
+  return failed;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+factor_solve_kernel(const T* __restrict__ H, const T* __restrict__ rhs,
+                    T* __restrict__ L_out, T* __restrict__ x, int n) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* A = reinterpret_cast<T*>(smem);   // n x n working matrix -> L
+  T* col = A + n * n;                  // scaled column k
+  const int nn = n * n;
+  const size_t b = blockIdx.x;
+  const T* Hb = H + b * nn;
+  for (int e = threadIdx.x; e < nn; e += blockDim.x) A[e] = Hb[e];
+  __syncthreads();
+  factor_block(A, col, n);
 
   T* Lb = L_out + b * nn;
   for (int e = threadIdx.x; e < nn; e += blockDim.x)
@@ -118,6 +133,44 @@ resolve_kernel(const T* __restrict__ L, const T* __restrict__ rhs,
   for (int e = threadIdx.x; e < nn; e += blockDim.x) A[e] = Lb[e];
   __syncthreads();
   if (threadIdx.x < 32) solve_warp(A, n, rhs + b * n, x + b * n);
+}
+
+template <typename T> __device__ T quiet_nan();
+template <> __device__ float quiet_nan<float>() {
+  return __int_as_float(0x7fc00000);
+}
+template <> __device__ double quiet_nan<double>() {
+  return __longlong_as_double(0x7ff8000000000000LL);
+}
+
+// cholesky_batched: the factor alone; a failed entry's lower triangle is
+// NaN, its upper triangle zero, as in the plain version.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+factor_kernel(const T* __restrict__ H, T* __restrict__ L_out, int n) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* A = reinterpret_cast<T*>(smem);
+  T* col = A + n * n;
+  const int nn = n * n;
+  const size_t b = blockIdx.x;
+  const T* Hb = H + b * nn;
+  for (int e = threadIdx.x; e < nn; e += blockDim.x) A[e] = Hb[e];
+  __syncthreads();
+  const bool failed = factor_block(A, col, n);
+  const T nan = quiet_nan<T>();
+  T* Lb = L_out + b * nn;
+  for (int e = threadIdx.x; e < nn; e += blockDim.x)
+    Lb[e] = (e % n) <= (e / n) ? (failed ? nan : A[e]) : T(0);
+}
+
+template <typename T>
+int launch_factor(const void* H, void* L, int B, int n, void* stream) {
+  if (n < 1 || n > kMaxN || B < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return static_cast<int>(cudaGetLastError());
+  const size_t smem = static_cast<size_t>(n * n + n) * sizeof(T);
+  factor_kernel<T><<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(H), static_cast<T*>(L), n);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -162,6 +215,16 @@ int lsc_chol_factor_solve_f64(const void* H, const void* rhs, void* L,
 int lsc_chol_resolve_f32(const void* L, const void* rhs, void* x, int B,
                          int n, void* stream) {
   return launch_resolve<float>(L, rhs, x, B, n, stream);
+}
+
+int lsc_chol_factor_f32(const void* H, void* L, int B, int n,
+                        void* stream) {
+  return launch_factor<float>(H, L, B, n, stream);
+}
+
+int lsc_chol_factor_f64(const void* H, void* L, int B, int n,
+                        void* stream) {
+  return launch_factor<double>(H, L, B, n, stream);
 }
 
 int lsc_chol_resolve_f64(const void* L, const void* rhs, void* x, int B,

@@ -19,8 +19,11 @@ def exact_float32() -> None:
 
 
 def resolve_device(device=None) -> torch.device:
-    """The explicit device a simulator's tensors live on (default CPU)."""
-    dev = torch.device("cpu" if device is None else device)
+    """The device a simulator's tensors live on: the CUDA device unless the
+    caller names another (``device="cpu"`` for the plain versions).  Raises
+    when CUDA is asked for, or left as the default, and there is no card:
+    the port never falls back to the CPU on its own."""
+    dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but "
                            "torch.cuda.is_available() is False")

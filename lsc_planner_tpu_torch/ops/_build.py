@@ -23,7 +23,7 @@ import torch
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("chol.cu", "ipm.cu")
+SOURCES = ("chol.cu", "ipm.cu", "wavefront.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -43,12 +43,16 @@ _SIGNATURES = {
                                   ctypes.c_int, _PTR],
     "lsc_chol_resolve_f32": [_PTR, _PTR, _PTR, ctypes.c_int, ctypes.c_int,
                              _PTR],
+    "lsc_chol_factor_f32": [_PTR, _PTR, ctypes.c_int, ctypes.c_int, _PTR],
+    "lsc_chol_factor_f64": [_PTR, _PTR, ctypes.c_int, ctypes.c_int, _PTR],
     "lsc_chol_resolve_f64": [_PTR, _PTR, _PTR, ctypes.c_int, ctypes.c_int,
                              _PTR],
     # 10 inputs, 5 outputs; N, nf, Ru, C, M, n1, iters, correctors; reg,
     # s_min, tol_gap, tol_rp, tol_rd, tol_step; stream
     "lsc_ipm_fused_f32": [_PTR] * 15 + [ctypes.c_int] * 8 +
                          [ctypes.c_float] * 6 + [_PTR],
+    # occ, goal, out, steps; N, Z, Y, X, max_iters; stream
+    "lsc_wavefront_f32": [_PTR] * 4 + [ctypes.c_int] * 5 + [_PTR],
 }
 
 

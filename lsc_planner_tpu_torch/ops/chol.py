@@ -1,7 +1,8 @@
 """Batched Cholesky factor + solve for the IPM, with their plain versions.
 
-Port of the JAX package's TPU kernels behind ``chol_factor_solve`` and
-``chol_resolve`` (the note in ``csrc/chol.cu`` names them).  On a CUDA
+Port of the JAX package's TPU kernels behind ``chol_factor_solve``,
+``chol_resolve`` and ``cholesky_batched`` (the note in ``csrc/chol.cu``
+names them).  On a CUDA
 tensor each wrapper launches its hand-written kernel (``csrc/chol.cu``) or
 raises; on a CPU tensor it runs the plain PyTorch version below.  There is
 no fallback from one to the other.
@@ -9,7 +10,10 @@ no fallback from one to the other.
 Semantics: lower Cholesky without a pivot floor, forward then backward
 substitution; a non-SPD instance yields NaN in its own batch entry only.
 The factor is a plain row-major ``(..., n, n)`` lower triangle, so it can
-be handed to either version of ``chol_resolve``.
+be handed to either version of ``chol_resolve``.  ``cholesky_batched``
+returns the factor alone (zeros above the diagonal, a non-SPD entry's
+lower triangle all NaN); as in the JAX package, nothing on the main path
+calls it.
 """
 from __future__ import annotations
 
@@ -23,12 +27,14 @@ MAX_N = 64
 # versions never count)
 factor_solve_launches = 0
 resolve_launches = 0
+factor_launches = 0
 
 
 def reset_counts() -> None:
-    global factor_solve_launches, resolve_launches
+    global factor_solve_launches, resolve_launches, factor_launches
     factor_solve_launches = 0
     resolve_launches = 0
+    factor_launches = 0
 
 
 # ----------------------------------------------------------------------
@@ -52,6 +58,16 @@ def chol_factor_solve_plain(H, rhs):
 
 def chol_resolve_plain(L, rhs):
     return _solve_plain(L, rhs)
+
+
+def cholesky_batched_plain(H):
+    """Lower factor of H (..., n, n): cholesky_ex with each failed entry's
+    lower triangle NaN, zeros above the diagonal (jnp.linalg.cholesky's
+    NaN on a non-SPD input, chol_pallas.py:13-14)."""
+    L, info = torch.linalg.cholesky_ex(H)
+    L = torch.where((info > 0)[..., None, None],
+                    torch.full_like(L, float("nan")), L)
+    return torch.tril(L)
 
 
 # ----------------------------------------------------------------------
@@ -101,6 +117,23 @@ def _factor_solve_cuda(H, rhs):
     return L.reshape(*batch, n, n), x.reshape(*batch, n)
 
 
+def _factor_cuda(H):
+    global factor_launches
+    lib = _build.load_library()
+    H3, _, batch, n = _check(H, H[..., 0], "cholesky_batched")
+    B = H3.shape[0]
+    L = torch.empty_like(H3)
+    with torch.cuda.device(H.device):
+        stream = torch.cuda.current_stream(H.device).cuda_stream
+        err = getattr(lib, "lsc_chol_factor_" + _suffix(H.dtype))(
+            H3.data_ptr(), L.data_ptr(), B, n, stream)
+    if err:
+        raise RuntimeError(f"cholesky_batched kernel launch failed: CUDA "
+                           f"error {err}")
+    factor_launches += 1
+    return L.reshape(*batch, n, n)
+
+
 def _resolve_cuda(L, rhs):
     global resolve_launches
     lib = _build.load_library()
@@ -138,3 +171,13 @@ def chol_resolve(L, rhs):
     if L.device.type == "cuda":
         return _resolve_cuda(L, rhs)
     raise RuntimeError(f"chol_resolve: no kernel for device {L.device}")
+
+
+def cholesky_batched(H):
+    """Lower Cholesky factor of H (..., n, n), zeros above the diagonal;
+    a non-SPD entry comes back with its lower triangle NaN."""
+    if H.device.type == "cpu":
+        return cholesky_batched_plain(H)
+    if H.device.type == "cuda":
+        return _factor_cuda(H)
+    raise RuntimeError(f"cholesky_batched: no kernel for device {H.device}")

@@ -27,7 +27,8 @@ P_blk (N, nf, nf); q, y0 (N, 3 nf); U (3, Ru, nf) pre-scaled unique static
 plane normals; scale, b_pl (N, C, M, n+1) row scales (0 = masked) and
 scaled bounds (-1 = masked); F_seg (M, n+1, nf); sigma (N,).
 Returns (y (N, nv), lam_s (N, 2, 3 Ru), lam_p (N, C M (n+1)) c-major,
-gap (N,), iters_used (N,) int32 tile counts).
+gap (N,), iters_used (N,) int32 tile counts, or each QP's own count with
+``qp_counts=True``).
 """
 from __future__ import annotations
 
@@ -111,7 +112,8 @@ def ipm_lsc_fused_plain(P_blk, q, y0, U, b_pairs, nsc, scale, b_pl, F_seg,
                         sigma=None, *, iters: int = 14, reg: float = 1e-8,
                         s_min: float = 1.0, tol_gap: float = 1e-3,
                         tol_rp: float = 1e-4, tol_rd: float = 0.05,
-                        tol_step: float = 0.0, correctors: int = 0):
+                        tol_step: float = 0.0, correctors: int = 0,
+                        qp_counts: bool = False):
     """Plain PyTorch transcription of ``_ipm_kernel``'s arithmetic, batch
     first, in the dtype it is given (the kernel's oracle; f64 for a
     reference).  Same arguments and returns as ``ipm_lsc_fused``."""
@@ -285,7 +287,7 @@ def ipm_lsc_fused_plain(P_blk, q, y0, U, b_pairs, nsc, scale, b_pl, F_seg,
 
     gap = _rowsum(s_sp * l_sp, s_sm * l_sm, s_pl * l_pl) / nr
     return (y, torch.stack([l_sp, l_sm], dim=1), l_pl, gap,
-            tile_counts(it_qp))
+            it_qp if qp_counts else tile_counts(it_qp))
 
 
 # ----------------------------------------------------------------------
@@ -332,7 +334,7 @@ def _check(P_blk, q, y0, U, b_pairs, nsc, scale, b_pl, F_seg, sigma):
 
 def _fused_cuda(P_blk, q, y0, U, b_pairs, nsc, scale, b_pl, F_seg, sigma,
                 *, iters, reg, s_min, tol_gap, tol_rp, tol_rd, tol_step,
-                correctors):
+                correctors, qp_counts=False):
     global fused_launches
     lib = _build.load_library()
     N, nf, Ru, C, M, n1 = _check(P_blk, q, y0, U, b_pairs, nsc, scale, b_pl,
@@ -356,7 +358,7 @@ def _fused_cuda(P_blk, q, y0, U, b_pairs, nsc, scale, b_pl, F_seg, sigma,
         raise RuntimeError(f"ipm_lsc_fused kernel launch failed: CUDA error "
                            f"{err}")
     fused_launches += 1
-    return y, lam_s, lam_p, gap, tile_counts(it_qp)
+    return y, lam_s, lam_p, gap, it_qp if qp_counts else tile_counts(it_qp)
 
 
 # ----------------------------------------------------------------------
@@ -366,18 +368,21 @@ def ipm_lsc_fused(P_blk, q, y0, U, b_pairs, nsc, scale, b_pl, F_seg,
                   sigma=None, *, iters: int = 14, reg: float = 1e-8,
                   s_min: float = 1.0, tol_gap: float = 1e-3,
                   tol_rp: float = 1e-4, tol_rd: float = 0.05,
-                  tol_step: float = 0.0, correctors: int = 0):
+                  tol_step: float = 0.0, correctors: int = 0,
+                  qp_counts: bool = False):
     """Solve a batch of factored-row LSC QPs in one fused launch (float32,
     3-D, C <= 64).  ``iters`` is a cap: a QP stops once its gap <
     tol_gap * sigma, primal residual < tol_rp and (dual residual < tol_rd
     or applied step < tol_step) hold on the new iterate; a tolerance of 0
-    runs every iteration.  See the module docstring for shapes."""
+    runs every iteration.  ``qp_counts`` returns each QP's own iteration
+    count (the iterations its block ran) in place of its tile's.  See the
+    module docstring for shapes."""
     if sigma is None:
         sigma = torch.ones(q.shape[0], dtype=q.dtype, device=q.device)
     args = (P_blk, q, y0, U, b_pairs, nsc, scale, b_pl, F_seg, sigma)
     kw = dict(iters=iters, reg=reg, s_min=s_min, tol_gap=tol_gap,
               tol_rp=tol_rp, tol_rd=tol_rd, tol_step=tol_step,
-              correctors=correctors)
+              correctors=correctors, qp_counts=qp_counts)
     if q.device.type == "cuda":
         return _fused_cuda(*args, **kw)
     if q.device.type != "cpu":

@@ -1,5 +1,5 @@
-"""LSC collision constraints (port of pair_downwash, lsc_planes and
-concat_planes from lsc_planner_tpu/planner/constraints.py).
+"""LSC and SFC collision constraints (port of pair_downwash, lsc_planes,
+sfc_planes and concat_planes from lsc_planner_tpu/planner/constraints.py).
 
 One batched tensor program over every (agent, obstacle, segment) triple
 (generateLSC, traj_planner.cpp:1310-1407).  Contractions over the 3-D
@@ -65,6 +65,31 @@ def lsc_planes(init_traj, obs_pred, agent_radius, agent_downwash,
     rhs = d + (obs_pred * normal[..., None, :]).sum(-1)
     mask = obs_mask[..., None].expand(N, O, M)
     return PlaneConstraints(normal=normal, rhs=rhs, mask=mask)
+
+
+def sfc_planes(boxes, active, init_traj=None,
+               guard_margin: float = 0.0) -> PlaneConstraints:
+    """Safe Flight Corridor box faces as planes (Box::convertToLSCs,
+    collision_constraints.cpp:37-59): boxes (N, M, 6) [min, max]; active
+    (N,) or scalar bool.  Six rows a segment box: +e_k >= box_min_k and
+    -e_k >= -box_max_k.  With init_traj (N, M, n+1, 3) each face is pulled
+    in by the lsc_planes guard band, min(guard, s0/2), s0 that control
+    point's slack at the initial trajectory."""
+    N, M = boxes.shape[:2]
+    eye = torch.eye(3, dtype=boxes.dtype, device=boxes.device)
+    normals = torch.cat([eye, -eye], dim=0)                  # (6, 3)
+    normal = normals[None, :, None, :].expand(N, 6, M, 3)
+    rhs = torch.cat([boxes[..., :3], -boxes[..., 3:]], dim=-1)   # (N, M, 6)
+    rhs = rhs.permute(0, 2, 1)[..., None]                    # (N, 6, M, 1)
+    if guard_margin > 0.0 and init_traj is not None:
+        lhs0 = (normals[None, :, None, None, :] *
+                init_traj[:, None]).sum(-1)                  # (N, 6, M, n+1)
+        rhs = rhs + torch.clamp(0.5 * (lhs0 - rhs), 0.0, guard_margin)
+    n1 = rhs.shape[-1]
+    active = torch.as_tensor(active, device=boxes.device).expand(N)
+    mask = active[:, None, None].expand(N, 6, M)
+    return PlaneConstraints(normal=normal, rhs=rhs.expand(N, 6, M, n1),
+                            mask=mask)
 
 
 def concat_planes(*plane_sets, n_ctrl: int) -> PlaneConstraints:

@@ -1,13 +1,14 @@
 """Goal planning stage (port of lsc_planner_tpu/planner/goal.py for the
-STATIC and PRIOR_BASED modes in a world without a grid)."""
+STATIC and PRIOR_BASED modes; with a static world (esdf) the PRIOR_BASED
+sub-goal comes from the grid planner, ops/grid_search.py)."""
 from __future__ import annotations
 
 import dataclasses
 
 import torch
 
-from lsc_planner_tpu.config import GoalMode, Param, SP_INFINITY
-from lsc_planner_tpu.missions import Mission
+from ..config import GoalMode, Param, SP_INFINITY
+from ..missions import Mission
 
 
 def _normalize(v, eps=1e-12):
@@ -19,13 +20,15 @@ def _normalize(v, eps=1e-12):
 class GoalPlanner:
     mission: Mission
     param: Param
-    esdf: object = None
+    esdf: object = None           # world.esdf.ESDF of a static world
+    dtype: torch.dtype = torch.float32
 
     def __post_init__(self):
+        self.grid_planner = None
         if self.esdf is not None:
-            raise NotImplementedError("grid goal planning in octomap worlds "
-                                      "is not ported (ROADMAP queue 1, "
-                                      "item 11)")
+            from ..ops.grid_search import GridPlanner
+            self.grid_planner = GridPlanner(self.mission, self.param,
+                                            self.esdf, dtype=self.dtype)
         if self.param.goal_mode not in (GoalMode.STATIC,
                                         GoalMode.PRIOR_BASED):
             raise NotImplementedError(
@@ -43,17 +46,22 @@ class GoalPlanner:
             obs_pos, obs_goal = pos, desired_goal
             obs_prev_traj = prev_traj if prev_traj is not None \
                 else init_traj
+            obs_radius, obs_downwash = radius, downwash
             self_mask = torch.eye(pos.shape[0], dtype=torch.bool,
                                   device=pos.device)
         if self.param.goal_mode == GoalMode.STATIC:
             return desired_goal, pos
-        return self._prior_based(pos, init_traj, desired_goal, obs_pos,
-                                 obs_goal, obs_prev_traj, self_mask)
+        return self._prior_based(pos, init_traj, desired_goal, radius,
+                                 downwash, obs_pos, obs_goal, obs_prev_traj,
+                                 self_mask, obs_radius, obs_downwash)
 
-    def _prior_based(self, pos, init_traj, desired_goal, obs_pos, obs_goal,
-                     obs_prev_traj, self_mask):
-        """goalPlanningWithPriority (traj_planner.cpp:540-608); with no
-        grid the LOS-free goal is the desired goal (goal.py:152-157)."""
+    def _prior_based(self, pos, init_traj, desired_goal, radius, downwash,
+                     obs_pos, obs_goal, obs_prev_traj, self_mask,
+                     obs_radius, obs_downwash):
+        """goalPlanningWithPriority (traj_planner.cpp:540-608): the grid
+        planner's LOS-free goal in a static world; with no grid it is the
+        desired goal and the path floor is the agent itself
+        (goal.py:148-157)."""
         p = self.param
         dist_to_goal = torch.linalg.vector_norm(pos - desired_goal, dim=-1)
         obs_dist_to_goal = torch.linalg.vector_norm(
@@ -85,10 +93,15 @@ class GoalPlanner:
         too_close = min_dist < p.priority_dist_threshold
 
         init_end = init_traj[:, -1, -1, :]
-        los_goal = desired_goal
+        if self.grid_planner is not None:
+            los_goal, path_floor = self.grid_planner.plan_goals(
+                pos, init_end, desired_goal, radius, downwash, obs_pos,
+                obs_radius, obs_downwash, higher)
+        else:
+            los_goal, path_floor = desired_goal, pos
         delta = los_goal - init_end
         dist = torch.linalg.vector_norm(delta, dim=-1, keepdim=True)
         clamped = torch.where(dist > p.goal_radius,
                               init_end + _normalize(delta) * p.goal_radius,
                               los_goal)
-        return torch.where(too_close[:, None], away, clamped), pos
+        return torch.where(too_close[:, None], away, clamped), path_floor

@@ -17,7 +17,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from lsc_planner_tpu.config import Param, PlannerMode, SP_EPSILON
+from ..config import Param, PlannerMode, SP_EPSILON
 from ..ops import bernstein as bz
 from ..ops import qp as qp_ops
 

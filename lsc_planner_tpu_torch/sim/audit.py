@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..ops.bernstein import nchoosek
 
 
@@ -83,6 +84,17 @@ def step_distance(trajs, dt, record_time_step, time_step):
     return torch.linalg.vector_norm(torch.diff(pos, dim=0), dim=-1).sum()
 
 
+def static_box_safety_ratio(pos, boxes, radius):
+    """Agent-vs-static-AABB safety: exact box distance over agent radius
+    (the box closest-point form, obstacle.hpp:437-478).  pos (N, 3), boxes
+    (B, 6) [min, max], radius (N,)."""
+    lo, hi = boxes[:, :3], boxes[:, 3:]
+    q = torch.clamp(torch.maximum(lo[None] - pos[:, None],
+                                  pos[:, None] - hi[None]), min=0.0)
+    dist = torch.linalg.vector_norm(q, dim=-1)               # (N, B)
+    return torch.amin(dist / radius[:, None])
+
+
 def precision_self_check(device=None, coord: float = 148.0,
                          sep: float = 0.43, tol: float = 1e-3) -> float:
     """Assert that positions_at is exact f32 on `device` (the TF32 guard).
@@ -90,7 +102,7 @@ def precision_self_check(device=None, coord: float = 148.0,
     Two constant-position trajectories at +/-coord, `sep` apart along x,
     are sampled in f32 and compared with the f64 numpy recompute.  Returns
     the max abs error; raises AssertionError above `tol`."""
-    device = torch.device("cpu" if device is None else device)
+    device = resolve_device(device)
     M, n1, dt = 5, 6, 0.2
     base = np.zeros((2, M, n1, 3), np.float64)
     base[0, ..., 0] = coord

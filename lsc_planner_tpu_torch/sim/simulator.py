@@ -4,19 +4,24 @@ of lsc_planner_tpu/sim/simulator.py).
 One cycle for the whole swarm: propagate the previous solutions one time
 step, stall/rescue bookkeeping, previous-solution prediction, the priority
 goal rule, LSC planes, the batched trajectory QP, the QPFAILED fallback and
-the sampled safety audit.  The tables live as tensors on an explicit
-device; the cycle never syncs with the host (the QP's factored path syncs
-only for its early exit), and ``run`` reads one small stats tensor back
-per cycle.
+the sampled safety audit.  In a static world (an ``esdf``, or mission
+``static`` boxes folded into one) the goal rule plans on the wavefront
+grid, each agent's SFC box corridor is updated and its faces join the LSC
+rows, deadlock-rescue waypoints are ray-checked against the ESDF, and the
+static boxes are audited exactly.  The tables live as tensors on the
+simulator's device (the CUDA device unless the caller names another); the
+cycle syncs with the host only for loop exits (the QP's factored path, the
+corridor expansion), and ``run`` reads one small stats tensor back per
+cycle.
 
 With ``max_neighbors = K`` (0 < K < N) each agent keeps LSC rows only for
 its K nearest neighbours, and the cycle reports the density-overflow audit
 of that pruning in ``CycleInfo.knn_overflow``.
 
-Off the ported slice (octomap worlds, static or dynamic obstacles, planner
-modes other than LSC, experiment-mode pose injection, fused multi-cycle
-dispatch) the constructor or the call raises NotImplementedError naming
-its ROADMAP item.
+Off the ported slice (loading .bt octomap files, dynamic obstacles,
+planner modes other than LSC, experiment-mode pose injection, fused
+multi-cycle dispatch) the constructor or the call raises
+NotImplementedError naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -28,21 +33,23 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from lsc_planner_tpu.config import Param, PlannerMode, PredictionMode
-from lsc_planner_tpu.missions import Mission
+from ..config import Param, PlannerMode, PredictionMode
+from ..missions import Mission
 from ..device import resolve_device, synchronize
 from ..ops import bernstein as bz
 from ..planner import constraints as cons
 from ..planner import goal as goal_mod
 from ..planner import prediction as pred
 from ..planner.optimizer import TrajOptimizer
+from ..world.corridor import CorridorBuilder, update_sfc
+from ..world.esdf import ESDF
 from . import audit
 
 
 class SwarmState(NamedTuple):
     """Swarm state carried across planning cycles (fields as in the JAX
-    package; sfc/sfc_initialized/slack_flags are carried unchanged by the
-    empty-world LSC cycle)."""
+    package; sfc is carried unchanged, and slack_flags always cleared, by
+    the empty-world cycle)."""
     traj: torch.Tensor          # (N, M, n+1, 3) current solutions
     pos: torch.Tensor           # (N, 3)
     vel: torch.Tensor           # (N, 3)
@@ -101,10 +108,12 @@ def _update_stall_count(prev_count, best_prev, prev_pos, pos, vel,
 
 
 def _update_rescue(state, pos, desired_goal, stall_count, progress, p,
-                   radius=None, world_min=None, world_max=None,
+                   esdf=None, radius=None, world_min=None, world_max=None,
                    progress_best=None):
-    """Latched deadlock-escape waypoints, empty-world branch of
-    simulator.py:139-305 (no ESDF ray validation).
+    """Latched deadlock-escape waypoints (simulator.py:139-305).  With a
+    static world (esdf) each candidate's straight ray from the agent is
+    checked against the ESDF, and the first admissible one from the
+    escalation phase on is taken.
     Returns (rescue_goal, rescue_active, rescue_phase, stall_count)."""
     path_floor = state.path_floor
     n_cand = 4 if path_floor is None else 5
@@ -153,10 +162,23 @@ def _update_rescue(state, pos, desired_goal, stall_count, progress, p,
         r_c = radius[..., None, None]
         cands = torch.clamp(cands, world_min + r_c, world_max - r_c)
 
-    valid = torch.ones(cands.shape[:-1], dtype=torch.bool,
-                       device=pos.device)
+    if esdf is not None and radius is not None:
+        # the threshold is clamped just under the agent's own clearance, so
+        # a sub-margin pocket still rotates through candidates
+        t = torch.linspace(0.0, 1.0, 9, dtype=pos.dtype, device=pos.device)
+        ray = pos[..., None, None, :] + \
+            (cands - pos[..., None, :])[..., None, :] * \
+            t[None, None, :, None]                         # (N, C, S, 3)
+        min_clear = esdf.at_points(ray).amin(-1)           # (N, C)
+        own_clear = esdf.at_points(pos)[..., None]         # (N, 1)
+        thr = torch.minimum(radius[..., None] + 0.5 * p.world_resolution,
+                            own_clear - 1e-3)
+        valid = min_clear > thr
+    else:
+        valid = torch.ones(cands.shape[:-1], dtype=torch.bool,
+                           device=pos.device)
     if floor_ok is not None:
-        valid[..., 0] = floor_ok
+        valid[..., 0] = valid[..., 0] & floor_ok
 
     # first valid candidate at or after the escalation phase (cyclic)
     order = (torch.arange(n_cand, device=pos.device)[None, :] -
@@ -196,6 +218,7 @@ class SyncSimulator:
     param: Param
     device: object = None
     dtype: torch.dtype = torch.float32
+    esdf: object = None           # world.esdf.ESDF of a static world
 
     def __post_init__(self):
         self.param = self.param.validated()
@@ -207,13 +230,9 @@ class SyncSimulator:
             raise NotImplementedError(
                 f"planner mode {p.planner_mode.value} is not ported "
                 "(ROADMAP queue 1, items 12-13)")
-        if p.world_use_octomap:
-            raise NotImplementedError("octomap worlds are not ported "
-                                      "(ROADMAP queue 1, item 10)")
-        if any(o.kind == "static" for o in self.mission.obstacles):
-            raise NotImplementedError("static obstacles are not ported "
-                                      "(ROADMAP queue 1, item 10)")
-        if self.mission.obstacles:
+        static_specs = [o for o in self.mission.obstacles
+                        if o.kind == "static"]
+        if len(static_specs) < len(self.mission.obstacles):
             raise NotImplementedError("dynamic obstacles are not ported "
                                       "(ROADMAP queue 1, item 12)")
         if p.multisim_experiment:
@@ -221,7 +240,6 @@ class SyncSimulator:
                                       "slack rows are not ported (ROADMAP "
                                       "queue 1, item 12)")
         self.optimizer = TrajOptimizer(p)
-        self.goal_planner = goal_mod.GoalPlanner(self.mission, p)
 
         arrs = self.mission.agent_arrays()
 
@@ -244,6 +262,52 @@ class SyncSimulator:
         # farther apart than this cannot interact within one horizon
         self._knn_cutoff = float(2.0 * np.max(arrs["max_vel"]) * p.M * p.dt +
                                  2.0 * np.max(arrs["radius"]))
+
+        # static boxes are world geometry (simulator.py:351-380): folded
+        # into the ESDF, so the corridor, the grid planner, the rescue ray
+        # checks and the compatibility gate see them, and audited exactly
+        if self.esdf is not None:
+            self.esdf = self.esdf.to(device=self.device)
+        if static_specs:
+            boxes = np.stack([
+                np.concatenate([np.asarray(o.pose, float) -
+                                np.asarray(o.dimensions, float),
+                                np.asarray(o.pose, float) +
+                                np.asarray(o.dimensions, float)])
+                for o in static_specs])
+            self.static_boxes = t(boxes)
+            if self.esdf is not None:
+                self.esdf = self.esdf.merge_boxes(boxes)
+            else:
+                self.esdf = ESDF.from_boxes(
+                    boxes, self.mission.world_min, self.mission.world_max,
+                    resolution=p.world_resolution, dtype=self.dtype,
+                    device=self.device)
+        else:
+            self.static_boxes = t(np.zeros((0, 6)))
+
+        self.corridor = None
+        if self.esdf is not None:
+            # mission/world compatibility gate: a start or goal inside the
+            # static world makes the SFC seed infeasible (the reference
+            # throws from expandBoxFromPoint, corridor_constructor.hpp:35-38)
+            s_clear = self.esdf.at_points(self.start).cpu().numpy()
+            g_clear = self.esdf.at_points(self.desired_goal).cpu().numpy()
+            r = np.asarray(arrs["radius"])
+            bad = [(qi, float(s_clear[qi]), float(g_clear[qi]))
+                   for qi in range(self.N)
+                   if s_clear[qi] < r[qi] or g_clear[qi] < r[qi]]
+            if bad:
+                raise ValueError(
+                    "mission incompatible with world: start/goal inside or "
+                    f"too close to static obstacles for agents {bad} "
+                    "(agent, start clearance, goal clearance)")
+            self.corridor = CorridorBuilder(
+                self.esdf, self.mission.world_min, self.mission.world_max,
+                agent_radius=float(self.mission.agents[0].radius),
+                dtype=self.dtype)
+        self.goal_planner = goal_mod.GoalPlanner(self.mission, p, self.esdf,
+                                                 dtype=self.dtype)
 
     # ------------------------------------------------------------------
     def initial_state(self) -> SwarmState:
@@ -314,13 +378,14 @@ class SyncSimulator:
     def plan_block(self, pos, vel, acc, init, seq, pred_global,
                    obs_pos_global, obs_goal_global, obs_prev_global,
                    self_mask, radius, downwash, nominal_velocity, max_vel,
-                   max_acc, desired_goal, rescue_goal=None,
-                   rescue_active=None):
+                   max_acc, desired_goal, sfc_prev=None, sfc_initialize=None,
+                   sfc_seed=None, rescue_goal=None, rescue_active=None):
         """Plan one block of agents (L, ...) against the global obstacle
-        view (N_total, ...): goals, K-NN pruning, LSC planes, QP.  Returns
-        (QPResult, current_goal, knn_overflow, path_floor); knn_overflow
-        (L,) flags agents whose K-th nearest neighbour is still inside the
-        interaction ball (None without pruning)."""
+        view (N_total, ...): goals, K-NN pruning, LSC planes, the SFC
+        corridor in a static world, QP.  Returns (QPResult, current_goal,
+        sfc, knn_overflow, path_floor); knn_overflow (L,) flags agents
+        whose K-th nearest neighbour is still inside the interaction ball
+        (None without pruning); sfc is sfc_prev without a static world."""
         p = self.param
         L = pos.shape[0]
         O = pred_global.shape[0]
@@ -357,7 +422,18 @@ class SyncSimulator:
             init, obs_pred, radius, downwash, obs_radius, obs_downwash,
             torch.ones((L, O), dtype=torch.bool, device=pos.device),
             obs_mask, guard_margin=p.lsc_guard_margin)
-        planes = cons.concat_planes(planes, n_ctrl=n + 1)
+
+        # SFC corridors against the static world (generateFeasibleSFC,
+        # traj_planner.cpp:1451-1491), their faces after the LSC rows
+        sfc = sfc_prev
+        if self.corridor is not None:
+            sfc, _ = update_sfc(sfc_prev, sfc_seed, current_goal,
+                                self.corridor, sfc_initialize)
+            sfc_pl = cons.sfc_planes(sfc, active=True, init_traj=init,
+                                     guard_margin=p.lsc_guard_margin)
+            planes = cons.concat_planes(planes, sfc_pl, n_ctrl=n + 1)
+        else:
+            planes = cons.concat_planes(planes, n_ctrl=n + 1)
 
         # warm start from the (feasible) shifted previous solution
         y_warm = self.optimizer.extract_y(init).to(self.dtype)
@@ -366,7 +442,7 @@ class SyncSimulator:
             max_vel=max_vel, max_acc=max_acc, planes=planes,
             world_min=self.world_min, world_max=self.world_max,
             y_warm=y_warm, dtype=self.dtype)
-        return res, current_goal, knn_overflow, path_floor
+        return res, current_goal, sfc, knn_overflow, path_floor
 
     def _patrol_swap(self, state: SwarmState, pos):
         """PATROL: swap start and desired goal at the goal
@@ -395,7 +471,8 @@ class SyncSimulator:
         if p.deadlock_rescue:
             rescue_goal, rescue_active, rescue_phase, stall_count = \
                 _update_rescue(state, pos, desired_goal, stall_count,
-                               progress, p, radius=self.radius,
+                               progress, p, esdf=self.esdf,
+                               radius=self.radius,
                                world_min=self.world_min,
                                world_max=self.world_max,
                                progress_best=progress_best)
@@ -404,14 +481,21 @@ class SyncSimulator:
 
         init, prediction = self.predict_and_init(state.traj, pos, vel,
                                                  state.seq)
-        res, current_goal, knn_overflow, path_floor = self.plan_block(
+        # SFC seed: the previous solution's endpoint, or the current
+        # position on (re-)initialization (traj_planner.cpp:1454-1473)
+        sfc_initialize = ~state.sfc_initialized
+        sfc_seed = torch.where(sfc_initialize[:, None], pos,
+                               state.traj[:, -1, -1, :])
+        res, current_goal, sfc, knn_overflow, path_floor = self.plan_block(
             pos, vel, acc, init, state.seq, pred_global=prediction,
             obs_pos_global=pos, obs_goal_global=desired_goal,
             obs_prev_global=state.traj, self_mask=self.self_mask,
             radius=self.radius, downwash=self.downwash,
             nominal_velocity=self.nominal_velocity, max_vel=self.max_vel,
             max_acc=self.max_acc, desired_goal=desired_goal,
-            rescue_goal=rescue_goal, rescue_active=rescue_active)
+            sfc_prev=state.sfc, sfc_initialize=sfc_initialize,
+            sfc_seed=sfc_seed, rescue_goal=rescue_goal,
+            rescue_active=rescue_active)
 
         # QPFAILED report + feasible fallback (simulator.py:890-898): a
         # failing agent keeps its shifted previous solution
@@ -423,6 +507,12 @@ class SyncSimulator:
             p.multisim_record_time_step, p.multisim_time_step)
         step_dist = audit.step_distance(
             traj, p.dt, p.multisim_record_time_step, p.multisim_time_step)
+        safety_obs = state.safety_obs_min
+        if self.static_boxes.shape[0]:
+            safety_obs = torch.minimum(safety_obs,
+                                       audit.static_box_safety_ratio(
+                                           pos, self.static_boxes,
+                                           self.radius))
 
         new_state = SwarmState(
             traj=traj, pos=pos, vel=vel, acc=acc,
@@ -431,10 +521,10 @@ class SyncSimulator:
             safety_agent_min=torch.minimum(state.safety_agent_min,
                                            safety_step),
             distance=state.distance + step_dist,
-            sfc=state.sfc,
+            sfc=sfc,
             sfc_initialized=torch.ones_like(state.sfc_initialized),
             start=start, desired_goal=desired_goal,
-            safety_obs_min=state.safety_obs_min,
+            safety_obs_min=safety_obs,
             stall_count=stall_count, rescue_goal=rescue_goal,
             rescue_active=rescue_active, rescue_phase=rescue_phase,
             slack_flags=(torch.zeros_like(state.slack_flags)

@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 import torch
 
-from lsc_planner_tpu_torch.ops import chol, ipm, qp
+from lsc_planner_tpu_torch.ops import chol, ipm, qp, wavefront
 
 
 @pytest.fixture
@@ -17,6 +17,31 @@ def cuda():
                     "python -m pytest --noconftest -m cuda "
                     "tests/test_torch_cuda.py")
     return torch.device("cuda")
+
+
+def forest_mission(mis, seed, qn=20, n_trees=60,
+                   world=(-5.0, -5.0, 0.0, 5.0, 5.0, 2.5)):
+    """A seeded synthetic forest (simple_forest's statistics at qn = 20,
+    n_trees = 60): make_random_mission(qn, world, seed) of the missions
+    module `mis` (either package's), plus n_trees full-height 0.3 x 0.3 m
+    tree columns as `static` boxes, centres uniform over the world (inset
+    0.15 m) and none within 0.5 m (horizontally) of a start or goal."""
+    m = mis.make_random_mission(qn, world=world, seed=seed)
+    keep = np.array([a.start[:2] for a in m.agents] +
+                    [a.goal[:2] for a in m.agents], dtype=np.float64)
+    lo, hi = np.asarray(world[:2]) + 0.15, np.asarray(world[3:5]) - 0.15
+    zc, zh = 0.5 * (world[2] + world[5]), 0.5 * (world[5] - world[2])
+    rng = np.random.default_rng(seed)
+    trees = []
+    while len(trees) < n_trees:
+        c = rng.uniform(lo, hi)
+        if np.min(np.linalg.norm(keep - c, axis=1)) > 0.5:
+            trees.append(c)
+    m.obstacles = [mis.ObstacleSpec(kind="static",
+                                    pose=np.array([c[0], c[1], zc]),
+                                    dimensions=np.array([0.15, 0.15, zh]))
+                   for c in trees]
+    return m
 
 
 def ipm_like_system(B, n=39, seed=0, cond=1e3):
@@ -145,6 +170,11 @@ def test_fused_kernel_matches_plain(cuda, B, C):
         assert (got[4] - plain[4]).abs().max().item() <= 1
         for t in got[:4]:
             assert torch.isfinite(t).all()
+        # each QP's own count: its tile maximum is the reported count
+        own = ipm.ipm_lsc_fused(*a32, **kw, qp_counts=True)[4]
+        own_p = ipm.ipm_lsc_fused_plain(*a32, **kw, qp_counts=True)[4]
+        assert torch.equal(ipm.tile_counts(own), got[4])
+        assert (own - own_p).abs().max().item() <= 1
 
 
 @pytest.mark.cuda
@@ -216,3 +246,100 @@ def test_fused_dispatch_raises_and_off_runs(cuda):
     arr = [torch.as_tensor(a, device=cuda) for a in fused_problem(4, 5)]
     with pytest.raises(TypeError, match="float32"):
         ipm.ipm_lsc_fused(*arr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 64, 130])
+def test_cholesky_batched_kernel_matches_plain(cuda, B):
+    """The factor-only kernel against its plain version (cholesky_ex) in
+    f32 and f64: f32 within 1e-4 relative of the f64 factor as the plain
+    f32 one is, zeros above the diagonal, one launch; a non-SPD entry's
+    lower triangle is NaN in both, and only that entry is."""
+    Hs, _, _ = ipm_like_system(B, seed=B)
+    bad = B // 2 if B > 1 else None
+    if bad is not None:
+        Hs[bad, 7, 7] = -1.0
+    H64 = torch.as_tensor(Hs, device=cuda)
+    L64 = chol.cholesky_batched_plain(H64)
+    chol.reset_counts()
+    Lk64 = chol.cholesky_batched(H64)
+    Lk = chol.cholesky_batched(H64.float())
+    torch.cuda.synchronize()
+    assert chol.factor_launches == 2
+    Lp = chol.cholesky_batched_plain(H64.float())
+    for L in (Lk64, Lk, Lp):
+        fin = torch.isfinite(L).all(-1).all(-1)
+        assert (~fin).nonzero().flatten().tolist() == \
+            ([] if bad is None else [bad])
+        if bad is not None:
+            assert torch.isnan(L[bad][torch.tril(
+                torch.ones_like(L[bad], dtype=torch.bool))]).all()
+        assert torch.equal(torch.triu(L, 1), torch.zeros_like(L))
+    ok = torch.arange(B, device=cuda) != bad
+    torch.testing.assert_close(Lk64[ok], L64[ok], rtol=1e-12, atol=1e-12)
+    e_k = (Lk[ok].double() - L64[ok]).abs().max().item()
+    e_p = (Lp[ok].double() - L64[ok]).abs().max().item()
+    assert e_k <= 4 * e_p + 1e-6, (e_k, e_p)
+
+
+def wavefront_case(shape, seed, fill=0.2):
+    """Random occupancy (f32, 1 = blocked) with an occupied goal for agent
+    0 and goal cells (z, y, x) int32, on the CPU."""
+    rng = np.random.default_rng(seed)
+    N, Z, Y, X = shape
+    occ = (rng.uniform(size=shape) < fill).astype(np.float32)
+    goal = np.stack([rng.integers(0, Z, N), rng.integers(0, Y, N),
+                     rng.integers(0, X, N)], -1).astype(np.int32)
+    occ[0, goal[0, 0], goal[0, 1], goal[0, 2]] = 1.0
+    return torch.as_tensor(occ), torch.as_tensor(goal)
+
+
+def forest_static_case(device, seed=0):
+    """forest20's static occupancy (radius + grid margin) for its 20 goals,
+    at the kernel's (N, Z, Y, X) = (20, 11, 41, 41), and the cap 139."""
+    from lsc_planner_tpu_torch import GoalMode, Param, missions
+    from lsc_planner_tpu_torch.sim.simulator import SyncSimulator
+
+    sim = SyncSimulator(forest_mission(missions, seed),
+                        Param(goal_mode=GoalMode.PRIOR_BASED), device=device)
+    grid = sim.goal_planner.grid_planner
+    occ = grid.static_occupancy(0.15)[None].expand(sim.N, *grid.dims)
+    goal = grid.to_cell(sim.desired_goal).flip(-1)
+    return (occ.permute(0, 3, 2, 1).float().contiguous(), goal.int(),
+            grid.max_wavefront_iters)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,max_iters", [
+    ((3, 5, 21, 21), 70), ((3, 5, 21, 21), 8), ((4, 7, 13, 29), 13),
+    ((20, 11, 41, 41), 139), ((2, 1, 1, 1), 8)])
+def test_wavefront_kernel_bit_exact(cuda, shape, max_iters):
+    """The kernel against its plain version on the card, bit for bit, the
+    relaxation step counts included; also where the cap ends the loop."""
+    occ, goal = wavefront_case(shape, seed=sum(shape) + max_iters)
+    occ, goal = occ.to(cuda), goal.to(cuda)
+    want, want_steps = wavefront.wavefront_batched_plain(occ, goal,
+                                                         max_iters)
+    wavefront.reset_counts()
+    got, steps = wavefront.wavefront_batched_steps(occ, goal, max_iters)
+    torch.cuda.synchronize()
+    assert wavefront.wavefront_launches == 1
+    assert torch.equal(got, want)
+    assert torch.equal(steps, want_steps)
+
+
+@pytest.mark.cuda
+def test_wavefront_kernel_forest_fields(cuda):
+    """forest20's static fields: bit-exact, converged below the cap, and
+    the goal cells at 0."""
+    occ, goal, cap = forest_static_case(cuda)
+    want, want_steps = wavefront.wavefront_batched_plain(occ, goal, cap)
+    got, steps = wavefront.wavefront_batched_steps(occ, goal, cap)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(steps, want_steps)
+    assert int(steps.max()) < cap
+    g = goal.long()
+    assert bool((got[torch.arange(20), g[:, 0], g[:, 1], g[:, 2]] == 0).all())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        wavefront.wavefront_batched(torch.zeros((1, 11, 61, 61),
+                                                device=cuda), goal[:1])

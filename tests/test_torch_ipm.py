@@ -101,6 +101,21 @@ def test_fused_plain_matches_jax_contract(jax_run):
     assert t[4].tolist() == [15] * 5
 
 
+def test_fused_qp_counts_tile_to_the_reported_counts():
+    """qp_counts=True gives each QP's own iteration count: the same
+    solution, and the tile maximum of those counts is the default count."""
+    arr = [torch.as_tensor(a) for a in _problem()]
+    tile = ipm.ipm_lsc_fused(*arr, **PROD_TOL)
+    own = ipm.ipm_lsc_fused(*arr, **PROD_TOL, qp_counts=True)
+    for a, b in zip(tile[:4], own[:4]):
+        assert torch.equal(a, b)
+    assert torch.equal(ipm.tile_counts(own[4]), tile[4])
+    assert bool((own[4] >= 1).all()) and bool((own[4] <= tile[4]).all())
+    assert own[4].tolist() != tile[4].tolist()      # the QPs differ here
+    off = ipm.ipm_lsc_fused(*arr, **OFF3, qp_counts=True)
+    assert off[4].tolist() == [3] * 5
+
+
 def test_fused_plain_matches_jax_production(jax_run):
     j, t = jax_run("prod"), _port("prod")
     assert 1 < int(j[4][0]) < PROD_TOL["iters"]

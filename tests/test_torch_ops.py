@@ -29,13 +29,26 @@ def _t(a):
 
 
 def test_import_leaves_jax_out():
-    code = ("import sys, lsc_planner_tpu_torch, "
-            "lsc_planner_tpu_torch.convert, "
-            "lsc_planner_tpu_torch.sim.simulator; "
-            "assert 'jax' not in sys.modules, 'jax imported'; "
-            "import torch; "
-            "assert not torch.backends.cuda.matmul.allow_tf32; "
-            "assert not torch.backends.cudnn.allow_tf32")
+    """Every module of the port imports, and neither jax nor any module of
+    the JAX package comes with them."""
+    code = (
+        "import importlib, pkgutil, sys, lsc_planner_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
+        "pkg.__name__ + '.')]\n"
+        "for name in names: importlib.import_module(name)\n"
+        "need = {'lsc_planner_tpu_torch.world.esdf', "
+        "'lsc_planner_tpu_torch.world.corridor', "
+        "'lsc_planner_tpu_torch.ops.grid_search', "
+        "'lsc_planner_tpu_torch.ops.wavefront', "
+        "'lsc_planner_tpu_torch.config', 'lsc_planner_tpu_torch.missions'}\n"
+        "assert need <= set(names), need - set(names)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'lsc_planner_tpu' or "
+        "m.startswith('lsc_planner_tpu.')]\n"
+        "assert not bad, bad\n"
+        "import torch\n"
+        "assert not torch.backends.cuda.matmul.allow_tf32\n"
+        "assert not torch.backends.cudnn.allow_tf32\n")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
 
 
@@ -153,6 +166,25 @@ def test_chol_nan_in_same_entries(rng, dtype):
     assert bad_t.nonzero()[0].tolist() == [2, 4]
 
 
+def test_cholesky_batched_plain_matches_pallas_interpret(rng):
+    """The factor alone in f32 (the TPU kernel is f32): the plain version
+    within relative 1e-4 of the interpret-mode kernel, zeros above the
+    diagonal, and a non-SPD entry non-finite in both, alone."""
+    H, _, _ = _ipm_like(rng, 6, 13, np.float32)
+    H[2, 4, 4] = -3.0
+    Lj = np.asarray(chol_pallas.cholesky_batched(jnp.asarray(H),
+                                                 interpret=True, block_b=8))
+    Lt = chol.cholesky_batched(_t(H)).numpy()
+    bad_j = ~np.isfinite(Lj).all((-2, -1))
+    bad_t = ~np.isfinite(Lt).all((-2, -1))
+    np.testing.assert_array_equal(bad_t, bad_j)
+    assert bad_t.nonzero()[0].tolist() == [2]
+    ok = ~bad_t
+    assert _rel_err(Lt[ok], Lj[ok]) <= 1e-4
+    assert (np.triu(Lt, 1) == 0).all() and (np.triu(Lj, 1) == 0).all()
+    assert np.isnan(np.tril(Lt[2])[np.tril_indices(13)]).all()
+
+
 def test_chol_cuda_branch_raises_without_gpu(rng):
     """A CUDA tensor never reaches the plain versions: without a GPU the
     kernel loader raises, and other devices are refused."""
@@ -165,12 +197,17 @@ def test_chol_cuda_branch_raises_without_gpu(rng):
         chol._factor_solve_cuda(_t(H), _t(r1))
     with pytest.raises(RuntimeError, match="CUDA"):
         chol._resolve_cuda(_t(H), _t(r1))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        chol._factor_cuda(_t(H))
     meta = torch.empty((2, 5, 5), device="meta")
     with pytest.raises(RuntimeError, match="no kernel"):
         chol.chol_factor_solve(meta, torch.empty((2, 5), device="meta"))
     with pytest.raises(RuntimeError, match="no kernel"):
         chol.chol_resolve(meta, torch.empty((2, 5), device="meta"))
+    with pytest.raises(RuntimeError, match="no kernel"):
+        chol.cholesky_batched(meta)
     assert chol.factor_solve_launches == 0 and chol.resolve_launches == 0
+    assert chol.factor_launches == 0
 
 
 def test_chol_plain_versions_do_not_count(rng):
@@ -178,4 +215,30 @@ def test_chol_plain_versions_do_not_count(rng):
     H, r1, r2 = _ipm_like(rng, 3, 7, np.float64)
     L, _ = chol.chol_factor_solve(_t(H), _t(r1))
     chol.chol_resolve(L, _t(r2))
-    assert (chol.factor_solve_launches, chol.resolve_launches) == (0, 0)
+    chol.cholesky_batched(_t(H))
+    assert (chol.factor_solve_launches, chol.resolve_launches,
+            chol.factor_launches) == (0, 0, 0)
+
+
+def test_wavefront_cuda_branch_raises_without_gpu():
+    """The wavefront wrapper never runs the plain version on a CUDA
+    tensor: without a GPU the loader raises; a grid too large for one
+    block's shared memory raises before any launch; the plain version
+    never counts."""
+    from lsc_planner_tpu_torch.ops import wavefront
+
+    wavefront.reset_counts()
+    occ = torch.zeros((2, 3, 4, 5))
+    goal = torch.zeros((2, 3), dtype=torch.int32)
+    wavefront.wavefront_batched(occ, goal, 16)
+    assert wavefront.wavefront_launches == 0
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        wavefront._check(torch.zeros((1, 11, 61, 61)), goal[:1])
+    wavefront._check(torch.zeros((20, 11, 41, 41)),
+                     torch.zeros((20, 3), dtype=torch.int32))
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present; the no-GPU branch cannot run")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        wavefront._wavefront_cuda(occ, goal, 16)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        wavefront.wavefront_batched(occ.to("meta"), goal.to("meta"), 16)

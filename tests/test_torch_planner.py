@@ -7,8 +7,7 @@ import numpy as np
 import pytest
 import torch
 
-from lsc_planner_tpu.config import GoalMode, Param
-from lsc_planner_tpu.missions import make_circle_mission
+from lsc_planner_tpu.config import GoalMode
 from lsc_planner_tpu.planner import constraints as jcons
 from lsc_planner_tpu.planner import goal as jgoal
 from lsc_planner_tpu.planner import prediction as jpred
@@ -17,6 +16,7 @@ from lsc_planner_tpu_torch.planner import constraints as tcons
 from lsc_planner_tpu_torch.planner import goal as tgoal
 from lsc_planner_tpu_torch.planner import prediction as tpred
 from lsc_planner_tpu_torch.sim import audit as taudit
+from torch_parity import missions, params
 
 TOL = 1e-9
 
@@ -88,31 +88,47 @@ def test_prediction_matches(rng):
 @pytest.mark.parametrize("mode", [GoalMode.PRIOR_BASED, GoalMode.STATIC])
 def test_goal_planner_matches(rng, mode):
     N = 8
-    mission = make_circle_mission(N, radius=1.0)
-    p = Param(goal_mode=mode)
+    jm, tm = missions("make_circle_mission", N, radius=1.0)
+    jp, tp = params(goal_mode=mode)
     traj = _swarm(rng, N)
     traj[3] = traj[2] + np.array([0.2, 0.1, 0.0])   # inside the back-away
     pos = traj[:, 0, 0]                             # distance of agent 2
-    goals = np.asarray([a.goal for a in mission.agents])
+    goals = np.asarray([a.goal for a in jm.agents])
     goals[:2] = pos[:2] + 0.05            # two agents near their goals
     radius = np.full(N, 0.15)
     kw = dict(pos=pos, vel=rng.normal(size=(N, 3)), init_traj=traj,
               desired_goal=goals, seq=np.int32(3), radius=radius,
               downwash=np.full(N, 2.0))
-    j = jgoal.GoalPlanner(mission, p).plan(
+    j = jgoal.GoalPlanner(jm, jp).plan(
         **{k: jnp.asarray(v) for k, v in kw.items()}, prev_traj=traj)
-    t = tgoal.GoalPlanner(mission, p).plan(
+    t = tgoal.GoalPlanner(tm, tp).plan(
         **{k: _t(v) for k, v in kw.items()}, prev_traj=_t(traj))
     for a, b in zip(t, j):
         _close(a, b)
 
 
 def test_goal_planner_off_slice_raises():
-    mission = make_circle_mission(4)
+    """Goal modes off the slice raise; with an ESDF the planner builds the
+    grid planner on the JAX package's grid, and the exact castRay option
+    raises."""
+    from lsc_planner_tpu.world.esdf import ESDF as JESDF
+    from lsc_planner_tpu_torch.convert import esdf_from_numpy, esdf_to_numpy
+
+    jm, tm = missions("make_circle_mission", 4)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgoal.GoalPlanner(mission, Param(goal_mode=GoalMode.RIGHT_HAND))
+        tgoal.GoalPlanner(tm, params(goal_mode=GoalMode.RIGHT_HAND)[1])
+    jesdf = JESDF.from_boxes(np.array([[0.5, 0.5, 0.0, 1.0, 1.0, 2.5]]),
+                             jm.world_min, jm.world_max)
+    tesdf = esdf_from_numpy(esdf_to_numpy(jesdf), device="cpu")
+    jp, tp = params()
+    jg = jgoal.GoalPlanner(jm, jp, jesdf).grid_planner
+    tg = tgoal.GoalPlanner(tm, tp, tesdf).grid_planner
+    np.testing.assert_array_equal(tg.dims, jg.dims)
+    assert tg.max_wavefront_iters == jg.max_wavefront_iters
+    _close(tg._grid_pts, jg._grid_pts, 0.0)
+    _close(tg.static_occupancy(0.15), jg.static_occupancy(0.15))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgoal.GoalPlanner(mission, Param(), esdf=object())
+        tgoal.GoalPlanner(tm, params(grid_los_exact_castray=True)[1], tesdf)
 
 
 @pytest.mark.parametrize("inclusive", [False, True])

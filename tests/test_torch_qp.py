@@ -15,6 +15,7 @@ from lsc_planner_tpu.ops import qp as jqp
 from lsc_planner_tpu.planner.optimizer import TrajOptimizer as JOpt
 from lsc_planner_tpu_torch.ops import qp as tqp
 from lsc_planner_tpu_torch.planner.optimizer import TrajOptimizer as TOpt
+from torch_parity import params
 
 Y_TOL = 1e-7
 
@@ -31,14 +32,16 @@ TABLES = ["F", "G", "Q_full", "FQF", "FQ", "endpoint_rows", "F_seg",
 @pytest.mark.parametrize("name", TABLES)
 @pytest.mark.parametrize("kw", [{}, {"n": 7, "phi": 4, "dt": 0.25}])
 def test_optimizer_tables_equal(name, kw):
-    j, t = JOpt(Param(**kw)), TOpt(Param(**kw))
+    jp, tp = params(**kw)
+    j, t = JOpt(jp), TOpt(tp)
     a, b = getattr(j, name), getattr(t, name)
     for x, y in (zip(a, b) if isinstance(a, tuple) else [(a, b)]):
         np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
 
 
 def test_static_rows_and_blocks_equal():
-    j, t = JOpt(Param()), TOpt(Param())
+    jp, tp = params()
+    j, t = JOpt(jp), TOpt(tp)
     np.testing.assert_array_equal(j.static_rows[0], t.static_rows[0])
     assert j.static_rows[1] == t.static_rows[1]
     for x, y in zip(j.static_blocked, t.static_blocked):
@@ -47,7 +50,7 @@ def test_static_rows_and_blocks_equal():
 
 def test_fused_mode_validated():
     with pytest.raises(ValueError, match="qp_fused_mode"):
-        TOpt(Param(qp_fused_mode="interpret"))
+        TOpt(params(qp_fused_mode="interpret")[1])
     with pytest.raises(ValueError, match="fused_mode"):
         tqp.solve_qp_lsc(*[None] * 8, fused_mode="interpret")
 
