@@ -5,7 +5,10 @@
 
 Phases, one line each; any failure raises and exits non-zero:
   1. a CUDA device is required; prints the card's name and power limit
-  2. builds the kernels from lsc_planner_tpu_torch/csrc with nvcc
+  2. builds the kernels from lsc_planner_tpu_torch/csrc with nvcc; prints
+     ptxas's registers, stack and spills a kernel, and the fused IPM's
+     layout (rows in shared or device memory, QPs a block, QPs resident an
+     SM) at the main path's (B, C) = (1024, 32), (64, 64) and (128, 128)
   3. audit.precision_self_check on the card (the TF32 guard)
   4. each chol kernel (factor_solve, resolve, and the factor alone,
      cholesky_batched) against its plain PyTorch version at n = 39,
@@ -17,14 +20,17 @@ Phases, one line each; any failure raises and exits non-zero:
      through the kernels (launch counts = cycles * 40 and cycles * 80)
   6. the fused whole-IPM kernel against its plain version (f32, both held
      to an f64 plain run) on the QPs that the fourth cycle of phases 7 and
-     8 hands it (B = 64, C = 64 and B = 1024, C = 32), with tolerances off
-     (3 iterations) and at Param's tolerances; both times (CUDA events,
-     median of 20)
+     8 hands it (B = 64, C = 64 and B = 1024, C = 32) and that the first
+     cycle of the 128-agent all-pairs circle hands it (B = 128, C = 128),
+     with tolerances off (3 iterations) and at Param's tolerances; both
+     times (CUDA events, median of 20); at Param's tolerances also the
+     kernel's time with the rows forced into the layout it did not pick
   7. flies circle64 again with qp_fused_mode="on": every cycle's QP is one
      launch of the fused kernel, and no chol kernel runs
   8. 40 cycles of the bench's 1024-agent circle swap with K-NN pruning
      (K = 32) through the fused kernel ("auto"), checked for safety and
-     against the JAX package's distance flown
+     against the JAX package's distance flown; stage medians (goal rule,
+     K-NN, LSC planes, optimizer.solve, the fused call, the cycle)
   9. the wavefront kernel against its plain version, bit for bit: on the
      occupancy grids of the fourth cycle of forest20 (priority and static,
      N = 20), on random grids with unreachable cells and an occupied goal,
@@ -36,6 +42,14 @@ Phases, one line each; any failure raises and exits non-zero:
      finished, agent and obstacle safety >= 1, 0 QPFAILED, cycles within
      max(20 %, 10) of the JAX package's CPU f32 run, two wavefront
      launches and 40 factor_solve launches a cycle; stage times
+ 11. 20 cycles of the 128-agent circle swap at Param's all-pairs default
+     (C = 128 row groups a QP) through the fused kernel ("auto"): min
+     safety >= 1, 0 QPFAILED, one fused launch a cycle, distance flown
+     within 10 % of the JAX package's CPU f64 run of the same cycles (its
+     f32 run, 14.4 % below its f64 run, is printed beside it); then the
+     same cycles in f32 through the port's factored IPM on the chol
+     kernels (qp_fused_mode "off"), its distance printed as a second
+     witness
 Then the kernels' JSON line (every kernel: launches on its main path,
 error against its plain version, kernel / plain / library ms, and the
 bound for the same work computed from this run's inputs), and last
@@ -55,6 +69,7 @@ from lsc_planner_tpu_torch import (GoalMode, ObstacleSpec, Param,
                                    make_circle_mission, make_random_mission)
 from lsc_planner_tpu_torch.convert import state_to_numpy
 from lsc_planner_tpu_torch.ops import _build, chol, ipm, wavefront
+from lsc_planner_tpu_torch.planner import constraints
 from lsc_planner_tpu_torch.sim import audit
 from lsc_planner_tpu_torch.sim import simulator as sim_mod
 from lsc_planner_tpu_torch.sim.simulator import SyncSimulator
@@ -75,6 +90,19 @@ BIG_N, BIG_K, BIG_CYCLES = 1024, 32, 40     # bench.py's headline size
 # in every cycle.
 JAX_CPU_F32_DIST_1024 = 6073.22265625
 JAX_CPU_F32_KNN_OVERFLOW_MAX = 0
+# 20 cycles of the 128-agent circle swap at Param's all-pairs default
+# (C = 128 row groups a QP), PRIOR_BASED: the JAX package's SyncSimulator
+# on a CPU (non-fused factored XLA IPM), 20 _cycle_jit calls from the
+# initial state, total distance flown.  In float64 530.7036 m (min safety
+# 2.1833, 0 QPFAILED; the port's own f64 run on a CPU agrees to 1e-7 m);
+# in float32 454.4812 m (min safety 1.4554, 0 QPFAILED), where the port's
+# f32 run of the same factored IPM on a CPU flies 518.2820 m: f32
+# rounding alone moves this distance by more than 10 %, so the phase holds
+# the port's f32 run to the f64 distance and prints the others beside it
+# (tests/test_torch_f32_missions.py circle128 prints these runs).
+ALL_N, ALL_CYCLES = 128, 20
+JAX_CPU_F64_DIST_128 = 530.7035639320115
+JAX_CPU_F32_DIST_128 = 454.4812316894531
 OFF3 = dict(iters=3, tol_gap=0.0, tol_rp=0.0, correctors=1)
 FOREST_N, FOREST_SEED, FOREST_TREES = 20, 0, 60
 FOREST_WORLD = (-5.0, -5.0, 0.0, 5.0, 5.0, 2.5)     # simple_forest's bbox
@@ -134,9 +162,12 @@ def ptxas_summary(log):
     out, name = [], None
     for line in log.splitlines():
         m = re.search(r"Function properties for \S*?([a-z_]+_kernel)"
-                      r"(?:I([fd])E)?", line)
+                      r"(?:I(\w+?)EE?v)?", line)
         if m:
-            name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+            args = re.findall(r"Li(\d+)E|^([fd])|(?<=E)([fd])",
+                              m.group(2) or "")
+            args = [a or b or c for a, b, c in args]
+            name = m.group(1) + (f"<{','.join(args)}>" if args else "")
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
                       line)
         if m and name:
@@ -329,7 +360,8 @@ def fused_obj_primal(args, y):
 def compare_fused(calls):
     """Phase 6: the fused kernel against its plain version in f32, both
     held to an f64 plain run, on captured main-path calls: B = 1024, C = 32
-    (circle1024) and B = 64, C = 64 (circle64 under qp_fused_mode="on").
+    (circle1024), B = 64, C = 64 (circle64 under qp_fused_mode="on") and
+    B = 128, C = 128 (circle128 at Param's all-pairs default).
     The kernel is held to what f32 rounding does to the plain version: its
     y error and (at Param's tolerances, a solution rather than a third
     iterate) its objective error within 4x the plain f32 ones (+ 1e-4 m,
@@ -380,6 +412,22 @@ def compare_fused(calls):
                 checks["primal residual < 1e-4"] = pr_k < 1e-4
             failed += [f"B={B} C={C} {case}: {what}"
                        for what, ok in checks.items() if not ok]
+            if case == "param":
+                # the same call with the rows in the other layout
+                nf, Ru = a32[0].shape[-1], a32[3].shape[1]
+                M, n1 = a32[5].shape[2], a32[6].shape[-1]
+                plan = ipm.fused_plan(B, nf, Ru, C, M, n1)
+                other = "global" if plan["rows_in_smem"] else "smem"
+                alt = ipm.fused_plan(B, nf, Ru, C, M, n1, other)
+                # the captured call passes every keyword _fused_cuda takes
+                t_o = median_ms(lambda: ipm._fused_cuda(
+                    *a32, **kw, rows=other), reps=20)
+                where = "shared" if plan["rows_in_smem"] else "device"
+                phase("6 fused", f"B={B} C={C} param: rows in {where} "
+                                 f"memory, {plan['qps_an_sm']} QPs an SM; "
+                                 f"forced into {other} memory "
+                                 f"({alt['qps_an_sm']} QPs an SM): "
+                                 f"{t_o:.4f} ms")
             if (B, case) == (BIG_N, "param"):
                 main = (e_k, t_k, t_p, fused_bound(a32, kw))
     if failed:
@@ -486,6 +534,14 @@ def fly_circle1024(sim):
                           f"{iters.mean():.2f}, max K-NN overflow "
                           f"{int(overflow.max())} (JAX CPU f32: "
                           f"{JAX_CPU_F32_KNN_OVERFLOW_MAX})")
+    st = stage_times(sim, [(sim.goal_planner, "plan", "goal rule"),
+                           (sim_mod, "knn_select", "knn_select"),
+                           (constraints, "lsc_planes", "lsc_planes"),
+                           (sim.optimizer, "solve", "optimizer.solve"),
+                           (ipm, "ipm_lsc_fused", "fused IPM call")])
+    phase("8 circle1024", "stage ms (median of 5 cycles after 20, a sync "
+                          "around each): " +
+          ", ".join(f"{k} {v:.2f}" for k, v in st.items()))
     return launches[0]
 
 
@@ -574,16 +630,17 @@ def compare_wavefront(dev, forest_sim):
     return main
 
 
-def stage_times(sim, cycles_before=20, timed=5):
-    """Median ms of the grid goal planning, the corridor update and the
-    QP in `timed` cycles after `cycles_before`, each with a sync around
-    it, and of the whole cycle with the stage syncs."""
+def stage_times(sim, stages, cycles_before=20, timed=5):
+    """Median ms of each stage in `timed` cycles after `cycles_before`,
+    each call with a sync around it, and of the whole cycle with the stage
+    syncs.  stages: (owner, attribute, label) of the callables to time,
+    patched for the timed cycles only."""
     state = sim.initial_state()
     for _ in range(cycles_before):
         state, _ = sim.cycle(state)
-    times = {"goal planning (grid)": [], "corridor update": [], "QP": [],
-             "cycle": []}
-    orig = (sim.goal_planner.plan, sim_mod.update_sfc, sim.optimizer.solve)
+    times = {label: [] for _, _, label in stages}
+    times["cycle"] = []
+    orig = [getattr(owner, attr) for owner, attr, _ in stages]
 
     def timed_fn(fn, key):
         def run(*a, **kw):
@@ -594,9 +651,8 @@ def stage_times(sim, cycles_before=20, timed=5):
             times[key].append(1e3 * (time.perf_counter() - t0))
             return out
         return run
-    sim.goal_planner.plan = timed_fn(orig[0], "goal planning (grid)")
-    sim_mod.update_sfc = timed_fn(orig[1], "corridor update")
-    sim.optimizer.solve = timed_fn(orig[2], "QP")
+    for (owner, attr, label), fn in zip(stages, orig):
+        setattr(owner, attr, timed_fn(fn, label))
     try:
         for _ in range(timed):
             torch.cuda.synchronize()
@@ -605,8 +661,8 @@ def stage_times(sim, cycles_before=20, timed=5):
             torch.cuda.synchronize()
             times["cycle"].append(1e3 * (time.perf_counter() - t0))
     finally:
-        del sim.goal_planner.plan, sim.optimizer.solve
-        sim_mod.update_sfc = orig[1]
+        for (owner, attr, _), fn in zip(stages, orig):
+            setattr(owner, attr, fn)
     return {k: statistics.median(v) for k, v in times.items()}
 
 
@@ -659,11 +715,81 @@ def fly_forest20(dev):
                          f"{ms_cycle:.2f} ms/cycle (run wall / cycles; "
                          f"{1e3 * summary['average_planning_time']:.2f} ms "
                          f"mean after the first), launches {launches}")
-    st = stage_times(sim)
+    st = stage_times(sim, [(sim.goal_planner, "plan", "goal planning (grid)"),
+                           (sim_mod, "update_sfc", "corridor update"),
+                           (sim.optimizer, "solve", "QP")])
     phase("10 forest20", "stage ms (median of 5 cycles after 20, a sync "
                          "around each): " +
           ", ".join(f"{k} {v:.2f}" for k, v in st.items()))
     return launches
+
+
+def fly_circle128_factored(dev):
+    """The same cycles as phase 11 on the card in f32 through the other IPM
+    of the port, the factored one on the chol kernels (qp_fused_mode
+    "off"): distance flown."""
+    sim = SyncSimulator(circle_mission(ALL_N),
+                        Param(goal_mode=GoalMode.PRIOR_BASED,
+                              qp_fused_mode="off"), device=dev,
+                        dtype=torch.float32)
+    state = sim.initial_state()
+    for _ in range(ALL_CYCLES):
+        state, _ = sim.cycle(state)
+    return float(state.distance)
+
+
+def fly_circle128_all_pairs(sim):
+    """Phase 11: ALL_CYCLES cycles of the 128-agent circle at Param's
+    all-pairs default (C = 128), "auto", so one fused launch a cycle."""
+    state = sim.initial_state()
+    chol.reset_counts()
+    ipm.reset_counts()
+    stats = []
+    t_wall = time.perf_counter()
+    for _ in range(ALL_CYCLES):
+        state, info = sim.cycle(state)
+        stats.append(torch.stack([
+            info.safety_step_min.double(), info.qp_failed.sum().double(),
+            info.qp_iters.double().mean()]).tolist())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_wall
+    launches = (ipm.fused_launches, chol.factor_solve_launches,
+                chol.resolve_launches)
+    safety, failed, iters = (np.asarray(v) for v in zip(*stats))
+    dist = float(state.distance)
+    if launches != (ALL_CYCLES, 0, 0):
+        raise AssertionError(f"circle128 all pairs: launches (fused, "
+                             f"factor_solve, resolve) {launches}, expected "
+                             f"({ALL_CYCLES}, 0, 0)")
+    if not safety.min() >= 1.0:
+        raise AssertionError(f"circle128 all pairs: collision, safety "
+                             f"{safety.min()}")
+    if failed.sum():
+        raise AssertionError(f"circle128 all pairs: {int(failed.sum())} "
+                             "QPFAILED")
+    if not bool(torch.isfinite(state.pos).all()):
+        raise AssertionError("circle128 all pairs: non-finite positions")
+    rel = abs(dist - JAX_CPU_F64_DIST_128) / JAX_CPU_F64_DIST_128
+    rel32 = (dist - JAX_CPU_F32_DIST_128) / JAX_CPU_F32_DIST_128
+    if not rel <= 0.10:
+        raise AssertionError(f"circle128 all pairs: distance flown {dist} m,"
+                             f" {100 * rel:.1f} % off the JAX CPU f64 run's "
+                             f"{JAX_CPU_F64_DIST_128} m (limit 10 %)")
+    dist_f = fly_circle128_factored(state.pos.device)
+    rel_f = (dist - dist_f) / dist_f
+    phase("11 circle128", f"all pairs (C = {ALL_N}), {ALL_CYCLES} cycles "
+                          f"through the fused kernel: min safety "
+                          f"{safety.min():.4f}, 0 QPFAILED, distance "
+                          f"{dist:.3f} m (JAX CPU f64 "
+                          f"{JAX_CPU_F64_DIST_128:.3f} m, {100 * rel:.2f} % "
+                          f"off; JAX CPU f32 {JAX_CPU_F32_DIST_128:.3f} m, "
+                          f"{100 * rel32:+.2f} %; the port's f32 factored "
+                          f"IPM on the chol kernels {dist_f:.3f} m, "
+                          f"{100 * rel_f:+.2f} %), "
+                          f"{wall / ALL_CYCLES * 1e3:.2f} ms/cycle, "
+                          f"mean tile iterations {iters.mean():.2f}, "
+                          f"{launches[0]} fused launches")
+    return launches[0]
 
 
 def check_mission(summary, param, qn, what):
@@ -707,6 +833,14 @@ def main():
                      f", load {time.perf_counter() - t0:.2f} s")
     if _build.build_log:
         phase("2 build", ptxas_summary(_build.build_log))
+    nf, Ru, M, n1 = 13, 69, 5, 6        # the main path's QP shape
+    for B, C in ((BIG_N, BIG_K), (MAIN_B, MAIN_B), (ALL_N, ALL_N)):
+        pl = ipm.fused_plan(B, nf, Ru, C, M, n1)
+        phase("2 build", f"fused IPM layout at B={B}, C={C}: rows in "
+                         f"{'shared' if pl['rows_in_smem'] else 'device'} "
+                         f"memory, {pl['qps_a_block']} QPs a block, "
+                         f"{pl['smem_bytes']} B shared a block, "
+                         f"{pl['qps_an_sm']} QPs resident an SM")
 
     # 3. TF32 guard
     err = audit.precision_self_check(dev)
@@ -756,8 +890,12 @@ def main():
                           Param(goal_mode=GoalMode.PRIOR_BASED,
                                 qp_fused_mode="on"),
                           device=dev, dtype=torch.float32)
+    all_pairs = SyncSimulator(circle_mission(ALL_N),
+                              Param(goal_mode=GoalMode.PRIOR_BASED),
+                              device=dev, dtype=torch.float32)
     fused_err, fused_ms, fused_plain_ms, fused_bound_ = compare_fused(
-        [capture_fused_call(sim, 3) for sim in (big, small)])
+        [capture_fused_call(big, 3), capture_fused_call(small, 3),
+         capture_fused_call(all_pairs, 0)])
 
     # 7. circle64 through the fused kernel
     fly_circle64_fused(small)
@@ -773,6 +911,9 @@ def main():
 
     # 10. the obstacle-world path: forest20 to the finish
     forest_launches = fly_forest20(dev)
+
+    # 11. all pairs at 128 agents: C = 128 through the fused kernel
+    fly_circle128_all_pairs(all_pairs)
 
     errs, times = results[MAIN_B]
     n, B = N_QP, MAIN_B

@@ -16,29 +16,45 @@
 // at the QP's n = 39 is ~n^3/3 + 2 n^2 ~ 2.3e4 FLOPs and 6 KB of f32
 // input, so a whole B = 64 launch is ~1.5e6 FLOPs and ~0.4 MB -- well
 // under a microsecond of either resource.  What the time is made of is
-// the launch itself, the 2 n block barriers of the column-by-column
-// factorization, and the n-long dependent chains of the substitutions.
-// The design keeps every one of those steps on chip: one thread block per
-// QP instance (B blocks spread over the SMs), H held in shared memory
-// (n^2 words, 6 KB at n = 39 in f32), two barriers per column, and the
-// substitutions run by one warp that keeps the right-hand side in
-// registers (lane l owns rows l and l + 32) and broadcasts each solved
-// entry with a shuffle, so they need no barrier at all.  chol_resolve
-// reloads L into shared memory with the whole block (coalesced) and then
-// solves with one warp.  Several instances per block, register tiling and
-// CUDA-graph capture of the IPM's per-iteration launches are later work.
+// the launch itself, the column-by-column dependence of the factor and
+// the n-long dependent chains of the substitutions.
 //
+// factor_solve: one warp a matrix, four matrices a block (B = 64 is 16
+// blocks).  The warp copies H into its shared-memory tile (coalesced),
+// takes its rows into registers (lane l owns rows l and l + 32,
+// warp_chol.cuh), factors them with the scaled column broadcast by
+// shuffle -- no barrier at all -- and keeps each pivot's reciprocal.  Each
+// column goes back to the tile once it is final; the warp writes the tile
+// out coalesced (zeros above the diagonal) and runs both substitutions
+// from it with the right-hand side in registers, multiplying by the
+// reciprocals.  The
+// kernel is templated on a register capacity NC >= n: 40 for the QP's
+// n = 39 and 64 for the rest, f32 and f64 alike; f64 at n = 39 holds 72
+// doubles of rows a lane.
+// A non-SPD entry (a pivot <= 0 or NaN) comes back with its lower
+// triangle and its x all NaN, as its plain version (cholesky_ex + NaN
+// fill) gives; the other warps of its block never see it.
+//
+// resolve and the factor alone (cholesky_batched) keep the first design:
+// one block of 128 threads a matrix in shared memory, a block-wide
+// factor with two barriers a column (factor_block), the substitutions by
+// one warp (solve_warp).
+
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -shared -Xcompiler -fPIC (lsc_planner_tpu_torch/ops/_build.py).
 // Interface: plain C, pointers to contiguous device memory, the CUDA
 // stream as an opaque pointer; each entry point returns cudaGetLastError().
 
 #include <cuda_runtime.h>
+#include <math.h>
+
+#include "warp_chol.cuh"
 
 namespace {
 
 constexpr int kMaxN = 64;       // two rows per lane in the one-warp solve
 constexpr int kThreads = 128;
+constexpr int kFsWarps = 4;    // matrices a block in factor_solve
 
 // Solve (L L^T) x = rhs for one instance with warp 0.  L is row-major
 // n x n in shared memory (only the lower triangle is read).
@@ -103,26 +119,6 @@ __device__ bool factor_block(T* A, T* col, int n) {
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-factor_solve_kernel(const T* __restrict__ H, const T* __restrict__ rhs,
-                    T* __restrict__ L_out, T* __restrict__ x, int n) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* A = reinterpret_cast<T*>(smem);   // n x n working matrix -> L
-  T* col = A + n * n;                  // scaled column k
-  const int nn = n * n;
-  const size_t b = blockIdx.x;
-  const T* Hb = H + b * nn;
-  for (int e = threadIdx.x; e < nn; e += blockDim.x) A[e] = Hb[e];
-  __syncthreads();
-  factor_block(A, col, n);
-
-  T* Lb = L_out + b * nn;
-  for (int e = threadIdx.x; e < nn; e += blockDim.x)
-    Lb[e] = (e % n) <= (e / n) ? A[e] : T(0);
-  if (threadIdx.x < 32) solve_warp(A, n, rhs + b * n, x + b * n);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
 resolve_kernel(const T* __restrict__ L, const T* __restrict__ rhs,
                T* __restrict__ x, int n) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -141,6 +137,42 @@ template <> __device__ float quiet_nan<float>() {
 }
 template <> __device__ double quiet_nan<double>() {
   return __longlong_as_double(0x7ff8000000000000LL);
+}
+
+// factor_solve: one warp a matrix (see the note at the top); NC >= n.
+template <typename T, int NC>
+__global__ void __launch_bounds__(kFsWarps * 32)
+factor_solve_kernel(const T* __restrict__ H, const T* __restrict__ rhs,
+                    T* __restrict__ L_out, T* __restrict__ x, int n, int B) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int nn = n * n;
+  const size_t b = static_cast<size_t>(blockIdx.x) * kFsWarps + w;
+  if (b >= static_cast<size_t>(B)) return;
+  T* tile = reinterpret_cast<T*>(smem) + w * nn;
+  const T* Hb = H + b * nn;
+#pragma unroll 8
+  for (int e = lane; e < nn; e += 32) tile[e] = Hb[e];    // loads in flight
+  __syncwarp();
+  warp_chol::Rows<T, NC> R;
+  warp_chol::load_rows(R, n, [&](int i, int j) { return tile[i * n + j]; });
+  T rinv0, rinv1;
+  const bool failed = warp_chol::factor(R, n, -static_cast<T>(INFINITY),
+                                        rinv0, rinv1, tile);
+  const T nan = quiet_nan<T>();
+  if (failed)                       // the lower triangle all NaN
+    for (int r = lane; r < n; r += 32)
+      for (int j = 0; j <= r; ++j) tile[r * n + j] = nan;
+  __syncwarp();
+  T* Lb = L_out + b * nn;
+  for (int e = lane; e < nn; e += 32) Lb[e] = tile[e];
+  const int r0 = lane, r1 = lane + 32;
+  T z0 = r0 < n ? rhs[b * n + r0] : T(0);
+  T z1 = r1 < n ? rhs[b * n + r1] : T(0);
+  warp_chol::solve(tile, n, rinv0, rinv1, z0, z1);
+  if (failed) z0 = z1 = nan;
+  if (r0 < n) x[b * n + r0] = z0;
+  if (r1 < n) x[b * n + r1] = z1;
 }
 
 // cholesky_batched: the factor alone; a failed entry's lower triangle is
@@ -173,17 +205,35 @@ int launch_factor(const void* H, void* L, int B, int n, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int NC>
+int launch_factor_solve_nc(const T* H, const T* rhs, T* L, T* x, int B, int n,
+                           cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(kFsWarps) * n * n * sizeof(T);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        factor_solve_kernel<T, NC>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int blocks = (B + kFsWarps - 1) / kFsWarps;
+  factor_solve_kernel<T, NC><<<blocks, kFsWarps * 32, smem, stream>>>(
+      H, rhs, L, x, n, B);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch_factor_solve(const void* H, const void* rhs, void* L, void* x,
                         int B, int n, void* stream) {
   if (n < 1 || n > kMaxN || B < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return static_cast<int>(cudaGetLastError());
-  const size_t smem = static_cast<size_t>(n * n + n) * sizeof(T);
-  factor_solve_kernel<T><<<B, kThreads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(H), static_cast<const T*>(rhs),
-      static_cast<T*>(L), static_cast<T*>(x), n);
-  return static_cast<int>(cudaGetLastError());
+  const T* h = static_cast<const T*>(H);
+  const T* r = static_cast<const T*>(rhs);
+  T* l = static_cast<T*>(L);
+  T* xx = static_cast<T*>(x);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // NC = 40 holds the QP's n = 39; NC = 64 every other n up to kMaxN
+  if (n <= 40) return launch_factor_solve_nc<T, 40>(h, r, l, xx, B, n, st);
+  return launch_factor_solve_nc<T, 64>(h, r, l, xx, B, n, st);
 }
 
 template <typename T>

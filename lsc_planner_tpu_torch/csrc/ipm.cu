@@ -8,30 +8,61 @@
 // scaling with a ridge and the scaled diagonal forced to 1 + 1e-6, a
 // Cholesky whose pivots are floored at 1e-6, predictor, corrector and
 // Gondzio correctors (kept only when they lengthen the steps by more than
-// 0.05) on the same factor, the NaN guard, the per-QP latch, and the exit
-// test on the new iterate.  The plain PyTorch transcription is
-// lsc_planner_tpu_torch/ops/ipm.py::ipm_lsc_fused_plain.
+// 0.05) on the same factor, tau = 0.995, the NaN guard, the per-QP latch,
+// and the exit test on the new iterate.  The plain PyTorch transcription
+// is lsc_planner_tpu_torch/ops/ipm.py::ipm_lsc_fused_plain.
 //
 // What bounds it on an H100: latency, not FLOPs or bytes.  One iteration
-// is ~1.5e5 FLOPs a QP (the Gram ~1.3e5, the factor ~2e4, the row
-// products), and a QP's input is ~60 KB at C = 32, read once.  The time is
-// made of dependent steps: 39 Cholesky columns with two block barriers
-// each, three 39-step triangular substitution chains, and ~20 block-wide
-// min/sum/max reductions an iteration, for up to 40 iterations.
+// is ~2.4e5 operations a QP at C = 32 (the Gram, the factor, the row
+// products), and a QP's input is ~60 KB, read once.  The time is made of
+// dependent steps: the 39 Cholesky columns, three 78-step triangular
+// substitution chains, the passes over the rows and their reductions, for
+// up to 40 iterations.
 //
-// What the design does about that: one thread block per QP (grid = N; the
-// TPU's 128-lane batch axis has no counterpart on Hopper), and every
-// iterate -- slacks, duals, both direction sets, the pre-scaled normals,
-// the bounds, the Gram and its factor, the shared U and F_seg tables -- is
-// kept in shared memory for the whole solve (88 KB at C = 32, 138 KB at
-// C = 64).  Nothing but the problem and the solution crosses device memory.
-// The Gram blocks are formed directly from the rows, without the TPU's
-// UU/FF outer-product tables.  The Gondzio candidate and the current
-// direction live in two buffer sets, and a kept candidate swaps the two
-// instead of copying.  A QP leaves its loop as soon as it latches done;
-// the wrapper turns the per-QP counts into the TPU kernel's per-tile ones.
-// Several QPs per block, a warp-level factor and TMA loads of the row
-// tensors are later work.
+// What the design does about that:
+// * One warp a QP, several QPs a block.  A QP synchronises with
+//   __syncwarp and warp shuffles only: no block barrier after the one that
+//   publishes the block's shared tables, so a QP that latches done leaves
+//   its loop without stalling the QPs beside it.  Every reduction is a
+//   butterfly of shuffles, so every lane holds the same bits and the exit
+//   and keep decisions need no broadcast.
+// * U, F_seg and the Gram's entry tables are loaded once a block.
+// * The factor runs in registers (warp_chol.cuh: lane l owns rows l and
+//   l + 32, each column broadcast by shuffle) and keeps the reciprocal of
+//   each diagonal entry, so the three KKT solves of an iteration multiply
+//   instead of divide; the substitutions read L from the QP's shared tile.
+//   (Forming L^-1 instead would turn each solve into two matrix-vector
+//   products but costs another nv^3/3 chain an iteration; with three
+//   solves an iteration the chains it saves are shorter than it.)
+// * Per row only what the passes cannot recompute cheaply: a plane row
+//   keeps its slack, dual, primal residual, the complementarity right-hand
+//   side of each of the two direction sets, and a copy of its scale (6
+//   floats), its (c, m) block the 3 normal components; a static +- pair
+//   keeps its two slacks, two duals, two primal residuals, Gram weight,
+//   rmv weight, and per direction set two right-hand sides and its value
+//   at dy (14 floats).  Steps ds and dl are recomputed from dy's basis
+//   values wherever a pass needs them; the bounds are read from device
+//   memory once an iteration, by the pass that forms the residuals.
+// * Per-QP bytes (nf = 13, Ru = 69, M = 5, n + 1 = 6): 9.9 KB of vectors
+//   and the 39 x 39 Gram / factor tile, plus the rows: 35.8 KB at C = 32,
+//   60.1 KB at C = 64, 108.9 KB at C = 128; a block's tables take 16.2 KB.
+//   The rows live in shared memory (as many QPs a block as fit: 4 at
+//   C = 32, 1 at C = 128) unless that takes more waves of blocks over the
+//   SMs for the batch than keeping them in a device-memory scratch of the
+//   same layout (4 QPs a block, 55.6 KB); both layouts walk the rows in
+//   the same order, row (c, j) by lane j.  On the H100 (700 W) at B = 1024,
+//   C = 32 that picks device memory (8 QPs an SM, one wave: 3.7 ms against
+//   4.2 ms with 4 QPs an SM in shared memory, two waves); at B = 128,
+//   C = 128 shared memory (1.87 against 3.4 ms).
+// * Registers: ~255 a thread with no spills (the factor's rows are 71 of
+//   them), so 8 QPs resident an SM with the rows in device memory.
+//   Capping them at 128 spilled and ran slower on the H100 (4.7 against
+//   3.7 ms at B = 1024, C = 32): at 1024 QPs an SM holds ~8 anyway.
+// * No runtime integer division in the passes: plane rows are walked as
+//   (j = lane, c = 0..C-1), static rows with k decoded by comparisons, the
+//   Gram's entries through tables built once a block; the kernel is
+//   templated on (nf, M, n + 1) = (13, 5, 6), the main path's shape, with
+//   a generic instantiation (template arguments 0) for every other shape.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -shared -Xcompiler -fPIC (lsc_planner_tpu_torch/ops/_build.py).
@@ -43,12 +74,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "warp_chol.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxNv = 64;       // two rows per lane in the one-warp solves
-constexpr int kMaxC = 64;
+constexpr int kMaxNv = 64;          // two factor rows a lane
+constexpr int kMaxQpb = 8;          // QPs (warps) a block
+constexpr int kGlobalQpb = 4;       // QPs a block with rows in device memory
 constexpr size_t kMaxSmem = 227 * 1024;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -60,665 +92,841 @@ __device__ __forceinline__ float jmax(float a, float b) {
   return (isnan(a) || a > b) ? a : b;
 }
 
-struct OpSum {
-  __device__ static float id() { return 0.f; }
-  __device__ static float f(float a, float b) { return a + b; }
-};
-struct OpMin {
-  __device__ static float id() { return INFINITY; }
-  __device__ static float f(float a, float b) { return jmin(a, b); }
-};
-struct OpMax {
-  __device__ static float id() { return -INFINITY; }
-  __device__ static float f(float a, float b) { return jmax(a, b); }
-};
-
-template <class Op>
-__device__ __forceinline__ float warp_reduce(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = Op::f(v, __shfl_xor_sync(kFull, v, o));
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
   return v;
 }
-
-// Two block-wide reductions at once; every thread gets both results.  Two
-// barriers: the results sit in slots no later call writes before its own
-// first barrier, so no third barrier is needed.
-template <class Op>
-__device__ float2 block_reduce2(float a, float b, float* red) {
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  a = warp_reduce<Op>(a);
-  b = warp_reduce<Op>(b);
-  if (lane == 0) {
-    red[w] = a;
-    red[kWarps + w] = b;
-  }
-  __syncthreads();
-  if (w == 0) {
-    a = lane < kWarps ? red[lane] : Op::id();
-    b = lane < kWarps ? red[kWarps + lane] : Op::id();
-    a = warp_reduce<Op>(a);
-    b = warp_reduce<Op>(b);
-    if (lane == 0) {
-      red[2 * kWarps] = a;
-      red[2 * kWarps + 1] = b;
-    }
-  }
-  __syncthreads();
-  return make_float2(red[2 * kWarps], red[2 * kWarps + 1]);
-}
-
-struct Params {
-  const float *Pb, *q, *y0, *U, *bs, *nsc, *scale, *bpl, *F, *sig;
-  float *y_out, *lam_s, *lam_p, *gap;
-  int* it_out;
-  int N, nf, Ru, C, M, n1, iters, correctors;
-  float reg, s_min, tol_gap, tol_rp, tol_rd, tol_step;
-};
-
-// One direction set: slack and dual steps, the complementarity rhs it was
-// solved for, and the primal step.  The KKT solve stages its row weights
-// in dl_sp / dl_pl before it writes the steps there.
-struct Dirs {
-  float *ds_sp, *ds_sm, *ds_pl, *dl_sp, *dl_sm, *dl_pl, *rc_sp, *rc_sm,
-      *rc_pl, *dy;
-};
-
-struct Smem {
-  float *U, *F, *Pb, *q, *y, *rd, *dsc, *tmp, *H, *col, *xb, *vk, *W, *red,
-      *flag;
-  float *bs0, *bs1, *su, *s_sp, *s_sm, *l_sp, *l_sm, *dpair;
-  float *nscs, *bpl, *plv, *s_pl, *l_pl;
-  Dirs dir[2];
-};
-
-struct Carver {
-  uintptr_t base;
-  size_t off;
-  __host__ __device__ float* take(int n) {
-    float* p = reinterpret_cast<float*>(base + off * sizeof(float));
-    off += static_cast<size_t>((n + 3) & ~3);      // 16-byte aligned slices
-    return p;
-  }
-};
-
-// Lays the shared memory out; returns its size in bytes.
-__host__ __device__ size_t carve(uintptr_t base, int nf, int Ru, int C,
-                                 int M, int n1, Smem* s) {
-  const int MI = M * n1, R = C * MI, S = 3 * Ru, nv = 3 * nf;
-  Carver c{base, 0};
-  s->U = c.take(S * nf);
-  s->F = c.take(MI * nf);
-  s->Pb = c.take(nf * nf);
-  s->q = c.take(nv);
-  s->y = c.take(nv);
-  s->rd = c.take(nv);
-  s->dsc = c.take(nv);
-  s->tmp = c.take(nv);
-  s->H = c.take(nv * nv);
-  s->col = c.take(nv);
-  s->xb = c.take(3 * MI);
-  s->vk = c.take(3 * MI);
-  s->W = c.take(6 * MI);
-  s->red = c.take(2 * kWarps + 2);
-  s->flag = c.take(4);
-  s->bs0 = c.take(S);
-  s->bs1 = c.take(S);
-  s->su = c.take(S);
-  s->s_sp = c.take(S);
-  s->s_sm = c.take(S);
-  s->l_sp = c.take(S);
-  s->l_sm = c.take(S);
-  s->dpair = c.take(S);
-  s->nscs = c.take(3 * R);
-  s->bpl = c.take(R);
-  s->plv = c.take(R);
-  s->s_pl = c.take(R);
-  s->l_pl = c.take(R);
-  for (int d = 0; d < 2; ++d) {
-    Dirs& D = s->dir[d];
-    D.ds_sp = c.take(S);
-    D.ds_sm = c.take(S);
-    D.dl_sp = c.take(S);
-    D.dl_sm = c.take(S);
-    D.rc_sp = c.take(S);
-    D.rc_sm = c.take(S);
-    D.ds_pl = c.take(R);
-    D.dl_pl = c.take(R);
-    D.rc_pl = c.take(R);
-    D.dy = c.take(nv);
-  }
-  return c.off * sizeof(float);
-}
-
-// The (k, l) dimension pairs of the Gram's upper block triangle.
-__constant__ int kPairK[6] = {0, 0, 0, 1, 1, 2};
-__constant__ int kPairL[6] = {0, 1, 2, 1, 2, 2};
-
-struct Ctx {
-  Smem s;
-  int nf, Ru, C, M, n1, MI, R, S, nv;
-};
-
-// xb[k, j] = F_seg[j, :] . v[k, :] -- the plane rows' per-dimension basis
-// values of v.  No barrier.
-__device__ void basis(const Ctx& c, const float* v) {
-  for (int e = threadIdx.x; e < 3 * c.MI; e += kThreads) {
-    const int k = e / c.MI, j = e - k * c.MI;
-    float acc = 0.f;
-    for (int f = 0; f < c.nf; ++f)
-      acc += c.s.F[j * c.nf + f] * v[k * c.nf + f];
-    c.s.xb[e] = acc;
-  }
-}
-
-// value of static +row r at v
-__device__ __forceinline__ float static_row(const Ctx& c, int r,
-                                            const float* v) {
-  const int k = r / c.Ru;
-  float acc = 0.f;
-  for (int f = 0; f < c.nf; ++f) acc += c.s.U[r * c.nf + f] * v[k * c.nf + f];
-  return acc;
-}
-
-// value of plane row r from the basis values in xb
-__device__ __forceinline__ float plane_row(const Ctx& c, int r) {
-  const int j = r % c.MI;
-  float v = c.s.nscs[r] * c.s.xb[j];
-  v = v + c.s.nscs[c.R + r] * c.s.xb[c.MI + j];
-  v = v + c.s.nscs[2 * c.R + r] * c.s.xb[2 * c.MI + j];
+__device__ __forceinline__ float warp_min(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = jmin(v, __shfl_xor_sync(kFull, v, o));
   return v;
 }
-
-// out = A^T w, with w_su the combined (+dual - -dual) static weights.
-// Ends with a barrier.
-__device__ void rmv(const Ctx& c, const float* w_su, const float* w_pl,
-                    float* out) {
-  for (int e = threadIdx.x; e < 3 * c.MI; e += kThreads) {
-    const int k = e / c.MI, j = e - k * c.MI;
-    const float* nk = c.s.nscs + k * c.R;
-    float acc = 0.f;
-    for (int ci = 0; ci < c.C; ++ci) {
-      const int r = ci * c.MI + j;
-      acc += nk[r] * w_pl[r];
-    }
-    c.s.vk[e] = acc;
-  }
-  __syncthreads();
-  for (int t = threadIdx.x; t < c.nv; t += kThreads) {
-    const int k = t / c.nf, f = t - k * c.nf;
-    float a = 0.f;
-    for (int u = 0; u < c.Ru; ++u)
-      a += c.s.U[(k * c.Ru + u) * c.nf + f] * w_su[k * c.Ru + u];
-    float b = 0.f;
-    for (int j = 0; j < c.MI; ++j)
-      b += c.s.F[j * c.nf + f] * c.s.vk[k * c.MI + j];
-    out[t] = a + b;
-  }
-  __syncthreads();
-}
-
-// (P y)[k, g] = sum_f Pb[f, g] y[k, f]
-__device__ __forceinline__ float py(const Ctx& c, const float* y, int t) {
-  const int k = t / c.nf, g = t - k * c.nf;
-  float acc = 0.f;
-  for (int f = 0; f < c.nf; ++f) acc += c.s.Pb[f * c.nf + g] * y[k * c.nf + f];
-  return acc;
-}
-
-// H = P + A^T D A (D = lam / s), Jacobi-scaled with the ridge, unit
-// diagonal forced to 1 + 1e-6, then factored in place (lower triangle)
-// with the 1e-6 pivot floor.  dsc keeps the scaling.
-__device__ void gram_factor(const Ctx& c, float reg) {
-  const Smem& s = c.s;
-  const int nf = c.nf, nv = c.nv, MI = c.MI, R = c.R;
-  for (int r = threadIdx.x; r < c.S; r += kThreads)
-    s.dpair[r] = s.l_sp[r] / s.s_sp[r] + s.l_sm[r] / s.s_sm[r];
-  for (int e = threadIdx.x; e < 6 * MI; e += kThreads) {
-    const int p = e / MI, j = e - p * MI;
-    const float* nk = s.nscs + kPairK[p] * R;
-    const float* nl = s.nscs + kPairL[p] * R;
-    float acc = 0.f;
-    for (int ci = 0; ci < c.C; ++ci) {
-      const int r = ci * MI + j;
-      acc += nk[r] * nl[r] * (s.l_pl[r] / s.s_pl[r]);
-    }
-    s.W[e] = acc;
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < 6 * nf * nf; e += kThreads) {
-    const int p = e / (nf * nf), fg = e - p * nf * nf;
-    const int f = fg / nf, g = fg - f * nf;
-    const int k = kPairK[p], l = kPairL[p];
-    float acc = 0.f;
-    for (int j = 0; j < MI; ++j)
-      acc += s.F[j * nf + f] * s.F[j * nf + g] * s.W[p * MI + j];
-    if (k == l) {
-      float hst = 0.f;
-      for (int u = 0; u < c.Ru; ++u) {
-        const int ru = k * c.Ru + u;
-        hst += s.U[ru * nf + f] * s.U[ru * nf + g] * s.dpair[ru];
-      }
-      acc = acc + hst + s.Pb[f * nf + g];
-    }
-    s.H[(k * nf + f) * nv + l * nf + g] = acc;
-    if (k != l) s.H[(l * nf + g) * nv + k * nf + f] = acc;
-  }
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    const int lane = threadIdx.x;
-    float v = 0.f;
-    for (int i = lane; i < nv; i += 32) v += s.H[i * nv + i];
-    v = warp_reduce<OpSum>(v);
-    const float ridge = reg * jmax(v / static_cast<float>(nv), 1.f);
-    for (int i = lane; i < nv; i += 32)
-      s.dsc[i] = 1.f / sqrtf(s.H[i * nv + i] + ridge);
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < nv * nv; e += kThreads) {
-    const int i = e / nv, j = e - i * nv;
-    if (j < i)
-      s.H[e] = s.H[e] * s.dsc[i] * s.dsc[j];
-    else if (j == i)
-      s.H[e] = 1.f + 1e-6f;
-  }
-  __syncthreads();
-  for (int k = 0; k < nv; ++k) {
-    const float piv = s.H[k * nv + k];
-    const float dk = piv < 1e-6f ? 1e-6f : piv;     // NaN stays NaN
-    const float inv = 1.f / sqrtf(dk);
-    for (int i = k + threadIdx.x; i < nv; i += kThreads)
-      s.col[i] = s.H[i * nv + k] * inv;
-    __syncthreads();
-    const int m = nv - k - 1;
-    for (int e = threadIdx.x; e < m * m; e += kThreads) {
-      const int i = k + 1 + e / m, j = k + 1 + e % m;
-      if (j <= i) s.H[i * nv + j] -= s.col[i] * s.col[j];
-    }
-    for (int i = k + threadIdx.x; i < nv; i += kThreads)
-      s.H[i * nv + k] = s.col[i];
-    __syncthreads();
-  }
-}
-
-// (L L^T) x = z with warp 0; L row-major lower in shared memory, z and x
-// in registers (lane l holds rows l and l + 32).
-__device__ void solve_warp(const float* L, int n, float& z0, float& z1) {
-  const int r0 = threadIdx.x & 31, r1 = r0 + 32;
-  for (int k = 0; k < n; ++k) {
-    const float held = k < 32 ? z0 : z1;
-    const float zk = __shfl_sync(kFull, held, k & 31) / L[k * n + k];
-    if (r0 == k) z0 = zk;
-    if (r1 == k) z1 = zk;
-    if (r0 > k && r0 < n) z0 -= L[r0 * n + k] * zk;
-    if (r1 > k && r1 < n) z1 -= L[r1 * n + k] * zk;
-  }
-  for (int k = n - 1; k >= 0; --k) {
-    const float held = k < 32 ? z0 : z1;
-    const float xk = __shfl_sync(kFull, held, k & 31) / L[k * n + k];
-    if (r0 == k) z0 = xk;
-    if (r1 == k) z1 = xk;
-    if (r0 < k) z0 -= L[k * n + r0] * xk;
-    if (r1 < k) z1 -= L[k * n + r1] * xk;
-  }
-}
-
-// Newton direction for the complementarity rhs in D.rc_*: fills D.dy,
-// D.ds_*, D.dl_*, and flag[d] = 1 when dy is not finite.  Ends with a
-// barrier.
-__device__ void kkt(const Ctx& c, int d) {
-  const Smem& s = c.s;
-  const Dirs& D = s.dir[d];
-  float* w_su = D.dl_sp;           // staged row weights, consumed by rmv
-  float* w_pl = D.dl_pl;
-  for (int r = threadIdx.x; r < c.S; r += kThreads) {
-    const float rp_sp = s.su[r] - s.s_sp[r] - s.bs0[r];
-    const float rp_sm = -s.su[r] - s.s_sm[r] - s.bs1[r];
-    w_su[r] = (D.rc_sp[r] + s.l_sp[r] * rp_sp) / s.s_sp[r] -
-              (D.rc_sm[r] + s.l_sm[r] * rp_sm) / s.s_sm[r];
-  }
-  for (int r = threadIdx.x; r < c.R; r += kThreads) {
-    const float rp_pl = s.plv[r] - s.s_pl[r] - s.bpl[r];
-    w_pl[r] = (D.rc_pl[r] + s.l_pl[r] * rp_pl) / s.s_pl[r];
-  }
-  __syncthreads();
-  rmv(c, w_su, w_pl, s.tmp);
-  if (threadIdx.x < 32) {
-    const int r0 = threadIdx.x, r1 = r0 + 32;
-    float z0 = r0 < c.nv ? s.dsc[r0] * (-s.rd[r0] - s.tmp[r0]) : 0.f;
-    float z1 = r1 < c.nv ? s.dsc[r1] * (-s.rd[r1] - s.tmp[r1]) : 0.f;
-    solve_warp(s.H, c.nv, z0, z1);
-    bool bad = false;
-    if (r0 < c.nv) {
-      const float v = s.dsc[r0] * z0;
-      D.dy[r0] = v;
-      bad = bad || !isfinite(v);
-    }
-    if (r1 < c.nv) {
-      const float v = s.dsc[r1] * z1;
-      D.dy[r1] = v;
-      bad = bad || !isfinite(v);
-    }
-    bad = __any_sync(kFull, bad);
-    if (r0 == 0) s.flag[d] = bad ? 1.f : 0.f;
-  }
-  __syncthreads();
-  basis(c, D.dy);
-  __syncthreads();
-  for (int r = threadIdx.x; r < c.S; r += kThreads) {
-    const float dsu = static_row(c, r, D.dy);
-    const float ds_sp = dsu + (s.su[r] - s.s_sp[r] - s.bs0[r]);
-    const float ds_sm = -dsu + (-s.su[r] - s.s_sm[r] - s.bs1[r]);
-    D.ds_sp[r] = ds_sp;
-    D.ds_sm[r] = ds_sm;
-    D.dl_sp[r] = -(D.rc_sp[r] + s.l_sp[r] * ds_sp) / s.s_sp[r];
-    D.dl_sm[r] = -(D.rc_sm[r] + s.l_sm[r] * ds_sm) / s.s_sm[r];
-  }
-  for (int r = threadIdx.x; r < c.R; r += kThreads) {
-    const float ds_pl = plane_row(c, r) + (s.plv[r] - s.s_pl[r] - s.bpl[r]);
-    D.ds_pl[r] = ds_pl;
-    D.dl_pl[r] = -(D.rc_pl[r] + s.l_pl[r] * ds_pl) / s.s_pl[r];
-  }
-  __syncthreads();
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = jmax(v, __shfl_xor_sync(kFull, v, o));
+  return v;
 }
 
 __device__ __forceinline__ float ratio(float v, float dv) {
   return dv < 0.f ? -v / dv : INFINITY;
 }
 
-// (alpha_p, alpha_d): largest step in (0, 1] keeping slacks / duals above
-// (1 - 0.995) of their value
-__device__ float2 step_lens(const Ctx& c, int d) {
-  const Smem& s = c.s;
-  const Dirs& D = s.dir[d];
-  float mp = INFINITY, md = INFINITY;
-  for (int r = threadIdx.x; r < c.S; r += kThreads) {
-    mp = jmin(mp, jmin(ratio(s.s_sp[r], D.ds_sp[r]),
-                       ratio(s.s_sm[r], D.ds_sm[r])));
-    md = jmin(md, jmin(ratio(s.l_sp[r], D.dl_sp[r]),
-                       ratio(s.l_sm[r], D.dl_sm[r])));
-  }
-  for (int r = threadIdx.x; r < c.R; r += kThreads) {
-    mp = jmin(mp, ratio(s.s_pl[r], D.ds_pl[r]));
-    md = jmin(md, ratio(s.l_pl[r], D.dl_pl[r]));
-  }
-  const float2 m = block_reduce2<OpMin>(mp, md, s.red);
-  return make_float2(jmin(1.f, 0.995f * m.x), jmin(1.f, 0.995f * m.y));
+struct Params {
+  const float *Pb, *q, *y0, *U, *bs, *nsc, *scale, *bpl, *F, *sig;
+  float *y_out, *lam_s, *lam_p, *gap;
+  int* it_out;
+  float* scratch;            // per-QP row slabs when rows_smem == 0
+  size_t slab;               // floats a slab
+  int rows_smem, qpb;
+  int N, nf, Ru, C, M, n1, iters, correctors;
+  float reg, s_min, tol_gap, tol_rp, tol_rd, tol_step;
+};
+
+__host__ __device__ __forceinline__ size_t r4(size_t n) {
+  return (n + 3) & ~static_cast<size_t>(3);       // 16-byte aligned slices
 }
 
-// sum over all rows of (s + a_p ds)(l + a_d dl) (a_p = a_d = 0: s l)
-__device__ float complementarity(const Ctx& c, const Dirs& D, float a_p,
-                                 float a_d, bool with_step) {
-  const Smem& s = c.s;
-  float acc = 0.f;
-  for (int r = threadIdx.x; r < c.S; r += kThreads) {
-    if (with_step) {
-      acc += (s.s_sp[r] + a_p * D.ds_sp[r]) * (s.l_sp[r] + a_d * D.dl_sp[r]);
-      acc += (s.s_sm[r] + a_p * D.ds_sm[r]) * (s.l_sm[r] + a_d * D.dl_sm[r]);
-    } else {
-      acc += s.s_sp[r] * s.l_sp[r] + s.s_sm[r] * s.l_sm[r];
+// Block-wide tables, in this order: U, F_seg, and the Gram's entry lists
+// (the lower triangle of H as i << 8 | j, the static blocks' lower
+// triangles as k << 16 | f << 8 | g).  Sizes in floats.
+__host__ __device__ __forceinline__ size_t shared_floats(int nf, int Ru,
+                                                         int MI) {
+  const int nv = 3 * nf;
+  return r4(3 * Ru * nf) + r4(MI * nf) + r4(nv * (nv + 1) / 2) +
+         r4(3 * nf * (nf + 1) / 2);
+}
+
+// Per-QP vectors, always in shared memory, in this order: Pb, q, y, rd,
+// dsc, tmp, xby (3 MI), W (6 MI), vk (3 MI), H (nv^2), then dy and xbd of
+// direction set 0, then of set 1.
+__host__ __device__ __forceinline__ size_t vec_off(int nf, int MI, int f) {
+  const size_t nv4 = r4(3 * nf), mi3 = r4(3 * MI);
+  const size_t head = r4(nf * nf) + 5 * nv4;          // Pb .. tmp
+  const size_t body = head + mi3 + r4(6 * MI) + mi3 + r4(9 * nf * nf);
+  switch (f) {
+    case 0: return 0;                                  // Pb
+    case 1: return r4(nf * nf);                        // q, y, rd, dsc, tmp
+    case 6: return head;                               // xby
+    case 7: return head + mi3;                         // W
+    case 8: return head + mi3 + r4(6 * MI);            // vk
+    case 9: return head + 2 * mi3 + r4(6 * MI);        // H
+    case 10: return body;                              // dy0
+    case 11: return body + nv4;                        // xbd0
+    case 12: return body + nv4 + mi3;                  // dy1
+    case 13: return body + 2 * nv4 + mi3;              // xbd1
+    default: return body + 2 * (nv4 + mi3);            // total
+  }
+}
+__host__ __device__ __forceinline__ size_t vec_floats(int nf, int MI) {
+  return vec_off(nf, MI, 14);
+}
+
+// Per-QP row state, in shared memory or in a device-memory slab: six
+// plane fields of R floats (slack, dual, primal residual, right-hand side
+// of sets 0 and 1, and a copy of the row scale), the normals (3 floats a
+// (c, m)), then fourteen static fields of S = 3 Ru floats.
+enum PlaneField { kSpl, kLpl, kRp, kRcPl, kScale = 5 };   // kRcPl + d
+enum StaticField { kSsp, kSsm, kLsp, kLsm, kRpSp, kRpSm, kDpair, kWsu, kRcSp,
+                   kRcSm = 10, kDsu = 12 };               // kRcSp + d, ...
+__host__ __device__ __forceinline__ size_t row_floats(int R, int CM, int S) {
+  return 6 * r4(R) + r4(3 * CM) + 14 * r4(S);
+}
+
+// How the right-hand side of a KKT solve is formed, row by row.
+enum Rule { kPredictor, kCorrector, kGondzio };
+
+template <int NF, int MT, int NT>
+struct Qp {
+  static constexpr int NVC = NF ? 3 * NF : kMaxNv;   // factor capacity
+
+  int nf_, M_, n1_, Ru, S, C, R, lane, Rp, Sp;
+  float* sb;                 // the block's tables
+  float* vb;                 // this QP's vectors
+  float* rb;                 // this QP's rows
+  const float *nsc, *scale, *bpl, *bs0, *bs1;
+
+  __device__ __forceinline__ int nf() const { return NF ? NF : nf_; }
+  __device__ __forceinline__ int M() const { return MT ? MT : M_; }
+  __device__ __forceinline__ int n1() const { return NT ? NT : n1_; }
+  __device__ __forceinline__ int MI() const { return M() * n1(); }
+  __device__ __forceinline__ int nv() const { return 3 * nf(); }
+  __device__ __forceinline__ int kof(int t, int n) const {   // t / n, t < 3n
+    return (t >= n) + (t >= 2 * n);
+  }
+
+  // the block's tables
+  __device__ __forceinline__ const float* U() const { return sb; }
+  __device__ __forceinline__ const float* F() const {
+    return sb + r4(S * nf());
+  }
+  __device__ __forceinline__ const int* hent() const {
+    return reinterpret_cast<const int*>(F() + r4(MI() * nf()));
+  }
+  __device__ __forceinline__ const int* sent() const {
+    return hent() + r4(nv() * (nv() + 1) / 2);
+  }
+  // this QP's vectors
+  __device__ __forceinline__ float* vec(int f) const {
+    return vb + vec_off(nf(), MI(), f);
+  }
+  __device__ __forceinline__ float* Pb() const { return vec(0); }
+  __device__ __forceinline__ float* q() const { return vec(1); }
+  __device__ __forceinline__ float* y() const { return q() + r4(nv()); }
+  __device__ __forceinline__ float* rd() const { return q() + 2 * r4(nv()); }
+  __device__ __forceinline__ float* dsc() const {
+    return q() + 3 * r4(nv());
+  }
+  __device__ __forceinline__ float* tmp() const {
+    return q() + 4 * r4(nv());
+  }
+  __device__ __forceinline__ float* xby() const { return vec(6); }
+  __device__ __forceinline__ float* W() const { return vec(7); }
+  __device__ __forceinline__ float* vk() const { return vec(8); }
+  __device__ __forceinline__ float* H() const { return vec(9); }
+  __device__ __forceinline__ float* dy(int d) const {
+    return vec(d ? 12 : 10);
+  }
+  __device__ __forceinline__ float* xbd(int d) const {
+    return vec(d ? 13 : 11);
+  }
+  // this QP's rows
+  __device__ __forceinline__ float* pf(int f) const { return rb + f * Rp; }
+  __device__ __forceinline__ float* nrm() const { return rb + 6 * Rp; }
+  __device__ __forceinline__ float* sf(int f) const {
+    return rb + 6 * Rp + r4(3 * C * M()) + f * Sp;
+  }
+  __device__ __forceinline__ float* s_pl() const { return pf(kSpl); }
+  __device__ __forceinline__ float* l_pl() const { return pf(kLpl); }
+  __device__ __forceinline__ float* rp_pl() const { return pf(kRp); }
+  __device__ __forceinline__ float* scl() const { return pf(kScale); }
+  __device__ __forceinline__ float* rc_pl(int d) const {
+    return pf(kRcPl + d);
+  }
+  __device__ __forceinline__ float* s_sp() const { return sf(kSsp); }
+  __device__ __forceinline__ float* s_sm() const { return sf(kSsm); }
+  __device__ __forceinline__ float* l_sp() const { return sf(kLsp); }
+  __device__ __forceinline__ float* l_sm() const { return sf(kLsm); }
+  __device__ __forceinline__ float* rp_sp() const { return sf(kRpSp); }
+  __device__ __forceinline__ float* rp_sm() const { return sf(kRpSm); }
+  __device__ __forceinline__ float* dpair() const { return sf(kDpair); }
+  __device__ __forceinline__ float* wsu() const { return sf(kWsu); }
+  __device__ __forceinline__ float* rc_sp(int d) const {
+    return sf(kRcSp + d);
+  }
+  __device__ __forceinline__ float* rc_sm(int d) const {
+    return sf(kRcSm + d);
+  }
+  __device__ __forceinline__ float* dsu(int d) const { return sf(kDsu + d); }
+
+  // Plane rows (c, m, i), c-major: lane j walks rows c * MI + j.
+  template <class Fn>
+  __device__ __forceinline__ void plane_rows(Fn fn) const {
+    const int MIv = MI(), n1v = n1(), Mv = M();
+    for (int j = lane; j < MIv; j += 32) {
+      const int m = j / n1v;
+#pragma unroll 4
+      for (int c = 0; c < C; ++c) fn(c * MIv + j, c * Mv + m, j);
     }
   }
-  for (int r = threadIdx.x; r < c.R; r += kThreads) {
-    if (with_step)
-      acc += (s.s_pl[r] + a_p * D.ds_pl[r]) * (s.l_pl[r] + a_d * D.dl_pl[r]);
-    else
-      acc += s.s_pl[r] * s.l_pl[r];
+  // Static rows r = k * Ru + u.
+  template <class Fn>
+  __device__ __forceinline__ void static_rows(Fn fn) const {
+    for (int r = lane; r < S; r += 32) fn(r, kof(r, Ru));
   }
-  return block_reduce2<OpSum>(acc, 0.f, s.red).x;
-}
 
-// Recompute the row values su / plv of y and the dual residual
-// r_d = P y + q - A^T lam.  Ends with a barrier.
-__device__ void rows_and_residual(const Ctx& c) {
-  const Smem& s = c.s;
-  float* w_su = s.dir[0].dl_sp;        // free between iterations
-  basis(c, s.y);
-  __syncthreads();
-  for (int r = threadIdx.x; r < c.S; r += kThreads) {
-    s.su[r] = static_row(c, r, s.y);
-    w_su[r] = s.l_sp[r] - s.l_sm[r];
+  // scale * normal . x[:, j] for plane row r of normal block cm
+  __device__ __forceinline__ float pval(const float* x, int r, int cm,
+                                        int j) const {
+    const int MIv = MI();
+    const float sc = scl()[r];
+    const float* n = nrm() + 3 * cm;
+    float val = (n[0] * sc) * x[j];
+    val = val + (n[1] * sc) * x[MIv + j];
+    val = val + (n[2] * sc) * x[2 * MIv + j];
+    return val;
   }
-  for (int r = threadIdx.x; r < c.R; r += kThreads) s.plv[r] = plane_row(c, r);
-  __syncthreads();
-  rmv(c, w_su, s.l_pl, s.tmp);
-  for (int t = threadIdx.x; t < c.nv; t += kThreads)
-    s.rd[t] = (py(c, s.y, t) + s.q[t]) - s.tmp[t];
-  __syncthreads();
-}
+  // U row r . vec[k, :]
+  __device__ __forceinline__ float urow(const float* vec, int r,
+                                        int k) const {
+    const int nfv = nf();
+    float acc = 0.f;
+    for (int f = 0; f < nfv; ++f) acc += U()[r * nfv + f] * vec[k * nfv + f];
+    return acc;
+  }
 
-__global__ void __launch_bounds__(kThreads) ipm_kernel(Params p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Ctx c;
-  c.nf = p.nf;
-  c.Ru = p.Ru;
-  c.C = p.C;
-  c.M = p.M;
-  c.n1 = p.n1;
-  c.MI = p.M * p.n1;
-  c.R = p.C * c.MI;
-  c.S = 3 * p.Ru;
-  c.nv = 3 * p.nf;
-  carve(reinterpret_cast<uintptr_t>(smem_raw), p.nf, p.Ru, p.C, p.M, p.n1,
-        &c.s);
-  const Smem& s = c.s;
-  const int tid = threadIdx.x;
-  const int nf = c.nf, nv = c.nv, S = c.S, R = c.R, MI = c.MI;
-  const size_t b = blockIdx.x;
+  // xb[k, j] = F_seg[j, :] . vec[k, :]
+  __device__ void basis(const float* vec, float* xb) const {
+    const int nfv = nf(), MIv = MI();
+    for (int k = 0; k < 3; ++k)
+      for (int j = lane; j < MIv; j += 32) {
+        float acc = 0.f;
+        for (int f = 0; f < nfv; ++f)
+          acc += F()[j * nfv + f] * vec[k * nfv + f];
+        xb[k * MIv + j] = acc;
+      }
+    __syncwarp();
+  }
 
-  // ---- the problem, into shared memory ----
-  for (int e = tid; e < S * nf; e += kThreads) s.U[e] = p.U[e];
-  for (int e = tid; e < MI * nf; e += kThreads) s.F[e] = p.F[e];
-  for (int e = tid; e < nf * nf; e += kThreads)
-    s.Pb[e] = p.Pb[b * nf * nf + e];
-  for (int e = tid; e < nv; e += kThreads) {
-    s.q[e] = p.q[b * nv + e];
-    s.y[e] = p.y0[b * nv + e];
+  // out = A^T w: the static weights in wsu(), the plane weight of each row
+  // from wpl(r, cm, j) (called once a row).
+  template <class Wpl>
+  __device__ void rmv(Wpl wpl, float* out) const {
+    const int nfv = nf(), MIv = MI(), nvv = nv();
+    const int n1v = n1(), Mv = M();
+    for (int j = lane; j < MIv; j += 32) {
+      const int m = j / n1v;
+      float a0 = 0.f, a1 = 0.f, a2 = 0.f;
+#pragma unroll 4
+      for (int c = 0; c < C; ++c) {
+        const int r = c * MIv + j, cm = c * Mv + m;
+        const float wr = wpl(r, cm, j);
+        const float sc = scl()[r];
+        const float* n = nrm() + 3 * cm;
+        a0 += (n[0] * sc) * wr;
+        a1 += (n[1] * sc) * wr;
+        a2 += (n[2] * sc) * wr;
+      }
+      vk()[j] = a0;
+      vk()[MIv + j] = a1;
+      vk()[2 * MIv + j] = a2;
+    }
+    __syncwarp();
+    for (int t = lane; t < nvv; t += 32) {
+      const int k = kof(t, nfv), f = t - k * nfv;
+      float a = 0.f;
+#pragma unroll 4
+      for (int u = 0; u < Ru; ++u)
+        a += U()[(k * Ru + u) * nfv + f] * wsu()[k * Ru + u];
+      float b = 0.f;
+      for (int j = 0; j < MIv; ++j)
+        b += F()[j * nfv + f] * vk()[k * MIv + j];
+      out[t] = a + b;
+    }
+    __syncwarp();
   }
-  for (int e = tid; e < S; e += kThreads) {
-    s.bs0[e] = p.bs[b * 2 * S + e];
-    s.bs1[e] = p.bs[b * 2 * S + S + e];
-  }
-  for (int r = tid; r < R; r += kThreads) {
-    // plane row r = (c, m, i), c-major; normals pre-scaled by the row scale
-    const int ci = r / MI, rem = r - ci * MI;
-    const int m = rem / c.n1, i = rem - m * c.n1;
-    const size_t base = (b * c.C + ci) * c.M + m;
-    const float sc = p.scale[base * c.n1 + i];
-    for (int k = 0; k < 3; ++k) s.nscs[k * R + r] = p.nsc[base * 3 + k] * sc;
-    s.bpl[r] = p.bpl[base * c.n1 + i];
-  }
-  const float sig = p.sig[b];
-  __syncthreads();
 
-  // ---- initial point: slacks from the start y, unit duals ----
-  basis(c, s.y);
-  __syncthreads();
-  for (int r = tid; r < S; r += kThreads) {
-    const float su = static_row(c, r, s.y);
-    s.su[r] = su;
-    s.s_sp[r] = jmax(su - s.bs0[r], p.s_min);
-    s.s_sm[r] = jmax(-su - s.bs1[r], p.s_min);
-    s.l_sp[r] = 1.f;
-    s.l_sm[r] = 1.f;
+  // (P y)[k, g] = sum_f Pb[f, g] y[k, f]
+  __device__ __forceinline__ float py(int t) const {
+    const int nfv = nf(), k = kof(t, nfv), g = t - k * nfv;
+    float acc = 0.f;
+    for (int f = 0; f < nfv; ++f)
+      acc += Pb()[f * nfv + g] * y()[k * nfv + f];
+    return acc;
   }
-  for (int r = tid; r < R; r += kThreads) {
-    const float pv = plane_row(c, r);
-    s.plv[r] = pv;
-    s.s_pl[r] = jmax(pv - s.bpl[r], p.s_min);
-    s.l_pl[r] = 1.f;
-  }
-  __syncthreads();
-  rows_and_residual(c);
-  const float nr = static_cast<float>(2 * S + R);
-  float mu = complementarity(c, s.dir[0], 0.f, 0.f, false) / nr;
 
-  bool done = false;                 // block-uniform: from broadcasts only
-  int it_used = p.iters;
-  for (int it = 0; it < p.iters && !done; ++it) {
-    gram_factor(c, p.reg);
-
-    // predictor (affine scaling), direction set 0
+  // H = P + A^T D A (D = lam / s), Jacobi-scaled with the ridge, unit
+  // diagonal forced to 1 + 1e-6, factored with the 1e-6 pivot floor; L
+  // goes to H(), the scaling to dsc(), the diagonal's reciprocals to
+  // rinv0 / rinv1.
+  __device__ void gram_factor(float reg, float& rinv0, float& rinv1) const {
+    const int nfv = nf(), nvv = nv(), MIv = MI();
+    static_rows([&](int r, int) {
+      dpair()[r] = l_sp()[r] / s_sp()[r] + l_sm()[r] / s_sm()[r];
+    });
     {
-      const Dirs& A = s.dir[0];
-      for (int r = tid; r < S; r += kThreads) {
-        A.rc_sp[r] = s.s_sp[r] * s.l_sp[r];
-        A.rc_sm[r] = s.s_sm[r] * s.l_sm[r];
-      }
-      for (int r = tid; r < R; r += kThreads)
-        A.rc_pl[r] = s.s_pl[r] * s.l_pl[r];
-      __syncthreads();
-    }
-    kkt(c, 0);
-    float2 a = step_lens(c, 0);
-    const float mu_aff = complementarity(c, s.dir[0], a.x, a.y, true) / nr;
-    float sigma = mu_aff / jmax(mu, 1e-30f);
-    sigma = sigma * sigma * sigma;
-    const float smu = sigma * mu;
-
-    // corrector, direction set 1
-    {
-      const Dirs& A = s.dir[0];
-      const Dirs& B = s.dir[1];
-      for (int r = tid; r < S; r += kThreads) {
-        B.rc_sp[r] = A.rc_sp[r] + A.ds_sp[r] * A.dl_sp[r] - smu;
-        B.rc_sm[r] = A.rc_sm[r] + A.ds_sm[r] * A.dl_sm[r] - smu;
-      }
-      for (int r = tid; r < R; r += kThreads)
-        B.rc_pl[r] = A.rc_pl[r] + A.ds_pl[r] * A.dl_pl[r] - smu;
-      __syncthreads();
-    }
-    kkt(c, 1);
-    a = step_lens(c, 1);
-    float a_p = a.x, a_d = a.y;
-
-    // Gondzio correctors: candidate in the other set, kept by a swap.  The
-    // TPU kernel mixes candidate and current with 0/1 weights, so a
-    // non-finite step in either turns the mixed step into NaN and the NaN
-    // guard below rejects the iteration: `poison` carries that.
-    int cur = 1;
-    bool poison = false;
-    const float lo = 0.1f * smu, hi = 10.f * smu;
-    for (int g = 0; g < p.correctors; ++g) {
-      const Dirs& X = s.dir[cur];
-      const Dirs& Y = s.dir[1 - cur];
-      for (int r = tid; r < S; r += kThreads) {
-        float prod = (s.s_sp[r] + a_p * X.ds_sp[r]) *
-                     (s.l_sp[r] + a_d * X.dl_sp[r]);
-        Y.rc_sp[r] = X.rc_sp[r] + (jmin(jmax(prod, lo), hi) - prod);
-        prod = (s.s_sm[r] + a_p * X.ds_sm[r]) * (s.l_sm[r] + a_d * X.dl_sm[r]);
-        Y.rc_sm[r] = X.rc_sm[r] + (jmin(jmax(prod, lo), hi) - prod);
-      }
-      for (int r = tid; r < R; r += kThreads) {
-        const float prod = (s.s_pl[r] + a_p * X.ds_pl[r]) *
-                           (s.l_pl[r] + a_d * X.dl_pl[r]);
-        Y.rc_pl[r] = X.rc_pl[r] + (jmin(jmax(prod, lo), hi) - prod);
-      }
-      __syncthreads();
-      kkt(c, 1 - cur);
-      const float2 a2 = step_lens(c, 1 - cur);
-      poison = poison || s.flag[0] != 0.f || s.flag[1] != 0.f ||
-               !isfinite(a2.x) || !isfinite(a2.y);
-      if (a2.x + a2.y > a_p + a_d + 0.05f) {
-        cur = 1 - cur;
-        a_p = a2.x;
-        a_d = a2.y;
+      const int n1v = n1(), Mv = M();
+      for (int j = lane; j < MIv; j += 32) {
+        const int m = j / n1v;
+        float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+        for (int c = 0; c < C; ++c) {
+          const int r = c * MIv + j, cm = c * Mv + m;
+          const float d = l_pl()[r] / s_pl()[r];
+          const float sc = scl()[r];
+          const float* n = nrm() + 3 * cm;
+          const float n0 = n[0] * sc;
+          const float n1_ = n[1] * sc;
+          const float n2 = n[2] * sc;
+          acc[0] += n0 * n0 * d;
+          acc[1] += n0 * n1_ * d;
+          acc[2] += n0 * n2 * d;
+          acc[3] += n1_ * n1_ * d;
+          acc[4] += n1_ * n2 * d;
+          acc[5] += n2 * n2 * d;
+        }
+#pragma unroll
+        for (int p = 0; p < 6; ++p) W()[p * MIv + j] = acc[p];
       }
     }
-    const Dirs& D = s.dir[cur];
+    __syncwarp();
+    // the static rows' Gram on the diagonal blocks' lower triangles
+    const int ns = 3 * nfv * (nfv + 1) / 2;
+    for (int e = lane; e < ns; e += 32) {
+      const int code = sent()[e];
+      const int k = code >> 16, f = (code >> 8) & 255, g = code & 255;
+      float hst = 0.f;
+#pragma unroll 4
+      for (int u = 0; u < Ru; ++u) {
+        const int ru = k * Ru + u;
+        hst += U()[ru * nfv + f] * U()[ru * nfv + g] * dpair()[ru];
+      }
+      H()[(k * nfv + f) * nvv + k * nfv + g] = hst;
+    }
+    __syncwarp();
+    // plane rows on the whole lower triangle, plus P on the diagonal blocks
+    const int nh = nvv * (nvv + 1) / 2;
+    for (int e = lane; e < nh; e += 32) {
+      const int code = hent()[e];
+      const int i = code >> 8, jj = code & 255;
+      const int k = kof(i, nfv), f = i - k * nfv;
+      const int l = kof(jj, nfv), g = jj - l * nfv;
+      // W block of the dimension pair (l, k), l <= k: 0 1 2 / 3 4 / 5
+      const float* Wp = W() + (3 * l - ((l * (l - 1)) >> 1) + k - l) * MIv;
+      float acc = 0.f;
+      for (int j = 0; j < MIv; ++j)
+        acc += F()[j * nfv + f] * F()[j * nfv + g] * Wp[j];
+      float* h = H() + i * nvv + jj;
+      *h = k == l ? (acc + *h) + Pb()[f * nfv + g] : acc;
+    }
+    __syncwarp();
+    float dsum = 0.f;
+    for (int i = lane; i < nvv; i += 32) dsum += H()[i * nvv + i];
+    dsum = warp_sum(dsum);
+    const float ridge = reg * jmax(dsum / static_cast<float>(nvv), 1.f);
+    for (int i = lane; i < nvv; i += 32)
+      dsc()[i] = 1.f / sqrtf(H()[i * nvv + i] + ridge);
+    __syncwarp();
+    warp_chol::Rows<float, NVC> Rw;
+    const float* Hm = H();
+    const float* sc = dsc();
+    warp_chol::load_rows(Rw, nvv, [&](int i, int jj) {
+      return jj == i ? 1.f + 1e-6f : Hm[i * nvv + jj] * sc[i] * sc[jj];
+    });
+    warp_chol::factor(Rw, nvv, 1e-6f, rinv0, rinv1, H());
+  }
 
-    // step, NaN guard (warp 0 decides, everyone reads the flag)
-    if (tid < 32) {
+  // plane row r's primal residual and the step of direction set d
+  __device__ __forceinline__ void plane_step(int d, int r, int cm, int j,
+                                             float& ds, float& dl) const {
+    const float s = s_pl()[r];
+    ds = pval(xbd(d), r, cm, j) + rp_pl()[r];
+    dl = -(rc_pl(d)[r] + l_pl()[r] * ds) / s;
+  }
+  __device__ __forceinline__ void static_step(int d, int r, float& ds_p,
+                                              float& ds_m, float& dl_p,
+                                              float& dl_m) const {
+    const float du = dsu(d)[r];
+    ds_p = du + rp_sp()[r];
+    ds_m = -du + rp_sm()[r];
+    dl_p = -(rc_sp(d)[r] + l_sp()[r] * ds_p) / s_sp()[r];
+    dl_m = -(rc_sm(d)[r] + l_sm()[r] * ds_m) / s_sm()[r];
+  }
+
+  // The right-hand side of a row under `rule` (src: the set it builds on).
+  struct RcArgs {
+    Rule rule;
+    int src;
+    float smu, a_p, a_d, lo, hi;
+  };
+  __device__ __forceinline__ float rc_of(const RcArgs& a, float s, float l,
+                                         float rc_src, float ds,
+                                         float dl) const {
+    if (a.rule == kPredictor) return s * l;
+    if (a.rule == kCorrector) return rc_src + ds * dl - a.smu;
+    const float prod = (s + a.a_p * ds) * (l + a.a_d * dl);
+    return rc_src + (jmin(jmax(prod, a.lo), a.hi) - prod);
+  }
+
+  // Newton direction into set d for the right-hand sides `a` forms (and
+  // stores in set d): dy, its basis values and static row values.
+  // Returns whether dy is not finite (the same in every lane).
+  __device__ bool kkt(int d, const RcArgs& a, float rinv0,
+                      float rinv1) const {
+    const bool pred = a.rule == kPredictor;
+    static_rows([&](int r, int) {
+      float dsp = 0.f, dsm = 0.f, dlp = 0.f, dlm = 0.f;
+      if (!pred) static_step(a.src, r, dsp, dsm, dlp, dlm);
+      const float rcp = rc_of(a, s_sp()[r], l_sp()[r],
+                              pred ? 0.f : rc_sp(a.src)[r], dsp, dlp);
+      const float rcm = rc_of(a, s_sm()[r], l_sm()[r],
+                              pred ? 0.f : rc_sm(a.src)[r], dsm, dlm);
+      rc_sp(d)[r] = rcp;
+      rc_sm(d)[r] = rcm;
+      wsu()[r] = (rcp + l_sp()[r] * rp_sp()[r]) / s_sp()[r] -
+                 (rcm + l_sm()[r] * rp_sm()[r]) / s_sm()[r];
+    });
+    rmv([&](int r, int cm, int j) {
+      const float s = s_pl()[r], l = l_pl()[r];
+      float ds = 0.f, dl = 0.f;
+      if (!pred) plane_step(a.src, r, cm, j, ds, dl);
+      const float rc = rc_of(a, s, l, pred ? 0.f : rc_pl(a.src)[r], ds, dl);
+      rc_pl(d)[r] = rc;
+      return (rc + l * rp_pl()[r]) / s;
+    }, tmp());
+    const int nvv = nv();
+    const int r0 = lane, r1 = lane + 32;
+    float z0 = r0 < nvv ? dsc()[r0] * (-rd()[r0] - tmp()[r0]) : 0.f;
+    float z1 = r1 < nvv ? dsc()[r1] * (-rd()[r1] - tmp()[r1]) : 0.f;
+    warp_chol::solve(H(), nvv, rinv0, rinv1, z0, z1);
+    bool bad = false;
+    if (r0 < nvv) {
+      const float x = dsc()[r0] * z0;
+      dy(d)[r0] = x;
+      bad = !isfinite(x);
+    }
+    if (r1 < nvv) {
+      const float x = dsc()[r1] * z1;
+      dy(d)[r1] = x;
+      bad = bad || !isfinite(x);
+    }
+    bad = __any_sync(kFull, bad);
+    __syncwarp();
+    basis(dy(d), xbd(d));
+    static_rows([&](int r, int k) { dsu(d)[r] = urow(dy(d), r, k); });
+    __syncwarp();
+    return bad;
+  }
+
+  // (alpha_p, alpha_d): largest step in (0, 1] keeping slacks / duals above
+  // (1 - 0.995) of their value
+  __device__ float2 step_lens(int d) const {
+    float mp = INFINITY, md = INFINITY;
+    static_rows([&](int r, int) {
+      float dsp, dsm, dlp, dlm;
+      static_step(d, r, dsp, dsm, dlp, dlm);
+      mp = jmin(mp, jmin(ratio(s_sp()[r], dsp), ratio(s_sm()[r], dsm)));
+      md = jmin(md, jmin(ratio(l_sp()[r], dlp), ratio(l_sm()[r], dlm)));
+    });
+    plane_rows([&](int r, int cm, int j) {
+      float ds, dl;
+      plane_step(d, r, cm, j, ds, dl);
+      mp = jmin(mp, ratio(s_pl()[r], ds));
+      md = jmin(md, ratio(l_pl()[r], dl));
+    });
+    mp = warp_min(mp);
+    md = warp_min(md);
+    return make_float2(jmin(1.f, 0.995f * mp), jmin(1.f, 0.995f * md));
+  }
+
+  // sum over all rows of (s + a_p ds)(l + a_d dl) for direction set d
+  __device__ float complementarity(int d, float a_p, float a_d) const {
+    float acc = 0.f;
+    static_rows([&](int r, int) {
+      float dsp, dsm, dlp, dlm;
+      static_step(d, r, dsp, dsm, dlp, dlm);
+      acc += (s_sp()[r] + a_p * dsp) * (l_sp()[r] + a_d * dlp);
+      acc += (s_sm()[r] + a_p * dsm) * (l_sm()[r] + a_d * dlm);
+    });
+    plane_rows([&](int r, int cm, int j) {
+      float ds, dl;
+      plane_step(d, r, cm, j, ds, dl);
+      acc += (s_pl()[r] + a_p * ds) * (l_pl()[r] + a_d * dl);
+    });
+    return warp_sum(acc);
+  }
+
+  // sum over all rows of s l
+  __device__ float gap_sum() const {
+    float acc = 0.f;
+    static_rows([&](int r, int) {
+      acc += s_sp()[r] * l_sp()[r] + s_sm()[r] * l_sm()[r];
+    });
+    plane_rows([&](int r, int, int) { acc += s_pl()[r] * l_pl()[r]; });
+    return warp_sum(acc);
+  }
+
+  // s += a_p ds, l += a_d dl along set d, floored at 1e-12
+  __device__ void take_step(int d, float a_p, float a_d) const {
+    static_rows([&](int r, int) {
+      float dsp, dsm, dlp, dlm;
+      static_step(d, r, dsp, dsm, dlp, dlm);
+      s_sp()[r] = jmax(s_sp()[r] + a_p * dsp, 1e-12f);
+      s_sm()[r] = jmax(s_sm()[r] + a_p * dsm, 1e-12f);
+      l_sp()[r] = jmax(l_sp()[r] + a_d * dlp, 1e-12f);
+      l_sm()[r] = jmax(l_sm()[r] + a_d * dlm, 1e-12f);
+    });
+    plane_rows([&](int r, int cm, int j) {
+      float ds, dl;
+      plane_step(d, r, cm, j, ds, dl);
+      s_pl()[r] = jmax(s_pl()[r] + a_p * ds, 1e-12f);
+      l_pl()[r] = jmax(l_pl()[r] + a_d * dl, 1e-12f);
+    });
+    __syncwarp();
+  }
+
+  // The rows' primal residuals at y, the dual residual
+  // r_d = P y + q - A^T lam,
+  // and the exit test's sums: returns (sum s l, max |r_p|, max |r_d|).
+  __device__ float3 rows_and_residual() const {
+    basis(y(), xby());
+    float acc = 0.f, rpm = -INFINITY;
+    static_rows([&](int r, int k) {
+      const float u = urow(y(), r, k);
+      const float rpp = u - s_sp()[r] - __ldg(bs0 + r);
+      const float rpn = -u - s_sm()[r] - __ldg(bs1 + r);
+      rp_sp()[r] = rpp;
+      rp_sm()[r] = rpn;
+      wsu()[r] = l_sp()[r] - l_sm()[r];
+      acc += s_sp()[r] * l_sp()[r] + s_sm()[r] * l_sm()[r];
+      rpm = jmax(rpm, fabsf(rpp));
+      rpm = jmax(rpm, fabsf(rpn));
+    });
+    rmv([&](int r, int cm, int j) {
+      const float pv = pval(xby(), r, cm, j);
+      const float rp = pv - s_pl()[r] - __ldg(bpl + r);
+      rp_pl()[r] = rp;
+      acc += s_pl()[r] * l_pl()[r];
+      rpm = jmax(rpm, fabsf(rp));
+      return l_pl()[r];
+    }, tmp());
+    float rdm = -INFINITY;
+    for (int t = lane; t < nv(); t += 32) {
+      const float res = (py(t) + q()[t]) - tmp()[t];
+      rd()[t] = res;
+      rdm = jmax(rdm, fabsf(res));
+    }
+    __syncwarp();
+    return make_float3(warp_sum(acc), warp_max(rpm), warp_max(rdm));
+  }
+
+  __device__ void run(const Params& p, size_t b) {
+    const int nfv = nf(), nvv = nv();
+    for (int e = lane; e < nfv * nfv; e += 32)
+      Pb()[e] = p.Pb[b * nfv * nfv + e];
+    for (int e = lane; e < nvv; e += 32) {
+      q()[e] = p.q[b * nvv + e];
+      y()[e] = p.y0[b * nvv + e];
+    }
+    // the row scales and normals, into this QP's rows
+    plane_rows([&](int r, int, int) { scl()[r] = __ldg(scale + r); });
+    for (int e = lane; e < 3 * C * M(); e += 32) nrm()[e] = __ldg(nsc + e);
+    __syncwarp();
+    const float sig = p.sig[b];
+
+    // initial point: slacks from the start y, unit duals
+    basis(y(), xby());
+    static_rows([&](int r, int k) {
+      const float u = urow(y(), r, k);
+      s_sp()[r] = jmax(u - __ldg(bs0 + r), p.s_min);
+      s_sm()[r] = jmax(-u - __ldg(bs1 + r), p.s_min);
+      l_sp()[r] = 1.f;
+      l_sm()[r] = 1.f;
+    });
+    plane_rows([&](int r, int cm, int j) {
+      s_pl()[r] = jmax(pval(xby(), r, cm, j) - __ldg(bpl + r), p.s_min);
+      l_pl()[r] = 1.f;
+    });
+    __syncwarp();
+    const float nr = static_cast<float>(2 * S + R);
+    float mu = rows_and_residual().x / nr;
+
+    int it_used = p.iters;
+    for (int it = 0; it < p.iters; ++it) {
+      float rinv0, rinv1;
+      gram_factor(p.reg, rinv0, rinv1);
+
+      // predictor (affine scaling), direction set 0
+      RcArgs rc{kPredictor, 0, 0.f, 0.f, 0.f, 0.f, 0.f};
+      bool bad0 = kkt(0, rc, rinv0, rinv1);
+      float2 a = step_lens(0);
+      const float mu_aff = complementarity(0, a.x, a.y) / nr;
+      float sigma = mu_aff / jmax(mu, 1e-30f);
+      sigma = sigma * sigma * sigma;
+      const float smu = sigma * mu;
+
+      // corrector, direction set 1
+      rc = RcArgs{kCorrector, 0, smu, 0.f, 0.f, 0.f, 0.f};
+      bool bad1 = kkt(1, rc, rinv0, rinv1);
+      a = step_lens(1);
+      float a_p = a.x, a_d = a.y;
+
+      // Gondzio correctors: candidate in the other set, kept by a swap.
+      // The TPU kernel mixes candidate and current with 0/1 weights, so a
+      // non-finite step in either turns the mixed step into NaN and the NaN
+      // guard below rejects the iteration: `poison` carries that.
+      int cur = 1;
+      bool poison = false;
+      for (int g = 0; g < p.correctors; ++g) {
+        rc = RcArgs{kGondzio, cur, smu, a_p, a_d, 0.1f * smu, 10.f * smu};
+        const bool nb = kkt(1 - cur, rc, rinv0, rinv1);
+        if (cur == 1) bad0 = nb; else bad1 = nb;
+        const float2 a2 = step_lens(1 - cur);
+        poison = poison || bad0 || bad1 || !isfinite(a2.x) || !isfinite(a2.y);
+        if (a2.x + a2.y > a_p + a_d + 0.05f) {
+          cur = 1 - cur;
+          a_p = a2.x;
+          a_d = a2.y;
+        }
+      }
+      const float* dir = dy(cur);
+
+      // step and NaN guard
       float m = -INFINITY;
       bool fin = true;
-      for (int i = tid; i < nv; i += 32) {
-        m = jmax(m, fabsf(D.dy[i]));
-        fin = fin && isfinite(s.y[i] + a_p * D.dy[i]);
+      for (int i = lane; i < nvv; i += 32) {
+        m = jmax(m, fabsf(dir[i]));
+        fin = fin && isfinite(y()[i] + a_p * dir[i]);
       }
-      m = warp_reduce<OpMax>(m);
+      m = warp_max(m);
       fin = __all_sync(kFull, fin);
       const bool ok = fin && isfinite(a_p) && isfinite(a_d) &&
                       isfinite(mu_aff) && isfinite(sigma) && !poison;
-      if (ok)
-        for (int i = tid; i < nv; i += 32) s.y[i] = s.y[i] + a_p * D.dy[i];
-      if (tid == 0) {
-        s.flag[2] = ok ? 1.f : 0.f;
-        s.flag[3] = a_p * m;
+      if (!ok) continue;                  // rejected: iterate unchanged
+      const float step_disp = a_p * m;
+      for (int i = lane; i < nvv; i += 32) y()[i] = y()[i] + a_p * dir[i];
+      take_step(cur, a_p, a_d);
+
+      // exit test on the new iterate; its row values and r_d are the next
+      // iteration's
+      const float3 ex = rows_and_residual();
+      mu = ex.x / nr;
+      if (mu < p.tol_gap * sig && ex.y < p.tol_rp &&
+          (ex.z < p.tol_rd || step_disp < p.tol_step)) {
+        it_used = it + 1;
+        break;
       }
     }
-    __syncthreads();
-    if (s.flag[2] == 0.f) continue;      // rejected: iterate unchanged
-    const float step_disp = s.flag[3];
-    for (int r = tid; r < S; r += kThreads) {
-      s.s_sp[r] = jmax(s.s_sp[r] + a_p * D.ds_sp[r], 1e-12f);
-      s.s_sm[r] = jmax(s.s_sm[r] + a_p * D.ds_sm[r], 1e-12f);
-      s.l_sp[r] = jmax(s.l_sp[r] + a_d * D.dl_sp[r], 1e-12f);
-      s.l_sm[r] = jmax(s.l_sm[r] + a_d * D.dl_sm[r], 1e-12f);
-    }
-    for (int r = tid; r < R; r += kThreads) {
-      s.s_pl[r] = jmax(s.s_pl[r] + a_p * D.ds_pl[r], 1e-12f);
-      s.l_pl[r] = jmax(s.l_pl[r] + a_d * D.dl_pl[r], 1e-12f);
-    }
-    __syncthreads();
 
-    // exit test on the new iterate; its row values and r_d are the next
-    // iteration's
-    rows_and_residual(c);
-    float acc = 0.f, rpm = -INFINITY, rdm = -INFINITY;
-    for (int r = tid; r < S; r += kThreads) {
-      acc += s.s_sp[r] * s.l_sp[r] + s.s_sm[r] * s.l_sm[r];
-      rpm = jmax(rpm, fabsf(s.su[r] - s.s_sp[r] - s.bs0[r]));
-      rpm = jmax(rpm, fabsf(-s.su[r] - s.s_sm[r] - s.bs1[r]));
-    }
-    for (int r = tid; r < R; r += kThreads) {
-      acc += s.s_pl[r] * s.l_pl[r];
-      rpm = jmax(rpm, fabsf(s.plv[r] - s.s_pl[r] - s.bpl[r]));
-    }
-    for (int t = tid; t < nv; t += kThreads) rdm = jmax(rdm, fabsf(s.rd[t]));
-    mu = block_reduce2<OpSum>(acc, 0.f, s.red).x / nr;
-    const float2 mx = block_reduce2<OpMax>(rpm, rdm, s.red);
-    if (mu < p.tol_gap * sig && mx.x < p.tol_rp &&
-        (mx.y < p.tol_rd || step_disp < p.tol_step)) {
-      done = true;
-      it_used = it + 1;
+    // the solution
+    for (int t = lane; t < nvv; t += 32) p.y_out[b * nvv + t] = y()[t];
+    static_rows([&](int r, int) {
+      p.lam_s[b * 2 * S + r] = l_sp()[r];
+      p.lam_s[b * 2 * S + S + r] = l_sm()[r];
+    });
+    plane_rows([&](int r, int, int) { p.lam_p[b * R + r] = l_pl()[r]; });
+    const float gap = gap_sum() / nr;
+    if (lane == 0) {
+      p.gap[b] = gap;
+      p.it_out[b] = it_used;
     }
   }
+};
 
-  // ---- the solution ----
-  for (int t = tid; t < nv; t += kThreads) p.y_out[b * nv + t] = s.y[t];
-  for (int r = tid; r < S; r += kThreads) {
-    p.lam_s[b * 2 * S + r] = s.l_sp[r];
-    p.lam_s[b * 2 * S + S + r] = s.l_sm[r];
+template <int NF, int MT, int NT>
+__global__ void __launch_bounds__(kMaxQpb * 32) ipm_kernel(Params p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Qp<NF, MT, NT> Q;
+  Q.nf_ = p.nf;
+  Q.M_ = p.M;
+  Q.n1_ = p.n1;
+  const int nf = Q.nf(), MI = Q.MI(), nv = Q.nv();
+  Q.Ru = p.Ru;
+  Q.S = 3 * p.Ru;
+  Q.C = p.C;
+  Q.R = p.C * MI;
+  Q.lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+
+  // ---- the block's tables: the only block barrier ----
+  Q.sb = reinterpret_cast<float*>(smem_raw);
+  float* U = Q.sb;
+  float* F = U + r4(Q.S * nf);
+  int* hent = reinterpret_cast<int*>(F + r4(MI * nf));
+  int* sent = hent + r4(nv * (nv + 1) / 2);
+  for (int e = threadIdx.x; e < Q.S * nf; e += blockDim.x) U[e] = p.U[e];
+  for (int e = threadIdx.x; e < MI * nf; e += blockDim.x) F[e] = p.F[e];
+  for (int i = threadIdx.x; i < nv; i += blockDim.x)
+    for (int j = 0; j <= i; ++j) hent[i * (i + 1) / 2 + j] = i << 8 | j;
+  for (int t = threadIdx.x; t < 3 * nf; t += blockDim.x) {
+    const int k = t / nf, f = t - k * nf;
+    for (int g = 0; g <= f; ++g)
+      sent[k * (nf * (nf + 1) / 2) + f * (f + 1) / 2 + g] =
+          k << 16 | f << 8 | g;
   }
-  for (int r = tid; r < R; r += kThreads) p.lam_p[b * R + r] = s.l_pl[r];
-  const float gap = complementarity(c, s.dir[0], 0.f, 0.f, false) / nr;
-  if (tid == 0) {
-    p.gap[b] = gap;
-    p.it_out[b] = it_used;
+  __syncthreads();
+
+  const size_t b = static_cast<size_t>(blockIdx.x) * p.qpb + warp;
+  if (b >= static_cast<size_t>(p.N)) return;
+  // this warp's slice of the block's shared memory: vectors, then (with
+  // rows in shared memory) rows
+  const size_t vec = vec_floats(nf, MI);
+  const size_t rows = row_floats(Q.R, p.C * Q.M(), Q.S);
+  const size_t per_qp = vec + (p.rows_smem ? rows : 0);
+  Q.vb = Q.sb + shared_floats(nf, p.Ru, MI) + warp * per_qp;
+  Q.rb = p.rows_smem ? Q.vb + vec : p.scratch + b * p.slab;
+  Q.Rp = static_cast<int>(r4(Q.R));
+  Q.Sp = static_cast<int>(r4(Q.S));
+  Q.nsc = p.nsc + b * p.C * p.M * 3;
+  Q.scale = p.scale + b * Q.R;
+  Q.bpl = p.bpl + b * Q.R;
+  Q.bs0 = p.bs + b * 2 * Q.S;
+  Q.bs1 = Q.bs0 + Q.S;
+  Q.run(p, b);
+}
+
+// How a launch lays its QPs out.
+struct Plan {
+  int rows_smem;             // 1: rows in shared memory, 0: device memory
+  int qpb;                   // QPs (warps) a block, 0: no such layout
+  size_t smem;               // bytes a block
+  size_t slab;               // floats of device memory a QP (rows_smem 0)
+  int resident;              // QPs resident an SM
+};
+
+// The layout of qpb QPs a block with the rows in shared memory
+// (smem_rows) or in device memory; qpb 0 takes as many as fit, at most
+// kMaxQpb with rows in shared memory and kGlobalQpb in device memory.
+Plan layout(int nf, int Ru, int C, int M, int n1, bool smem_rows,
+            int qpb = 0) {
+  const int MI = M * n1, R = C * MI, S = 3 * Ru;
+  const size_t shared = shared_floats(nf, Ru, MI) * sizeof(float);
+  const size_t rows = row_floats(R, C * M, S);
+  const size_t per_qp =
+      (vec_floats(nf, MI) + (smem_rows ? rows : 0)) * sizeof(float);
+  if (qpb == 0) {
+    const int fit =
+        kMaxSmem > shared ? static_cast<int>((kMaxSmem - shared) / per_qp)
+                          : 0;
+    const int cap = smem_rows ? kMaxQpb : kGlobalQpb;
+    qpb = fit > cap ? cap : fit;
   }
+  return Plan{smem_rows ? 1 : 0, qpb, shared + qpb * per_qp,
+              smem_rows ? 0 : rows, 0};
+}
+
+bool specialised(int nf, int M, int n1) {
+  return nf == 13 && M == 5 && n1 == 6;
+}
+
+// The kernel may take kMaxSmem of dynamic shared memory on the current
+// device from the plan's resident() on (lsc_ipm_fused_plan).
+template <int NF, int MT, int NT>
+int launch(Params& p, const Plan& pl, cudaStream_t stream) {
+  const int blocks = (p.N + pl.qpb - 1) / pl.qpb;
+  ipm_kernel<NF, MT, NT><<<blocks, pl.qpb * 32, pl.smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// QPs of layout pl resident an SM (the CUDA occupancy calculator), or a
+// negative CUDA error.  Lets the kernel take kMaxSmem of dynamic shared
+// memory on the current device, as every launch needs.
+template <int NF, int MT, int NT>
+int resident(const Plan& pl) {
+  if (pl.qpb < 1) return 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      ipm_kernel<NF, MT, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kMaxSmem));
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, ipm_kernel<NF, MT, NT>, pl.qpb * 32, pl.smem);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  return blocks * pl.qpb;
+}
+
+// rows_mode 1 / 2 force the rows into shared / device memory; 0 keeps
+// them in shared memory unless that takes more waves of blocks over the
+// card's SMs for N QPs than device memory does.  qpb 0: no layout;
+// resident < 0: a CUDA error.
+template <int NF, int MT, int NT>
+Plan make_plan(int N, int nf, int Ru, int C, int M, int n1, int rows_mode) {
+  Plan s = layout(nf, Ru, C, M, n1, true);
+  Plan g = layout(nf, Ru, C, M, n1, false);
+  s.resident = resident<NF, MT, NT>(s);
+  g.resident = resident<NF, MT, NT>(g);
+  if (s.resident < 0) return s;
+  if (g.resident < 0) return g;
+  if (rows_mode == 1) return s;
+  if (rows_mode == 2 || s.resident < 1) return g;
+  if (g.resident < 1) return s;
+  int dev = 0, sms = 1;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long ws = (N + static_cast<long long>(sms) * s.resident - 1) /
+                       (static_cast<long long>(sms) * s.resident);
+  const long long wg = (N + static_cast<long long>(sms) * g.resident - 1) /
+                       (static_cast<long long>(sms) * g.resident);
+  return ws <= wg ? s : g;
+}
+
+Plan plan_for(int N, int nf, int Ru, int C, int M, int n1, int rows_mode) {
+  return specialised(nf, M, n1)
+             ? make_plan<13, 5, 6>(N, nf, Ru, C, M, n1, rows_mode)
+             : make_plan<0, 0, 0>(N, nf, Ru, C, M, n1, rows_mode);
+}
+
+bool valid(int N, int nf, int Ru, int C, int M, int n1) {
+  return N >= 0 && nf >= 1 && 3 * nf <= kMaxNv && Ru >= 1 && C >= 1 &&
+         M >= 1 && n1 >= 1;
 }
 
 }  // namespace
 
 extern "C" {
 
+// The layout a launch of N QPs at these shapes uses: out[0] rows in
+// shared memory (1) or device memory (0), out[1] QPs a block, out[2]
+// shared-memory bytes a block, out[3] floats of device-memory scratch a
+// QP (0 with rows in shared memory), out[4] QPs resident an SM (blocks an
+// SM x QPs a block, from the CUDA occupancy calculator), out[5] 1 for the
+// kernel specialised to (nf, M, n + 1) = (13, 5, 6).  Returns 0, or a
+// CUDA error.  Call it on a device before the first launch there, and
+// pass out[0] and out[1] to lsc_ipm_fused_f32.
+int lsc_ipm_fused_plan(int N, int nf, int Ru, int C, int M, int n1,
+                       int rows_mode, long long* out) {
+  if (!valid(N, nf, Ru, C, M, n1) || rows_mode < 0 || rows_mode > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Plan pl = plan_for(N, nf, Ru, C, M, n1, rows_mode);
+  if (pl.resident < 0) return -pl.resident;
+  if (pl.qpb < 1) return static_cast<int>(cudaErrorInvalidValue);
+  out[0] = pl.rows_smem;
+  out[1] = pl.qpb;
+  out[2] = static_cast<long long>(pl.smem);
+  out[3] = static_cast<long long>(pl.slab);
+  out[4] = pl.resident;
+  out[5] = specialised(nf, M, n1) ? 1 : 0;
+  return 0;
+}
+
 int lsc_ipm_fused_f32(const void* Pb, const void* q, const void* y0,
                       const void* U, const void* b_pairs, const void* nsc,
                       const void* scale, const void* b_pl, const void* F_seg,
                       const void* sigma, void* y, void* lam_s, void* lam_p,
-                      void* gap, void* iters_used, int N, int nf, int Ru,
-                      int C, int M, int n1, int iters, int correctors,
-                      float reg, float s_min, float tol_gap, float tol_rp,
-                      float tol_rd, float tol_step, void* stream) {
-  if (N < 0 || nf < 1 || 3 * nf > kMaxNv || Ru < 1 || C < 1 || C > kMaxC ||
-      M < 1 || n1 < 1 || iters < 0 || correctors < 0)
+                      void* gap, void* iters_used, void* scratch,
+                      long long scratch_floats, int rows_smem, int qpb,
+                      int N, int nf, int Ru, int C, int M, int n1, int iters,
+                      int correctors, float reg, float s_min, float tol_gap,
+                      float tol_rp, float tol_rd, float tol_step,
+                      void* stream) {
+  if (!valid(N, nf, Ru, C, M, n1) || iters < 0 || correctors < 0 ||
+      rows_smem < 0 || rows_smem > 1 || qpb < 1 ||
+      qpb > (rows_smem ? kMaxQpb : kGlobalQpb))
     return static_cast<int>(cudaErrorInvalidValue);
   if (N == 0) return static_cast<int>(cudaGetLastError());
-  Smem layout;
-  const size_t bytes = carve(0, nf, Ru, C, M, n1, &layout);
-  if (bytes > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      ipm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const Plan pl = layout(nf, Ru, C, M, n1, rows_smem == 1, qpb);
+  if (pl.smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  if (!pl.rows_smem &&
+      (scratch == nullptr ||
+       scratch_floats < static_cast<long long>(pl.slab) * N))
+    return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.Pb = static_cast<const float*>(Pb);
   p.q = static_cast<const float*>(q);
@@ -735,6 +943,10 @@ int lsc_ipm_fused_f32(const void* Pb, const void* q, const void* y0,
   p.lam_p = static_cast<float*>(lam_p);
   p.gap = static_cast<float*>(gap);
   p.it_out = static_cast<int*>(iters_used);
+  p.scratch = static_cast<float*>(scratch);
+  p.slab = pl.slab;
+  p.rows_smem = pl.rows_smem;
+  p.qpb = pl.qpb;
   p.N = N;
   p.nf = nf;
   p.Ru = Ru;
@@ -749,8 +961,9 @@ int lsc_ipm_fused_f32(const void* Pb, const void* q, const void* y0,
   p.tol_rp = tol_rp;
   p.tol_rd = tol_rd;
   p.tol_step = tol_step;
-  ipm_kernel<<<N, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return specialised(nf, M, n1) ? launch<13, 5, 6>(p, pl, st)
+                                : launch<0, 0, 0>(p, pl, st);
 }
 
 }  // extern "C"

@@ -24,6 +24,7 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("chol.cu", "ipm.cu", "wavefront.cu")
+HEADERS = ("warp_chol.cuh",)     # included by chol.cu and ipm.cu
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -47,10 +48,13 @@ _SIGNATURES = {
     "lsc_chol_factor_f64": [_PTR, _PTR, ctypes.c_int, ctypes.c_int, _PTR],
     "lsc_chol_resolve_f64": [_PTR, _PTR, _PTR, ctypes.c_int, ctypes.c_int,
                              _PTR],
-    # 10 inputs, 5 outputs; N, nf, Ru, C, M, n1, iters, correctors; reg,
-    # s_min, tol_gap, tol_rp, tol_rd, tol_step; stream
-    "lsc_ipm_fused_f32": [_PTR] * 15 + [ctypes.c_int] * 8 +
-                         [ctypes.c_float] * 6 + [_PTR],
+    # 10 inputs, 5 outputs, scratch; scratch floats; rows_smem, qpb (from
+    # the plan), N, nf, Ru, C, M, n1, iters, correctors; reg, s_min,
+    # tol_gap, tol_rp, tol_rd, tol_step; stream
+    "lsc_ipm_fused_f32": [_PTR] * 16 + [ctypes.c_longlong] +
+                         [ctypes.c_int] * 10 + [ctypes.c_float] * 6 + [_PTR],
+    # N, nf, Ru, C, M, n1, rows_mode; out (6 x long long)
+    "lsc_ipm_fused_plan": [ctypes.c_int] * 7 + [_PTR],
     # occ, goal, out, steps; N, Z, Y, X, max_iters; stream
     "lsc_wavefront_f32": [_PTR] * 4 + [ctypes.c_int] * 5 + [_PTR],
 }
@@ -70,7 +74,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update((CSRC_DIR / name).read_bytes())
     return BUILD_DIR / f"liblsc_kernels_{h.hexdigest()[:16]}.so"
 
@@ -122,3 +126,17 @@ def load_library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = lib
     return _lib
+
+
+def launch(entry, device: torch.device, *args) -> int:
+    """entry(*args, stream) on `device`'s current stream with `device` the
+    current one (a launch goes to the current device); returns entry's
+    CUDA error code.  The device guard is entered only when needed and the
+    stream read as a raw pointer: the guard and torch.cuda.current_stream
+    take 7.5 us of host time a call against 0.2 us on an H100 machine
+    (scripts/profile_forest20_torch.py --kernels), and the chol-path IPM
+    makes 120 launches a cycle."""
+    if device.index == torch.cuda.current_device():
+        return entry(*args, torch._C._cuda_getCurrentRawStream(device.index))
+    with torch.cuda.device(device):
+        return entry(*args, torch._C._cuda_getCurrentRawStream(device.index))

@@ -89,9 +89,16 @@ def _check(mat, rhs, what):
     if not 1 <= n <= MAX_N:
         raise ValueError(f"{what}: n = {n} outside the kernel's range "
                          f"1..{MAX_N}")
+    if mat.dim() == 3 and mat.is_contiguous() and rhs.is_contiguous():
+        # the IPM's call, 120 times a cycle: no reshapes (batch None)
+        return mat, rhs, None, n
     batch = mat.shape[:-2]
     return (mat.reshape(-1, n, n).contiguous(),
             rhs.reshape(-1, n).contiguous(), batch, n)
+
+
+def _unbatch(t, batch, *tail):
+    return t if batch is None else t.reshape(*batch, *tail)
 
 
 def _suffix(dtype):
@@ -105,16 +112,14 @@ def _factor_solve_cuda(H, rhs):
     B = H3.shape[0]
     L = torch.empty_like(H3)
     x = torch.empty_like(r2)
-    with torch.cuda.device(H.device):
-        stream = torch.cuda.current_stream(H.device).cuda_stream
-        err = getattr(lib, "lsc_chol_factor_solve_" + _suffix(H.dtype))(
-            H3.data_ptr(), r2.data_ptr(), L.data_ptr(), x.data_ptr(),
-            B, n, stream)
+    err = _build.launch(
+        getattr(lib, "lsc_chol_factor_solve_" + _suffix(H.dtype)), H.device,
+        H3.data_ptr(), r2.data_ptr(), L.data_ptr(), x.data_ptr(), B, n)
     if err:
         raise RuntimeError(f"chol_factor_solve kernel launch failed: CUDA "
                            f"error {err}")
     factor_solve_launches += 1
-    return L.reshape(*batch, n, n), x.reshape(*batch, n)
+    return _unbatch(L, batch, n, n), _unbatch(x, batch, n)
 
 
 def _factor_cuda(H):
@@ -123,15 +128,13 @@ def _factor_cuda(H):
     H3, _, batch, n = _check(H, H[..., 0], "cholesky_batched")
     B = H3.shape[0]
     L = torch.empty_like(H3)
-    with torch.cuda.device(H.device):
-        stream = torch.cuda.current_stream(H.device).cuda_stream
-        err = getattr(lib, "lsc_chol_factor_" + _suffix(H.dtype))(
-            H3.data_ptr(), L.data_ptr(), B, n, stream)
+    err = _build.launch(getattr(lib, "lsc_chol_factor_" + _suffix(H.dtype)),
+                        H.device, H3.data_ptr(), L.data_ptr(), B, n)
     if err:
         raise RuntimeError(f"cholesky_batched kernel launch failed: CUDA "
                            f"error {err}")
     factor_launches += 1
-    return L.reshape(*batch, n, n)
+    return _unbatch(L, batch, n, n)
 
 
 def _resolve_cuda(L, rhs):
@@ -140,15 +143,14 @@ def _resolve_cuda(L, rhs):
     L3, r2, batch, n = _check(L, rhs, "chol_resolve")
     B = L3.shape[0]
     x = torch.empty_like(r2)
-    with torch.cuda.device(L.device):
-        stream = torch.cuda.current_stream(L.device).cuda_stream
-        err = getattr(lib, "lsc_chol_resolve_" + _suffix(L.dtype))(
-            L3.data_ptr(), r2.data_ptr(), x.data_ptr(), B, n, stream)
+    err = _build.launch(
+        getattr(lib, "lsc_chol_resolve_" + _suffix(L.dtype)), L.device,
+        L3.data_ptr(), r2.data_ptr(), x.data_ptr(), B, n)
     if err:
         raise RuntimeError(f"chol_resolve kernel launch failed: CUDA "
                            f"error {err}")
     resolve_launches += 1
-    return x.reshape(*batch, n)
+    return _unbatch(x, batch, n)
 
 
 # ----------------------------------------------------------------------

@@ -32,13 +32,17 @@ gap (N,), iters_used (N,) int32 tile counts, or each QP's own count with
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import _build
 
 TILE = 128          # the TPU kernel's lane tile, the unit of its count
-MAX_C = 64          # obstacle rows the kernel's shared memory is sized for
-MAX_NV = 64         # the kernel's one-warp substitutions hold 2 rows a lane
+MAX_NV = 64         # the kernel's one-warp factor holds 2 rows a lane
+# where the kernel keeps each QP's row state: "auto" (see fused_plan),
+# "smem" (shared memory), "global" (a device-memory scratch)
+ROWS_MODES = {"auto": 0, "smem": 1, "global": 2}
 PIVOT_FLOOR = 1e-6
 
 # launches of the kernel since the last reset (CUDA only; the plain version
@@ -311,11 +315,6 @@ def _check(P_blk, q, y0, U, b_pairs, nsc, scale, b_pl, F_seg, sigma):
     N, nf = P_blk.shape[0], P_blk.shape[-1]
     C, M, n1 = nsc.shape[1], nsc.shape[2], scale.shape[-1]
     nv = ndim * nf
-    if C > MAX_C:
-        raise NotImplementedError(
-            f"ipm_lsc_fused: C = {C} obstacle rows; the kernel keeps at most "
-            f"{MAX_C} in shared memory (use K-NN pruning, max_neighbors <= "
-            f"{MAX_C}; more rows: ROADMAP queue 2, item 1)")
     if C < 1:
         raise ValueError(f"ipm_lsc_fused: C = {C} obstacle rows")
     if nv > MAX_NV:
@@ -332,28 +331,63 @@ def _check(P_blk, q, y0, U, b_pairs, nsc, scale, b_pl, F_seg, sigma):
     return N, nf, Ru, C, M, n1
 
 
+_plans = {}
+
+
+def fused_plan(N, nf, Ru, C, M, n1, rows="auto", device=None):
+    """How the kernel lays out a launch of N QPs at these shapes on
+    ``device`` (default: the current CUDA device; "auto" keeps the rows in
+    shared memory unless that takes more waves of blocks over the SMs than
+    device memory does): a dict of rows_in_smem, qps_a_block, smem_bytes (a
+    block), scratch_floats (a QP, device memory; 0 with rows in shared
+    memory), qps_an_sm (resident, from the CUDA occupancy calculator) and
+    specialised (the kernel built for nf, M, n + 1 = 13, 5, 6).  Computed
+    once a device and shape; every launch takes its layout from here."""
+    index = (torch.cuda.current_device() if device is None or
+             device.index is None else device.index)
+    key = (index, N, nf, Ru, C, M, n1, rows)
+    if key not in _plans:
+        lib = _build.load_library()
+        out = (ctypes.c_longlong * 6)()
+        with torch.cuda.device(index):
+            err = lib.lsc_ipm_fused_plan(N, nf, Ru, C, M, n1,
+                                         ROWS_MODES[rows], out)
+        if err:
+            raise RuntimeError(f"ipm_lsc_fused: no layout for N={N} nf={nf} "
+                               f"Ru={Ru} C={C} M={M} n+1={n1} rows={rows}: "
+                               f"CUDA error {err}")
+        _plans[key] = dict(zip(("rows_in_smem", "qps_a_block", "smem_bytes",
+                                "scratch_floats", "qps_an_sm",
+                                "specialised"), list(out)))
+    return _plans[key]
+
+
 def _fused_cuda(P_blk, q, y0, U, b_pairs, nsc, scale, b_pl, F_seg, sigma,
                 *, iters, reg, s_min, tol_gap, tol_rp, tol_rd, tol_step,
-                correctors, qp_counts=False):
+                correctors, qp_counts=False, rows="auto"):
     global fused_launches
     lib = _build.load_library()
     N, nf, Ru, C, M, n1 = _check(P_blk, q, y0, U, b_pairs, nsc, scale, b_pl,
                                  F_seg, sigma)
     nv, R = 3 * nf, C * M * n1
+    plan = fused_plan(N, nf, Ru, C, M, n1, rows, q.device)
     ins = [t.contiguous() for t in (P_blk, q, y0, U, b_pairs, nsc, scale,
                                     b_pl, F_seg, sigma)]
-    y = torch.empty((N, nv), dtype=torch.float32, device=q.device)
-    lam_s = torch.empty((N, 2, 3 * Ru), dtype=torch.float32, device=q.device)
-    lam_p = torch.empty((N, R), dtype=torch.float32, device=q.device)
-    gap = torch.empty((N,), dtype=torch.float32, device=q.device)
-    it_qp = torch.empty((N,), dtype=torch.int32, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.lsc_ipm_fused_f32(
-            *[t.data_ptr() for t in ins],
-            y.data_ptr(), lam_s.data_ptr(), lam_p.data_ptr(), gap.data_ptr(),
-            it_qp.data_ptr(), N, nf, Ru, C, M, n1, iters, correctors,
-            reg, s_min, tol_gap, tol_rp, tol_rd, tol_step, stream)
+    dev = q.device
+    y = torch.empty((N, nv), dtype=torch.float32, device=dev)
+    lam_s = torch.empty((N, 2, 3 * Ru), dtype=torch.float32, device=dev)
+    lam_p = torch.empty((N, R), dtype=torch.float32, device=dev)
+    gap = torch.empty((N,), dtype=torch.float32, device=dev)
+    it_qp = torch.empty((N,), dtype=torch.int32, device=dev)
+    scratch = torch.empty((max(1, N * plan["scratch_floats"]),),
+                          dtype=torch.float32, device=dev)
+    err = _build.launch(
+        lib.lsc_ipm_fused_f32, dev, *[t.data_ptr() for t in ins],
+        y.data_ptr(), lam_s.data_ptr(), lam_p.data_ptr(), gap.data_ptr(),
+        it_qp.data_ptr(), scratch.data_ptr(), scratch.numel(),
+        plan["rows_in_smem"], plan["qps_a_block"], N, nf, Ru, C, M, n1,
+        iters, correctors,
+        reg, s_min, tol_gap, tol_rp, tol_rd, tol_step)
     if err:
         raise RuntimeError(f"ipm_lsc_fused kernel launch failed: CUDA error "
                            f"{err}")
@@ -371,12 +405,12 @@ def ipm_lsc_fused(P_blk, q, y0, U, b_pairs, nsc, scale, b_pl, F_seg,
                   tol_step: float = 0.0, correctors: int = 0,
                   qp_counts: bool = False):
     """Solve a batch of factored-row LSC QPs in one fused launch (float32,
-    3-D, C <= 64).  ``iters`` is a cap: a QP stops once its gap <
-    tol_gap * sigma, primal residual < tol_rp and (dual residual < tol_rd
-    or applied step < tol_step) hold on the new iterate; a tolerance of 0
-    runs every iteration.  ``qp_counts`` returns each QP's own iteration
-    count (the iterations its block ran) in place of its tile's.  See the
-    module docstring for shapes."""
+    3-D, any number C of obstacle row groups).  ``iters`` is a cap: a QP
+    stops once its gap < tol_gap * sigma, primal residual < tol_rp and
+    (dual residual < tol_rd or applied step < tol_step) hold on the new
+    iterate; a tolerance of 0 runs every iteration.  ``qp_counts`` returns
+    each QP's own iteration count (the iterations its warp ran) in place of
+    its tile's.  See the module docstring for shapes."""
     if sigma is None:
         sigma = torch.ones(q.shape[0], dtype=q.dtype, device=q.device)
     args = (P_blk, q, y0, U, b_pairs, nsc, scale, b_pl, F_seg, sigma)

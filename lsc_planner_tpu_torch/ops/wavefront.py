@@ -114,11 +114,9 @@ def _wavefront_cuda(occ_zyx, goal_zyx, max_iters):
     N, Z, Y, X = occ.shape
     out = torch.empty_like(occ)
     steps = torch.empty(N, dtype=torch.int32, device=occ.device)
-    with torch.cuda.device(occ.device):
-        stream = torch.cuda.current_stream(occ.device).cuda_stream
-        err = lib.lsc_wavefront_f32(occ.data_ptr(), goal.data_ptr(),
-                                    out.data_ptr(), steps.data_ptr(), N, Z,
-                                    Y, X, int(max_iters), stream)
+    err = _build.launch(lib.lsc_wavefront_f32, occ.device, occ.data_ptr(),
+                        goal.data_ptr(), out.data_ptr(), steps.data_ptr(), N,
+                        Z, Y, X, int(max_iters))
     if err:
         raise RuntimeError(f"wavefront kernel launch failed: CUDA error "
                            f"{err}")

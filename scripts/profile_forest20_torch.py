@@ -2,6 +2,7 @@
 """Profile the port's forest20 cycle on one CUDA GPU.
 
     python3 scripts/profile_forest20_torch.py [--warm 20] [--cycles 3]
+    python3 scripts/profile_forest20_torch.py --kernels
 
 Builds chip_smoke.py's forest20 (20 agents, 60 tree columns, seed 0) on
 the card, runs --warm cycles, then traces --cycles cycles with
@@ -10,12 +11,24 @@ and power limit, wall ms a cycle of the same cycles run twice from the same
 state (host clock, synchronised): once untraced and once under the
 profiler, which slows the host; kernel launches and memory copies/sets a
 cycle; device-busy ms a cycle (the sum of the device time of both) and its
-share of the untraced wall time; and the ten kernels with the most device
-time.  Fails when the trace
-holds no device time.  Imports nothing of JAX.
+share of the untraced wall time; the ten kernels with the most device
+time; and each of the port's own kernels' device us a launch and
+launches a cycle.  Fails when the trace
+holds no device time.
+
+With --kernels it times the chol-path IPM's two kernels instead, at the
+main path's shape (B = 64, n = 39, f32, IPM-like systems), and prints as
+one JSON line: each wrapper's device us a launch (200 launches captured
+in one CUDA graph, replayed, CUDA events over the replay / 200: no host
+time), its host us a call (2,000 calls enqueued without a synchronize)
+and its CUDA-event us a call (median of 50, as chip_smoke phase 4); and
+the host us of reading the current stream with a device guard and
+torch.cuda.current_stream against the raw stream (ops/_build.py::launch).
+Each number is the least of three rounds.  Imports nothing of JAX.
 """
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -27,6 +40,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 import chip_smoke  # noqa: E402
 from lsc_planner_tpu_torch import GoalMode, Param  # noqa: E402
+from lsc_planner_tpu_torch.ops import chol  # noqa: E402
 from lsc_planner_tpu_torch.sim.simulator import SyncSimulator  # noqa: E402
 
 
@@ -37,16 +51,87 @@ def device_us(evt):
     return 0.0
 
 
+def graph_us(fn, n=200):
+    """Device us a call of fn: n calls in one CUDA graph, replayed."""
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(s)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(n):
+            fn()
+    g.replay()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    g.replay()
+    b.record()
+    b.synchronize()
+    return 1e3 * a.elapsed_time(b) / n
+
+
+def host_us(fn, n=2000):
+    """Host us a call of fn, the calls enqueued without a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e6 * (t1 - t0) / n
+
+
+def time_kernels(smi):
+    dev = torch.device("cuda", torch.cuda.current_device())
+    Hs, r1, r2 = chip_smoke.ipm_like_system(chip_smoke.MAIN_B,
+                                            chip_smoke.N_QP, 0)
+    H, R1, R2 = (torch.as_tensor(a, device=dev, dtype=torch.float32)
+                 for a in (Hs, r1, r2))
+    L = chol.chol_factor_solve(H, R1)[0]
+    calls = {"factor_solve": lambda: chol.chol_factor_solve(H, R1),
+             "resolve": lambda: chol.chol_resolve(L, R2)}
+
+    def guarded():
+        with torch.cuda.device(dev):
+            return torch.cuda.current_stream(dev).cuda_stream
+    lookups = {"device_guard_and_current_stream": guarded,
+               "raw_stream": lambda: torch._C._cuda_getCurrentRawStream(
+                   dev.index)}
+    best = {}
+    for _ in range(3):
+        for name, fn in calls.items():
+            got = (graph_us(fn), host_us(fn),
+                   1e3 * chip_smoke.median_ms(fn))
+            best[name] = [min(x, y) for x, y in
+                          zip(best.get(name, got), got)]
+        for name, fn in lookups.items():
+            best[name] = min(best.get(name, math.inf), host_us(fn))
+    print(json.dumps({
+        "card": smi, "B": chip_smoke.MAIN_B, "n": chip_smoke.N_QP,
+        "us_a_call": {name: dict(zip(("device", "host", "event"),
+                                     best[name])) for name in calls},
+        "stream_lookup_host_us": {name: best[name] for name in lookups},
+    }), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--warm", type=int, default=20)
     ap.add_argument("--cycles", type=int, default=3)
+    ap.add_argument("--kernels", action="store_true",
+                    help="time the chol kernels instead (see the module "
+                         "docstring)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
+    if args.kernels:
+        time_kernels(smi)
+        return
     sim = SyncSimulator(chip_smoke.forest_mission(),
                         Param(goal_mode=GoalMode.PRIOR_BASED), device="cuda")
     state = sim.initial_state()
@@ -86,6 +171,12 @@ def main():
         "device_busy_share": busy_us / 1e3 / args.cycles / wall_ms,
         "top_kernels_ms_per_cycle": {
             e.key[:80]: device_us(e) / 1e3 / args.cycles for e in top},
+        # the port's own kernels (csrc/*.cu, in anonymous namespaces)
+        "own_kernels_us_per_launch_and_launches_per_cycle": {
+            e.key.split("::", 1)[1].split("(")[0]: [
+                device_us(e) / e.count, e.count / args.cycles]
+            for e in kernels if e.key.removeprefix("void ").startswith(
+                "(anonymous namespace)::")},
     }), flush=True)
 
 

@@ -57,7 +57,7 @@ def ipm_like_system(B, n=39, seed=0, cond=1e3):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", [1, 64, 130])
+@pytest.mark.parametrize("B", [1, 63, 64, 130])
 def test_chol_kernels_match_plain_f32(cuda, B):
     Hs, r1, r2 = ipm_like_system(B)
     H64 = torch.as_tensor(Hs, device=cuda)
@@ -110,6 +110,47 @@ def test_chol_kernel_nan_stays_in_its_entry(cuda):
     assert (~torch.isfinite(y).all(-1)).nonzero().flatten().tolist() == [5]
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B, n", [(1, 39), (63, 39), (64, 39), (130, 39),
+                                  (63, 64)])
+def test_factor_solve_nonspd_entry_in_a_shared_block(cuda, B, n, dtype):
+    """factor_solve factors four matrices a block, one a warp: a non-SPD
+    entry (B // 2, inside a block of healthy ones) comes back with its
+    lower triangle and x all NaN; every other entry matches the f64 plain
+    version (f32: within 4x the plain f32 error + 1e-6; f64: rtol 1e-10),
+    with zeros above the diagonal, and chol_resolve takes its factor.  At
+    the QP's n = 39 and at n = 64, the kernel's two register capacities."""
+    Hs, r1, r2 = ipm_like_system(B, n, seed=100 + B)
+    bad = B // 2 if B > 1 else None
+    if bad is not None:
+        Hs[bad, 7, 7] = -1.0
+    H64 = torch.as_tensor(Hs, device=cuda)
+    R64 = torch.as_tensor(r1, device=cuda)
+    L64, x64 = chol.chol_factor_solve_plain(H64, R64)
+    H, R1 = H64.to(dtype), R64.to(dtype)
+    chol.reset_counts()
+    Lk, xk = chol.chol_factor_solve(H, R1)
+    yk = chol.chol_resolve(Lk, torch.as_tensor(r2, device=cuda, dtype=dtype))
+    torch.cuda.synchronize()
+    assert chol.factor_solve_launches == 1
+    want = [] if bad is None else [bad]
+    assert (~torch.isfinite(xk).all(-1)).nonzero().flatten().tolist() == want
+    assert (~torch.isfinite(yk).all(-1)).nonzero().flatten().tolist() == want
+    if bad is not None:
+        low = torch.tril(torch.ones_like(Lk[bad], dtype=torch.bool))
+        assert torch.isnan(Lk[bad][low]).all()
+    assert torch.equal(torch.triu(Lk, 1), torch.zeros_like(Lk))
+    ok = torch.arange(B, device=cuda) != (-1 if bad is None else bad)
+    if dtype == torch.float64:
+        torch.testing.assert_close(xk[ok], x64[ok], rtol=1e-10, atol=1e-10)
+    else:
+        xp = chol.chol_factor_solve_plain(H, R1)[1]
+        e_k = (xk[ok].double() - x64[ok]).abs().max().item()
+        e_p = (xp[ok].double() - x64[ok]).abs().max().item()
+        assert e_k <= 4 * e_p + 1e-6, (e_k, e_p)
+
+
 def fused_problem(B, C, seed=0):
     """Inputs of ``ipm.ipm_lsc_fused`` on the production row structure
     (the optimizer's unit-norm U and F_seg), built as tests/test_qp.py:
@@ -147,12 +188,14 @@ PROD_TOL = dict(iters=40, tol_gap=1e-3, tol_rp=1e-4, tol_rd=0.2,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", [1, 64, 1024])
-@pytest.mark.parametrize("C", [5, 32, 64])
+@pytest.mark.parametrize("B", [1, 64, 130, 1024])
+@pytest.mark.parametrize("C", [5, 32, 64, 128, 256])
 def test_fused_kernel_matches_plain(cuda, B, C):
     """The kernel against its plain version in f32 on the card, both held
     to an f64 plain run: the kernel's y error within 4x the plain f32
-    error + 1e-4, the same tile iteration counts within 1."""
+    error + 1e-4, the same tile iteration counts within 1.  B = 130 and
+    1024 leave the last block part-filled; at C = 128 and 256 a block's
+    shared memory holds the rows of one QP at most."""
     arr = fused_problem(B, C, seed=B + C)
     a64 = [torch.as_tensor(a, device=cuda) for a in arr]
     a32 = [a.float() for a in a64]
@@ -175,6 +218,69 @@ def test_fused_kernel_matches_plain(cuda, B, C):
         own_p = ipm.ipm_lsc_fused_plain(*a32, **kw, qp_counts=True)[4]
         assert torch.equal(ipm.tile_counts(own), got[4])
         assert (own - own_p).abs().max().item() <= 1
+
+
+def _shrink_segments(arr, M):
+    """The fused problem with its first M segments only (MI = M (n + 1)):
+    a shape the kernel is not specialised for."""
+    arr = list(arr)
+    for i in (5, 6, 7):
+        arr[i] = np.ascontiguousarray(arr[i][:, :, :M])
+    arr[8] = np.ascontiguousarray(arr[8][:M])
+    return arr
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,C", [(130, 32), (130, 128)])
+def test_fused_kernel_generic_shape_and_row_modes(cuda, B, C):
+    """The generic instantiation (M = 4, MI = 24) against the plain version
+    as in test_fused_kernel_matches_plain; and on the main path's shape
+    the rows in shared memory and in device memory give the same bits."""
+    arr = _shrink_segments(fused_problem(B, C, seed=7), 4)
+    a64 = [torch.as_tensor(a, device=cuda) for a in arr]
+    a32 = [a.float() for a in a64]
+    U, F = arr[3], arr[8]
+    assert ipm.fused_plan(B, U.shape[-1], U.shape[1], C, 4, F.shape[1])[
+        "specialised"] == 0
+    for kw in (dict(iters=3, tol_gap=0.0, tol_rp=0.0, correctors=1),
+               PROD_TOL):
+        ref = ipm.ipm_lsc_fused_plain(*a64, **kw)
+        plain = ipm.ipm_lsc_fused_plain(*a32, **kw)
+        got = ipm.ipm_lsc_fused(*a32, **kw)
+        torch.cuda.synchronize()
+        e_k = (got[0].double() - ref[0]).abs().max().item()
+        e_p = (plain[0].double() - ref[0]).abs().max().item()
+        assert e_k <= 4 * e_p + 1e-4, (kw["iters"], e_k, e_p)
+        assert (got[4] - plain[4]).abs().max().item() <= 1
+    a32 = [torch.as_tensor(a, device=cuda).float()
+           for a in fused_problem(B, C, seed=8)]
+    assert ipm.fused_plan(B, 13, a32[3].shape[1], C, 5, 6)["specialised"]
+    outs = [ipm._fused_cuda(*a32, **PROD_TOL, reg=1e-8, s_min=1.0,
+                            rows=rows)
+            for rows in ("smem", "global")]
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", ["smem", "global"])
+def test_fused_kernel_nan_qp_leaves_its_block_mates_alone(cuda, rows):
+    """A QP whose q is NaN rejects every step; the QPs that share its
+    block (one warp a QP) return the bits of a batch without it."""
+    arr = [torch.as_tensor(a, device=cuda).float()
+           for a in fused_problem(64, 32, seed=9)]
+    kw = dict(iters=40, reg=1e-8, s_min=1.0, tol_gap=1e-3, tol_rp=1e-4,
+              tol_rd=0.2, tol_step=1e-3, correctors=1, qp_counts=True,
+              rows=rows)
+    clean = ipm._fused_cuda(*arr, **kw)
+    arr[1] = arr[1].clone()
+    arr[1][5] = float("nan")
+    got = ipm._fused_cuda(*arr, **kw)
+    torch.cuda.synchronize()
+    keep = torch.arange(64, device=cuda) != 5
+    for a, b in zip(got, clean):
+        assert torch.equal(a[keep], b[keep])
+    assert int(got[4][5]) == 40                 # never latched done
 
 
 @pytest.mark.cuda
@@ -202,11 +308,10 @@ def test_fused_kernel_nonspd_entry_stays_finite_and_alone(cuda):
 @pytest.mark.cuda
 def test_fused_dispatch_raises_and_off_runs(cuda):
     """At N >= 128 under "auto" the cycle solves through the fused IPM
-    kernel (one launch, no chol launch), here with K-NN pruning (K = 32);
-    all-pairs rows at 128 agents (C = 128) are more than the kernel's
-    shared memory holds and raise.  "off" keeps the JAX meaning and solves
-    through the factored rows and the chol kernels.  An unsupported dtype
-    raises on the card."""
+    kernel (one launch, no chol launch), with K-NN pruning (K = 32) and at
+    Param's all-pairs default (C = 128 row groups a QP).
+    "off" keeps the JAX meaning and solves through the factored rows and
+    the chol kernels.  An unsupported dtype raises on the card."""
     from lsc_planner_tpu_torch import GoalMode, Param, make_circle_mission
     from lsc_planner_tpu_torch.sim.simulator import SyncSimulator
 
@@ -226,8 +331,14 @@ def test_fused_dispatch_raises_and_off_runs(cuda):
 
     sim = SyncSimulator(mission, Param(goal_mode=GoalMode.PRIOR_BASED),
                         device=cuda)
-    with pytest.raises(NotImplementedError, match="C = 128"):
-        sim.cycle(sim.initial_state())
+    chol.reset_counts()
+    ipm.reset_counts()
+    state, info = sim.cycle(sim.initial_state())
+    torch.cuda.synchronize()
+    assert ipm.fused_launches == 1
+    assert chol.factor_solve_launches == chol.resolve_launches == 0
+    assert torch.isfinite(state.traj).all()
+    assert not bool(info.qp_failed.any())
 
     sim = SyncSimulator(mission, Param(goal_mode=GoalMode.PRIOR_BASED,
                                        qp_fused_mode="off"), device=cuda)

@@ -9,8 +9,11 @@ matches exactly.  Here the port's f32 run is held to the JAX package's
 f32 run, on missions of the same kinds: finished, agent and obstacle
 safety >= 1, 0 QPFAILED, cycles within max(20 %, 10) of JAX's.
 Run as a script, it prints each package's f32 and f64 cycle counts for
-every case of CASES.
+every case of CASES, and with the case "circle128" the distance flown over
+the 20 all-pairs cycles of the 128-agent circle that chip_smoke.py's phase
+11 flies, by each package in f32 and f64.
 """
+import math
 import sys
 
 import jax
@@ -81,6 +84,41 @@ def test_f32_mission_cycles_match_jax_f32(name):
         (t["iterations"], j["iterations"])
 
 
+def circle128_distances(cycles=20):
+    """{run: (distance flown, min safety, QPFAILED)} over `cycles` cycles
+    from the initial state of the 128-agent circle swap (bench.py's radius
+    rule, PRIOR_BASED, all pairs: C = 128 row groups a QP), by each
+    package on the CPU in f32 and f64.  On the CPU both optimizers take
+    the factored IPM at every size (the fused one is for the accelerator
+    in f32), so these runs share one algorithm."""
+    qn = 128
+    radius = max(4.0, 0.45 * qn / math.pi)
+    w = radius + 2.0
+    world = (-w, -w, 0.0, w, w, 2.5)
+    jm = jmis.make_circle_mission(qn, radius=radius, world=world)
+    tm = tmis.make_circle_mission(qn, radius=radius, world=world)
+
+    def fly(step, state):
+        safety, failed = math.inf, 0
+        for _ in range(cycles):
+            state, info = step(state)
+            safety = min(safety, float(info.safety_step_min))
+            failed += int(np.asarray(info.qp_failed).sum())
+        return float(state.distance), safety, failed
+
+    out = {}
+    for dtype, key in ((jnp.float32, "jax_f32"), (jnp.float64, "jax_f64")):
+        jp = params(goal_mode=GoalMode.PRIOR_BASED)[0]
+        sim = JSim(jm, jp, dtype=dtype)
+        out[key] = fly(sim._cycle_jit, sim.initial_state())
+    for dtype, key in ((torch.float32, "port_f32"),
+                       (torch.float64, "port_f64")):
+        tp = params(goal_mode=GoalMode.PRIOR_BASED)[1]
+        sim = TSim(tm, tp, device="cpu", dtype=dtype)
+        out[key] = fly(sim.cycle, sim.initial_state())
+    return out
+
+
 def main(names):
     """Print, a JSON line a case, the cycles, safety and distance of the
     JAX package's and the port's CPU runs in f32 and f64."""
@@ -89,6 +127,11 @@ def main(names):
     jax.config.update("jax_enable_x64", True)
     torch.set_num_threads(1)
     for name in names:
+        if name == "circle128":
+            print(json.dumps({"case": name, **{
+                key: dict(zip(("distance", "safety", "qp_failures"), v))
+                for key, v in circle128_distances().items()}}), flush=True)
+            continue
         jm, tm, kw = _case(name)
         jp, tp = params(**kw)
         out = {"case": name}

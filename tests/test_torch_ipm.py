@@ -33,7 +33,11 @@ OFF15 = dict(iters=15, tol_gap=0.0, tol_rp=0.0, correctors=1)
 CASES = {"off3": OFF3, "off15": OFF15, "prod": PROD_TOL}
 
 
-def _problem(nonspd=False):
+def _problem(nonspd=False, wide=False):
+    """N = 5, C = 5; wide: N = 3, C = 70 (more row groups than one CUDA
+    block's shared memory holds for four QPs)."""
+    if wide:
+        return [a.astype(np.float32) for a in fused_problem(3, 70, seed=12)]
     arr = [a.astype(np.float32) for a in fused_problem(5, 5, seed=11)]
     if nonspd:
         # an indefinite cost block: QP 2's Jacobi-scaled Gram is not SPD and
@@ -48,18 +52,19 @@ def _problem(nonspd=False):
 def jax_run():
     cache = {}
 
-    def run(case, nonspd=False):
-        key = (case, nonspd)
+    def run(case, nonspd=False, wide=False):
+        key = (case, nonspd, wide)
         if key not in cache:
-            out = jax_fused(*[jnp.asarray(a) for a in _problem(nonspd)],
+            out = jax_fused(*[jnp.asarray(a) for a in _problem(nonspd, wide)],
                             interpret=True, block_b=8, **CASES[case])
             cache[key] = [np.asarray(x) for x in out]
         return cache[key]
     return run
 
 
-def _port(case, nonspd=False):
-    out = ipm.ipm_lsc_fused(*[torch.as_tensor(a) for a in _problem(nonspd)],
+def _port(case, nonspd=False, wide=False):
+    out = ipm.ipm_lsc_fused(*[torch.as_tensor(a)
+                              for a in _problem(nonspd, wide)],
                             **CASES[case])
     return [x.numpy() for x in out]
 
@@ -99,6 +104,26 @@ def test_fused_plain_matches_jax_contract(jax_run):
     np.testing.assert_allclose(t[3], j[3], rtol=0.1, atol=1e-4)
     assert pr_t.max() < 1e-4 and pr_j.max() < 1e-4
     assert t[4].tolist() == [15] * 5
+
+
+@pytest.mark.parametrize("case", ["off3", "prod"])
+def test_fused_plain_matches_jax_wide_rows(jax_run, case):
+    """C = 70 row groups (all-pairs rows of a 71-agent swarm): the plain
+    version against the TPU kernel in interpret mode with the tolerances
+    of the C = 5 cases above (off3: rtol 1e-3 / atol 1e-4 and equal
+    counts; production: y's contract, counts within 1, primal < 1e-4)."""
+    j, t = jax_run(case, wide=True), _port(case, wide=True)
+    if case == "off3":
+        for name, a, b in zip(("y", "lam_s", "lam_p", "gap"), t[:4], j[:4]):
+            np.testing.assert_allclose(a, b, rtol=1e-3, atol=1e-4,
+                                       err_msg=name)
+        np.testing.assert_array_equal(t[4], j[4].astype(np.int32))
+    else:
+        assert 1 < int(j[4][0]) < PROD_TOL["iters"]
+        assert np.abs(t[4] - j[4]).max() <= 1
+        np.testing.assert_allclose(t[0], j[0], rtol=5e-3, atol=1e-2)
+        assert _obj_and_primal(_problem(wide=True), t[0])[1].max() < 1e-4
+    assert t[2].shape == (3, 70 * 5 * 6)
 
 
 def test_fused_qp_counts_tile_to_the_reported_counts():
@@ -208,10 +233,13 @@ def test_fused_wrapper_guards():
     two_d[5] = arr[5][..., :2]                             # nsc (.., 2)
     with pytest.raises(NotImplementedError, match="2-D"):
         ipm.ipm_lsc_fused(*two_d)
+    # any number of row groups: C = 65 (once refused) solves
     wide = [torch.as_tensor(a, dtype=torch.float32)
-            for a in fused_problem(2, ipm.MAX_C + 1)]
-    with pytest.raises(NotImplementedError, match="C = 65"):
-        ipm.ipm_lsc_fused(*wide)
+            for a in fused_problem(2, 65)]
+    out = ipm.ipm_lsc_fused(*wide, iters=3, tol_gap=0.0, tol_rp=0.0)
+    assert out[2].shape == (2, 65 * 5 * 6)
+    for t in out[:4]:
+        assert torch.isfinite(t).all()
     # a CUDA tensor with no card: the kernel loader raises, no fallback
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
