@@ -12,9 +12,11 @@ Phases, one line each; any failure raises and exits non-zero:
   3. audit.precision_self_check on the card (the TF32 guard)
   4. each chol kernel (factor_solve, resolve, and the factor alone,
      cholesky_batched) against its plain PyTorch version at n = 39,
-     B in {1, 64, 130}, on IPM-like inputs; NaN stays in a non-SPD entry;
-     kernel, plain and library times (CUDA events, median of 50); plus one
-     f64 cycle of an 8-agent circle on the card against the CPU
+     B in {1, 64, 130}, on IPM-like inputs, each held to the f64 solve;
+     resolve with factor_solve's L and right-hand side returns
+     factor_solve's x bit for bit; NaN stays in a non-SPD entry; kernel,
+     plain and library times (CUDA events, median of 50); plus one f64
+     cycle of an 8-agent circle on the card against the CPU
   5. flies the 64-agent circle swap (PRIOR_BASED, float32, all-pairs LSC)
      through SyncSimulator.run() on the card and checks it finished safely
      through the kernels (launch counts = cycles * 40 and cycles * 80)
@@ -31,11 +33,15 @@ Phases, one line each; any failure raises and exits non-zero:
      (K = 32) through the fused kernel ("auto"), checked for safety and
      against the JAX package's distance flown; stage medians (goal rule,
      K-NN, LSC planes, optimizer.solve, the fused call, the cycle)
-  9. the wavefront kernel against its plain version, bit for bit: on the
-     occupancy grids of the fourth cycle of forest20 (priority and static,
-     N = 20), on random grids with unreachable cells and an occupied goal,
-     and where the cap ends the loop (max_iters 8 and 13); kernel and
-     plain times (CUDA events, median of 20), mean relaxation steps
+  9. the wavefront kernel against its plain version, bit for bit, step
+     counts included: on the occupancy grids of the fourth cycle of
+     forest20 (priority and static, N = 20), on forest20's tree density
+     over a 30 x 30 x 5 m world at 0.25 m ((21, 121, 121), 307,461 cells,
+     N = 20, the static grids of its 20 agents), on random grids with
+     unreachable cells and an occupied goal (two of them at X = 70, two
+     64-bit words a row, and one at (21, 121, 121)), and where the cap
+     ends the loop (max_iters 8 and 13); kernel and plain times (CUDA
+     events, median of 20), mean relaxation steps
  10. forest20 (20 agents in a seeded synthetic forest of 60 tree columns,
      simple_forest's bbox and resolution) flown with run() on the card
      through the grid planner, the SFC corridors and the chol kernels:
@@ -69,10 +75,12 @@ from lsc_planner_tpu_torch import (GoalMode, ObstacleSpec, Param,
                                    make_circle_mission, make_random_mission)
 from lsc_planner_tpu_torch.convert import state_to_numpy
 from lsc_planner_tpu_torch.ops import _build, chol, ipm, wavefront
+from lsc_planner_tpu_torch.ops.grid_search import GridPlanner
 from lsc_planner_tpu_torch.planner import constraints
 from lsc_planner_tpu_torch.sim import audit
 from lsc_planner_tpu_torch.sim import simulator as sim_mod
 from lsc_planner_tpu_torch.sim.simulator import SyncSimulator
+from lsc_planner_tpu_torch.world.esdf import ESDF
 
 N_QP = 39                   # QP variables per agent (3 dims x 13)
 MAIN_B = 64                 # agents in the flown mission = QP batch
@@ -111,6 +119,10 @@ FOREST_WORLD = (-5.0, -5.0, 0.0, 5.0, 5.0, 2.5)     # simple_forest's bbox
 # min safety 1.0253, obstacle safety 1.8926, 0 QPFAILED.
 JAX_CPU_F32_FOREST_CYCLES = 101
 JAX_CPU_F32_FOREST_DIST = 109.9262466430664
+# forest20's tree density (60 over 100 m^2) over a 30 x 30 x 5 m world: at
+# the grid planner's 0.25 m its grids are (21, 121, 121), 307,461 cells
+FOREST30_WORLD = (-15.0, -15.0, 0.0, 15.0, 15.0, 5.0)
+FOREST30_TREES = 540
 # H100 peaks for the bounds (NVIDIA's data sheet, SXM): f32 outside the
 # tensor cores and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
@@ -229,7 +241,14 @@ def compare_kernels(dev):
         yp = chol.chol_resolve_plain(Lp, R2)
         Lk, xk = chol.chol_factor_solve(H, R1)
         yk = chol.chol_resolve(Lk, R2)
+        xr = chol.chol_resolve(Lk, R1)
         torch.cuda.synchronize()
+        # one warp a matrix on factor_solve's own solve: the same L and
+        # right-hand side give factor_solve's x, bit for bit
+        if not torch.equal(xr, xk):
+            raise AssertionError(f"resolve B={B}: resolve(L, rhs) differs "
+                                 "from factor_solve's x in "
+                                 f"{int((xr != xk).sum())} entries")
         errs = {}
         for name, got, plain, ref in (("factor_solve", xk, xp, x64),
                                       ("resolve", yk, yp, y64)):
@@ -271,7 +290,8 @@ def compare_kernels(dev):
               f"{t['factor_solve'][0]:.4f} ms vs plain "
               f"{t['factor_solve'][1]:.4f} ms; resolve err "
               f"{errs['resolve'][0]:.3e} (plain f32 {errs['resolve'][1]:.3e})"
-              f" {t['resolve'][0]:.4f} ms vs plain {t['resolve'][1]:.4f} ms, "
+              f", bit-equal to factor_solve's x, "
+              f"{t['resolve'][0]:.4f} ms vs plain {t['resolve'][1]:.4f} ms, "
               f"cholesky_solve {t['resolve'][2]:.4f} ms; cholesky_batched "
               f"err {errs['factor'][0]:.3e} (plain f32 "
               f"{errs['factor'][1]:.3e}) {t['factor'][0]:.4f} ms vs plain "
@@ -581,15 +601,50 @@ def random_wavefront_case(dev, shape, seed, fill=0.2):
             torch.as_tensor(goal, device=dev))
 
 
+def forest30_static_grids(dev):
+    """The grid planner's static occupancy (N, Z, Y, X) of a 20-agent
+    mission in a 30 x 30 x 5 m synthetic forest at forest20's density, the
+    agents' goal cells (z, y, x) and the planner's wavefront cap.  The
+    ESDF under it is made at the grid's 0.25 m, not the world's 0.1 m:
+    ESDF.from_boxes merges each of the 540 boxes on the host over every
+    cell, minutes at 0.1 m."""
+    m = forest_mission(n_trees=FOREST30_TREES, world=FOREST30_WORLD)
+    p = Param(goal_mode=GoalMode.PRIOR_BASED)
+    boxes = np.stack([np.concatenate([o.pose - o.dimensions,
+                                      o.pose + o.dimensions])
+                      for o in m.obstacles])
+    esdf = ESDF.from_boxes(boxes, m.world_min, m.world_max,
+                           resolution=p.grid_resolution, device=dev)
+    grid = GridPlanner(m, p, esdf)
+    occ = grid.static_occupancy(float(m.agents[0].radius))
+    goal = grid.to_cell(torch.as_tensor(np.array([a.goal for a in m.agents]),
+                                        dtype=torch.float32, device=dev))
+    occ = occ.permute(2, 1, 0)[None].expand(len(m.agents), -1, -1, -1)
+    return (occ.float().contiguous(), goal.flip(-1).contiguous(),
+            grid.max_wavefront_iters)
+
+
+def wavefront_bound(occ, goal, field, steps):
+    """The least time of the function on these inputs, whatever computes
+    it: the occupancy and goals read once, the field and steps written
+    once, and each reached cell relaxed once (its six neighbours + 1 and
+    the least of them: 12 operations)."""
+    reached = (field < wavefront.BIG).sum().item()
+    return bound(tensor_bytes(occ, goal, field, steps), 12.0 * reached)
+
+
 def compare_wavefront(dev, forest_sim):
     """Phase 9: the wavefront kernel against its plain version, bit for
     bit, step counts included.  Returns the numbers of the forest20
     priority grids (the first launch of a cycle)."""
     calls = capture_wavefront_calls(forest_sim, 3)
     cases = [("forest20 cycle 4, priority", *calls[0]),
-             ("forest20 cycle 4, static", *calls[1])]
+             ("forest20 cycle 4, static", *calls[1]),
+             ("forest30 static", *forest30_static_grids(dev))]
     for shape, max_iters in (((20, 11, 41, 41), 139), ((3, 5, 21, 21), 70),
-                             ((4, 7, 13, 29), 13), ((20, 11, 41, 41), 8)):
+                             ((4, 7, 13, 29), 13), ((20, 11, 41, 41), 8),
+                             ((4, 9, 23, 70), 200), ((4, 9, 23, 70), 13),
+                             ((20, 21, 121, 121), 394)):
         occ, goal = random_wavefront_case(dev, shape, sum(shape) + max_iters)
         cases.append((f"random {shape} cap {max_iters}", occ, goal,
                       max_iters))
@@ -610,6 +665,7 @@ def compare_wavefront(dev, forest_sim):
             occ, goal, max_iters), reps=20)
         t_p = median_ms(lambda: wavefront.wavefront_batched_plain(
             occ, goal, max_iters), reps=20)
+        b_ms, b_by = wavefront_bound(occ, goal, got, steps)
         unreachable = (got >= wavefront.BIG).sum().item() - \
             (occ > 0.5).sum().item()
         phase("9 wavefront", f"{name}: N={occ.shape[0]} grid "
@@ -618,15 +674,10 @@ def compare_wavefront(dev, forest_sim):
                              f"{cap}, {int((steps >= cap).sum())} agents "
                              f"capped), unreachable free cells "
                              f"{unreachable}; {t_k:.4f} ms vs plain "
-                             f"{t_p:.4f} ms")
+                             f"{t_p:.4f} ms, bound {b_ms:.6f} ms ({b_by})")
         if main is None:
             err = (got - want).abs().max().item()
-            cells = occ[0].numel()
-            nbytes = tensor_bytes(occ, goal, got)
-            # ~12 operations a cell a step: six neighbour loads + adds +
-            # mins, the blocked test and the store
-            ops = 12.0 * cells * steps.double().sum().item()
-            main = (err, t_k, t_p, bound(nbytes, ops))
+            main = (err, t_k, t_p, (b_ms, b_by))
     return main
 
 

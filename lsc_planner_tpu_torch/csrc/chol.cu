@@ -35,10 +35,20 @@
 // triangle and its x all NaN, as its plain version (cholesky_ex + NaN
 // fill) gives; the other warps of its block never see it.
 //
-// resolve and the factor alone (cholesky_batched) keep the first design:
-// one block of 128 threads a matrix in shared memory, a block-wide
-// factor with two barriers a column (factor_block), the substitutions by
-// one warp (solve_warp).
+// resolve: factor_solve's launch shape and its solve.  One warp a
+// matrix, four a block (B not a multiple of four masks its last warps).
+// The warp copies L into its own shared tile (coalesced), each lane takes
+// the reciprocals of its rows' diagonal entries with warp_chol::diag_rinv
+// (n divisions spread over the lanes, off the substitution chain; factor()
+// keeps its reciprocals with the same code) and runs warp_chol::solve,
+// factor_solve's own substitutions.  So for the same L and rhs, resolve's
+// x equals factor_solve's x bit for bit.  A factor with a NaN lower triangle (factor_solve on a non-SPD
+// entry) gives an all-NaN x in that entry; its block-mates never see it.
+//
+// The factor alone (cholesky_batched) keeps the first design: one block
+// of 128 threads a matrix in shared memory, a block-wide factor with two
+// barriers a column (factor_block); it is the next to take factor_solve's
+// warp-a-matrix shape.
 
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -shared -Xcompiler -fPIC (lsc_planner_tpu_torch/ops/_build.py).
@@ -53,39 +63,8 @@
 namespace {
 
 constexpr int kMaxN = 64;       // two rows per lane in the one-warp solve
-constexpr int kThreads = 128;
-constexpr int kFsWarps = 4;    // matrices a block in factor_solve
-
-// Solve (L L^T) x = rhs for one instance with warp 0.  L is row-major
-// n x n in shared memory (only the lower triangle is read).
-template <typename T>
-__device__ void solve_warp(const T* L, int n, const T* rhs, T* x) {
-  const int lane = threadIdx.x & 31;
-  const int r0 = lane;
-  const int r1 = lane + 32;
-  T z0 = r0 < n ? rhs[r0] : T(0);
-  T z1 = r1 < n ? rhs[r1] : T(0);
-  // forward: L z = rhs
-  for (int k = 0; k < n; ++k) {
-    const T held = k < 32 ? z0 : z1;
-    const T zk = __shfl_sync(0xffffffffu, held, k & 31) / L[k * n + k];
-    if (r0 == k) z0 = zk;
-    if (r1 == k) z1 = zk;
-    if (r0 > k && r0 < n) z0 -= L[r0 * n + k] * zk;
-    if (r1 > k && r1 < n) z1 -= L[r1 * n + k] * zk;
-  }
-  // backward: L^T x = z (column k of L^T is row k of L)
-  for (int k = n - 1; k >= 0; --k) {
-    const T held = k < 32 ? z0 : z1;
-    const T xk = __shfl_sync(0xffffffffu, held, k & 31) / L[k * n + k];
-    if (r0 == k) z0 = xk;
-    if (r1 == k) z1 = xk;
-    if (r0 < k) z0 -= L[k * n + r0] * xk;
-    if (r1 < k) z1 -= L[k * n + r1] * xk;
-  }
-  if (r0 < n) x[r0] = z0;
-  if (r1 < n) x[r1] = z1;
-}
+constexpr int kThreads = 128;  // the factor alone: one block a matrix
+constexpr int kFsWarps = 4;    // matrices a block: factor_solve, resolve
 
 // Factor the n x n matrix in shared memory A in place (lower triangle ->
 // L) with the whole block, col (n) as scratch.  Returns true when a pivot
@@ -115,20 +94,6 @@ __device__ bool factor_block(T* A, T* col, int n) {
     __syncthreads();
   }
   return failed;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-resolve_kernel(const T* __restrict__ L, const T* __restrict__ rhs,
-               T* __restrict__ x, int n) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* A = reinterpret_cast<T*>(smem);
-  const int nn = n * n;
-  const size_t b = blockIdx.x;
-  const T* Lb = L + b * nn;
-  for (int e = threadIdx.x; e < nn; e += blockDim.x) A[e] = Lb[e];
-  __syncthreads();
-  if (threadIdx.x < 32) solve_warp(A, n, rhs + b * n, x + b * n);
 }
 
 template <typename T> __device__ T quiet_nan();
@@ -171,6 +136,32 @@ factor_solve_kernel(const T* __restrict__ H, const T* __restrict__ rhs,
   T z1 = r1 < n ? rhs[b * n + r1] : T(0);
   warp_chol::solve(tile, n, rinv0, rinv1, z0, z1);
   if (failed) z0 = z1 = nan;
+  if (r0 < n) x[b * n + r0] = z0;
+  if (r1 < n) x[b * n + r1] = z1;
+}
+
+// resolve: one warp a matrix, factor_solve's solve (see the note at the
+// top).
+template <typename T>
+__global__ void __launch_bounds__(kFsWarps * 32)
+resolve_kernel(const T* __restrict__ L, const T* __restrict__ rhs,
+               T* __restrict__ x, int n, int B) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int nn = n * n;
+  const size_t b = static_cast<size_t>(blockIdx.x) * kFsWarps + w;
+  if (b >= static_cast<size_t>(B)) return;
+  T* tile = reinterpret_cast<T*>(smem) + w * nn;
+  const T* Lb = L + b * nn;
+#pragma unroll 8
+  for (int e = lane; e < nn; e += 32) tile[e] = Lb[e];    // loads in flight
+  __syncwarp();
+  const int r0 = lane, r1 = lane + 32;
+  T rinv0, rinv1;
+  warp_chol::diag_rinv(tile, n, rinv0, rinv1);             // as factor()
+  T z0 = r0 < n ? rhs[b * n + r0] : T(0);
+  T z1 = r1 < n ? rhs[b * n + r1] : T(0);
+  warp_chol::solve(tile, n, rinv0, rinv1, z0, z1);
   if (r0 < n) x[b * n + r0] = z0;
   if (r1 < n) x[b * n + r1] = z1;
 }
@@ -241,10 +232,18 @@ int launch_resolve(const void* L, const void* rhs, void* x, int B, int n,
                    void* stream) {
   if (n < 1 || n > kMaxN || B < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return static_cast<int>(cudaGetLastError());
-  const size_t smem = static_cast<size_t>(n * n) * sizeof(T);
-  resolve_kernel<T><<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  const size_t smem = static_cast<size_t>(kFsWarps) * n * n * sizeof(T);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        resolve_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int blocks = (B + kFsWarps - 1) / kFsWarps;
+  resolve_kernel<T><<<blocks, kFsWarps * 32, smem,
+                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(L), static_cast<const T*>(rhs),
-      static_cast<T*>(x), n);
+      static_cast<T*>(x), n, B);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -45,6 +45,18 @@ __device__ __forceinline__ void load_rows(Rows<T, NC>& R, int n, Get get) {
   }
 }
 
+// rinv0 / rinv1: the reciprocals of the diagonal entries of rows lane and
+// lane + 32 of the row-major n x n factor L (zero past n).  factor() and
+// chol.cu's resolve both take them here, so a resolve of factor()'s L
+// gives factor_solve's x bit for bit.
+template <typename T>
+__device__ __forceinline__ void diag_rinv(const T* L, int n, T& rinv0,
+                                          T& rinv1) {
+  const int r0 = threadIdx.x & 31, r1 = r0 + 32;
+  rinv0 = r0 < n ? T(1) / L[r0 * n + r0] : T(0);
+  rinv1 = r1 < n ? T(1) / L[r1 * n + r1] : T(0);
+}
+
 // Right-looking lower Cholesky of the rows in R.  Each pivot is raised to
 // `floor` when below it (NaN stays NaN; pass -INFINITY for no floor), and
 // column k is the pivot's column times rsqrt(raised pivot) (the hardware
@@ -90,8 +102,7 @@ __device__ __forceinline__ bool factor(Rows<T, NC>& R, int n, T floor,
   }
   // 1 / L[k][k], the same bits as dividing at column k, off its chain
   __syncwarp();
-  rinv0 = r0 < n ? T(1) / L[r0 * n + r0] : T(0);
-  rinv1 = r1 < n ? T(1) / L[r1 * n + r1] : T(0);
+  diag_rinv(L, n, rinv0, rinv1);
   return failed;
 }
 

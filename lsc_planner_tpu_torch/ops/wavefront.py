@@ -11,9 +11,11 @@ agent, Jacobi min-plus relaxation from the goal cell (free even when
 occupied), each step reading the previous step's field; a convergence test
 after every group of 8 steps; the loop ends when a group changed no cell or
 at ``max_iters`` rounded up to a multiple of 8.  Unreachable and blocked
-cells hold BIG.  (The JAX package's CPU path, ``GridPlanner.wavefront``,
-runs exactly ``max_wavefront_iters`` steps with inf for unreachable cells;
-the two agree once the field has converged.)
+cells hold BIG.  The plain version runs that Jacobi loop; the kernel
+computes the same bits as a breadth-first search by levels (the note in
+``csrc/wavefront.cu`` says why they agree).  (The JAX package's CPU path,
+``GridPlanner.wavefront``, runs exactly ``max_wavefront_iters`` steps with
+inf for unreachable cells; the two agree once the field has converged.)
 """
 from __future__ import annotations
 
@@ -24,10 +26,19 @@ from . import _build
 
 BIG = 1e9
 GROUP = 8                   # relaxation steps between convergence tests
-# cells a grid may have: one block holds two f32 distance buffers and one
-# occupancy byte a cell in the 232,448 B of shared memory it may use (the
-# kernel checks the same bytes, csrc/wavefront.cu kMaxSmem)
-MAX_CELLS = 232448 // 9
+# The grid one block holds: the kernel keeps three bitsets of one bit a
+# cell in shared memory (free cells, and the reached set double-buffered)
+# as 64-bit words, ceil(X / 64) a (z, y) row, with a zero halo row on each
+# side in y and z; a block may use 232,448 B (csrc/wavefront.cu checks the
+# same bytes: kWordBytes, bitset_words, kMaxSmem).
+WORD_BYTES = 3 * 8
+MAX_SMEM_BYTES = 232448
+
+
+def smem_bytes(Z: int, Y: int, X: int) -> int:
+    """Shared-memory bytes a block of the kernel takes at a (Z, Y, X)
+    grid: at (21, 121, 121), a 30 x 30 x 5 m world at 0.25 m, 135,792."""
+    return WORD_BYTES * (Z + 2) * (Y + 2) * -(-X // 64)
 
 # launches of the kernel since the last reset (CUDA only; the plain version
 # never counts)
@@ -96,19 +107,19 @@ def _check(occ_zyx, goal_zyx):
         raise ValueError(f"wavefront: goal {tuple(goal_zyx.shape)} on "
                          f"{goal_zyx.device} does not match occupancy "
                          f"{tuple(occ_zyx.shape)} on {occ_zyx.device}")
-    cells = occ_zyx[0].numel()
-    if cells > MAX_CELLS:
-        raise NotImplementedError(
-            f"wavefront kernel: a {tuple(occ_zyx.shape[1:])} grid of "
-            f"{cells} cells does not fit one block's shared memory (at most "
-            f"{MAX_CELLS} cells; ROADMAP queue 1, item 11: grids over a "
-            "cluster)")
+    need = smem_bytes(*occ_zyx.shape[1:])
+    if need > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"wavefront kernel: a {tuple(occ_zyx.shape[1:])} grid needs "
+            f"{need} B of shared memory a block ({WORD_BYTES} B a 64-cell "
+            f"row word, halo rows included); a block holds "
+            f"{MAX_SMEM_BYTES} B")
 
 
 def _wavefront_cuda(occ_zyx, goal_zyx, max_iters):
     global wavefront_launches
-    lib = _build.load_library()
     _check(occ_zyx, goal_zyx)
+    lib = _build.load_library()
     occ = occ_zyx.contiguous()
     goal = goal_zyx.to(torch.int32).contiguous()
     N, Z, Y, X = occ.shape

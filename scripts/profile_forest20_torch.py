@@ -17,12 +17,15 @@ launches a cycle.  Fails when the trace
 holds no device time.
 
 With --kernels it times the chol-path IPM's two kernels instead, at the
-main path's shape (B = 64, n = 39, f32, IPM-like systems), and prints as
-one JSON line: each wrapper's device us a launch (200 launches captured
-in one CUDA graph, replayed, CUDA events over the replay / 200: no host
-time), its host us a call (2,000 calls enqueued without a synchronize)
-and its CUDA-event us a call (median of 50, as chip_smoke phase 4); and
-the host us of reading the current stream with a device guard and
+main path's shape (B = 64, n = 39, f32, IPM-like systems), and the
+wavefront kernel on forest20's cycle-4 priority grids (N = 20, (11, 41,
+41)) and on chip_smoke's 30 m forest ((21, 121, 121)), and prints as one
+JSON line: each wrapper's device us a launch (200 launches captured in
+one CUDA graph, 20 for the wavefront, replayed, CUDA events over the
+replay / launches: no host time), its host us a call (2,000 calls
+enqueued without a synchronize, 200 for the wavefront) and its
+CUDA-event us a call (median of 50, as chip_smoke phase 4); and the host
+us of reading the current stream with a device guard and
 torch.cuda.current_stream against the raw stream (ops/_build.py::launch).
 Each number is the least of three rounds.  Imports nothing of JAX.
 """
@@ -40,7 +43,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 import chip_smoke  # noqa: E402
 from lsc_planner_tpu_torch import GoalMode, Param  # noqa: E402
-from lsc_planner_tpu_torch.ops import chol  # noqa: E402
+from lsc_planner_tpu_torch.ops import chol, wavefront  # noqa: E402
 from lsc_planner_tpu_torch.sim.simulator import SyncSimulator  # noqa: E402
 
 
@@ -92,6 +95,19 @@ def time_kernels(smi):
     L = chol.chol_factor_solve(H, R1)[0]
     calls = {"factor_solve": lambda: chol.chol_factor_solve(H, R1),
              "resolve": lambda: chol.chol_resolve(L, R2)}
+    forest = SyncSimulator(chip_smoke.forest_mission(),
+                           Param(goal_mode=GoalMode.PRIOR_BASED), device=dev)
+    grids = {"wavefront_forest20": chip_smoke.capture_wavefront_calls(
+        forest, 3)[0], "wavefront_forest30":
+        chip_smoke.forest30_static_grids(dev)}
+    for name, (occ, goal, cap) in grids.items():
+        calls[name] = (lambda occ=occ, goal=goal, cap=cap:
+                       wavefront.wavefront_batched_steps(occ, goal, cap))
+    # launches a graph and host-timed calls: fewer for the wavefront,
+    # whose launches are longer and whose outputs (held by the graph) are
+    # up to 25 MB
+    counts = {name: (20, 200) if name in grids else (200, 2000)
+              for name in calls}
 
     def guarded():
         with torch.cuda.device(dev):
@@ -102,7 +118,8 @@ def time_kernels(smi):
     best = {}
     for _ in range(3):
         for name, fn in calls.items():
-            got = (graph_us(fn), host_us(fn),
+            n_graph, n_host = counts[name]
+            got = (graph_us(fn, n_graph), host_us(fn, n_host),
                    1e3 * chip_smoke.median_ms(fn))
             best[name] = [min(x, y) for x, y in
                           zip(best.get(name, got), got)]
@@ -121,8 +138,8 @@ def main():
     ap.add_argument("--warm", type=int, default=20)
     ap.add_argument("--cycles", type=int, default=3)
     ap.add_argument("--kernels", action="store_true",
-                    help="time the chol kernels instead (see the module "
-                         "docstring)")
+                    help="time the chol and wavefront kernels instead "
+                         "(see the module docstring)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA device")

@@ -151,6 +151,61 @@ def test_factor_solve_nonspd_entry_in_a_shared_block(cuda, B, n, dtype):
         assert e_k <= 4 * e_p + 1e-6, (e_k, e_p)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [39, 64])
+@pytest.mark.parametrize("B", [1, 5, 63, 64, 130])
+def test_resolve_kernel_matches_f64_and_factor_solve(cuda, B, n, dtype):
+    """resolve, one warp a matrix on factor_solve's solve: against the f64
+    solve (f32: within 4x the plain f32 version's error + 1e-6; f64: rtol
+    1e-10), and for factor_solve's own L and rhs it returns factor_solve's
+    x bit for bit.  B not a multiple of four masks a block's last warps."""
+    Hs, r1, r2 = ipm_like_system(B, n, seed=200 + B + n)
+    H64 = torch.as_tensor(Hs, device=cuda)
+    L64 = chol.chol_factor_solve_plain(H64, torch.as_tensor(r1,
+                                                           device=cuda))[0]
+    y64 = chol.chol_resolve_plain(L64, torch.as_tensor(r2, device=cuda))
+    H = H64.to(dtype)
+    R1 = torch.as_tensor(r1, device=cuda, dtype=dtype)
+    R2 = torch.as_tensor(r2, device=cuda, dtype=dtype)
+    chol.reset_counts()
+    Lk, xk = chol.chol_factor_solve(H, R1)
+    yk = chol.chol_resolve(Lk, R2)
+    xr = chol.chol_resolve(Lk, R1)
+    torch.cuda.synchronize()
+    assert chol.resolve_launches == 2
+    assert torch.equal(xr, xk)
+    if dtype == torch.float64:
+        torch.testing.assert_close(yk, y64, rtol=1e-10, atol=1e-10)
+    else:
+        Lp = chol.chol_factor_solve_plain(H, R1)[0]
+        yp = chol.chol_resolve_plain(Lp, R2)
+        e_k = (yk.double() - y64).abs().max().item()
+        e_p = (yp.double() - y64).abs().max().item()
+        assert e_k <= 4 * e_p + 1e-6, (e_k, e_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_resolve_nan_factor_stays_in_its_entry(cuda, dtype):
+    """A factor whose lower triangle is NaN (factor_solve's answer to a
+    non-SPD entry) gives an all-NaN x in its entry; the three other
+    matrices of its block (entries 4-7) and every other entry come back
+    bit for bit as without it."""
+    Hs, r1, r2 = ipm_like_system(64, seed=3)
+    L = chol.chol_factor_solve(
+        torch.as_tensor(Hs, device=cuda, dtype=dtype),
+        torch.as_tensor(r1, device=cuda, dtype=dtype))[0]
+    R2 = torch.as_tensor(r2, device=cuda, dtype=dtype)
+    clean = chol.chol_resolve(L, R2)
+    low = torch.tril(torch.ones_like(L[5], dtype=torch.bool))
+    L[5][low] = float("nan")
+    y = chol.chol_resolve(L, R2)
+    torch.cuda.synchronize()
+    assert torch.isnan(y[5]).all()
+    ok = torch.arange(64, device=cuda) != 5
+    assert torch.equal(y[ok], clean[ok])
+
 def fused_problem(B, C, seed=0):
     """Inputs of ``ipm.ipm_lsc_fused`` on the production row structure
     (the optimizer's unit-norm U and F_seg), built as tests/test_qp.py:
@@ -393,15 +448,18 @@ def test_cholesky_batched_kernel_matches_plain(cuda, B):
     assert e_k <= 4 * e_p + 1e-6, (e_k, e_p)
 
 
-def wavefront_case(shape, seed, fill=0.2):
+def wavefront_case(shape, seed, fill=0.2, outside=False):
     """Random occupancy (f32, 1 = blocked) with an occupied goal for agent
-    0 and goal cells (z, y, x) int32, on the CPU."""
+    0 and goal cells (z, y, x) int32, on the CPU; with `outside`, agent 1's
+    goal lies just past the grid's far x edge."""
     rng = np.random.default_rng(seed)
     N, Z, Y, X = shape
     occ = (rng.uniform(size=shape) < fill).astype(np.float32)
     goal = np.stack([rng.integers(0, Z, N), rng.integers(0, Y, N),
                      rng.integers(0, X, N)], -1).astype(np.int32)
     occ[0, goal[0, 0], goal[0, 1], goal[0, 2]] = 1.0
+    if outside:
+        goal[1, 2] = X
     return torch.as_tensor(occ), torch.as_tensor(goal)
 
 
@@ -423,10 +481,15 @@ def forest_static_case(device, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,max_iters", [
     ((3, 5, 21, 21), 70), ((3, 5, 21, 21), 8), ((4, 7, 13, 29), 13),
-    ((20, 11, 41, 41), 139), ((2, 1, 1, 1), 8)])
+    ((20, 11, 41, 41), 139), ((2, 1, 1, 1), 8), ((3, 3, 9, 64), 40),
+    ((3, 4, 11, 70), 13), ((3, 4, 11, 70), 200), ((1, 11, 61, 61), 199),
+    ((4, 21, 121, 121), 394), ((3, 5, 21, 21), 0)])
 def test_wavefront_kernel_bit_exact(cuda, shape, max_iters):
     """The kernel against its plain version on the card, bit for bit, the
-    relaxation step counts included; also where the cap ends the loop."""
+    relaxation step counts included; also where the cap ends the loop, at
+    X = 64 and 70 (one and two words a row), at (1, 11, 61, 61) and (4,
+    21, 121, 121) with their grid planner caps int(1.5 (X + Y + Z)), and
+    at max_iters 0."""
     occ, goal = wavefront_case(shape, seed=sum(shape) + max_iters)
     occ, goal = occ.to(cuda), goal.to(cuda)
     want, want_steps = wavefront.wavefront_batched_plain(occ, goal,
@@ -442,7 +505,8 @@ def test_wavefront_kernel_bit_exact(cuda, shape, max_iters):
 @pytest.mark.cuda
 def test_wavefront_kernel_forest_fields(cuda):
     """forest20's static fields: bit-exact, converged below the cap, and
-    the goal cells at 0."""
+    the goal cells at 0; then the grid limit (the wrapper raises past the
+    kernel's shared memory, ops/wavefront.py::smem_bytes)."""
     occ, goal, cap = forest_static_case(cuda)
     want, want_steps = wavefront.wavefront_batched_plain(occ, goal, cap)
     got, steps = wavefront.wavefront_batched_steps(occ, goal, cap)
@@ -451,6 +515,35 @@ def test_wavefront_kernel_forest_fields(cuda):
     assert int(steps.max()) < cap
     g = goal.long()
     assert bool((got[torch.arange(20), g[:, 0], g[:, 1], g[:, 2]] == 0).all())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        wavefront.wavefront_batched(torch.zeros((1, 11, 61, 61),
+    # an empty (11, 61, 61) grid, which the first design refused, bit for
+    # bit at its cap; the largest grid one block holds (3 x 3228 row
+    # words) and a raise one row past it
+    mid = torch.tensor([[0, 1613, 32]], dtype=torch.int32, device=cuda)
+    for shape, at, cap in (((1, 11, 61, 61), goal[:1], 199),
+                           ((1, 1, 3226, 64), mid, 16)):
+        free = torch.zeros(shape, device=cuda)
+        want, want_steps = wavefront.wavefront_batched_plain(free, at, cap)
+        got, steps = wavefront.wavefront_batched_steps(free, at, cap)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and torch.equal(steps, want_steps)
+    with pytest.raises(ValueError, match="shared memory"):
+        wavefront.wavefront_batched(torch.zeros((1, 1, 3227, 64),
                                                 device=cuda), goal[:1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,max_iters", [((3, 4, 11, 70), 13),
+                                             ((3, 3, 9, 64), 0),
+                                             ((3, 5, 21, 21), 70)])
+def test_wavefront_kernel_goal_outside_the_grid(cuda, shape, max_iters):
+    """Agent 1's goal lies outside the grid: its field is all BIG after 8
+    steps (0 at max_iters 0), bit for bit with the plain version."""
+    occ, goal = wavefront_case(shape, seed=7 + max_iters, outside=True)
+    occ, goal = occ.to(cuda), goal.to(cuda)
+    want, want_steps = wavefront.wavefront_batched_plain(occ, goal,
+                                                         max_iters)
+    got, steps = wavefront.wavefront_batched_steps(occ, goal, max_iters)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(steps, want_steps)
+    assert bool((got[1] == wavefront.BIG).all())
+    assert int(steps[1]) == (8 if max_iters > 0 else 0)

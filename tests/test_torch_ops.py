@@ -232,8 +232,9 @@ def test_wavefront_cuda_branch_raises_without_gpu():
     goal = torch.zeros((2, 3), dtype=torch.int32)
     wavefront.wavefront_batched(occ, goal, 16)
     assert wavefront.wavefront_launches == 0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        wavefront._check(torch.zeros((1, 11, 61, 61)), goal[:1])
+    with pytest.raises(ValueError, match="shared memory"):
+        wavefront._check(torch.zeros((1, 1, 3227, 64)), goal[:1])
+    wavefront._check(torch.zeros((1, 11, 61, 61)), goal[:1])
     wavefront._check(torch.zeros((20, 11, 41, 41)),
                      torch.zeros((20, 3), dtype=torch.int32))
     if torch.cuda.is_available():
