@@ -12,11 +12,13 @@ Phases, one line each; any failure raises and exits non-zero:
   3. audit.precision_self_check on the card (the TF32 guard)
   4. each chol kernel (factor_solve, resolve, and the factor alone,
      cholesky_batched) against its plain PyTorch version at n = 39,
-     B in {1, 64, 130}, on IPM-like inputs, each held to the f64 solve;
-     resolve with factor_solve's L and right-hand side returns
-     factor_solve's x bit for bit; NaN stays in a non-SPD entry; kernel,
-     plain and library times (CUDA events, median of 50); plus one f64
-     cycle of an 8-agent circle on the card against the CPU
+     B in {1, 64, 130, 1024}, on IPM-like inputs, each held to the f64
+     solve; resolve with factor_solve's L and right-hand side returns
+     factor_solve's x bit for bit; cholesky_batched returns factor_solve's
+     L bit for bit, also with a non-SPD entry (NaN in its lower triangle,
+     in that entry only); NaN stays in a non-SPD entry; kernel, plain and
+     library times (CUDA events, median of 50); plus one f64 cycle of an
+     8-agent circle on the card against the CPU
   5. flies the 64-agent circle swap (PRIOR_BASED, float32, all-pairs LSC)
      through SyncSimulator.run() on the card and checks it finished safely
      through the kernels (launch counts = cycles * 40 and cycles * 80)
@@ -176,9 +178,10 @@ def ptxas_summary(log):
         m = re.search(r"Function properties for \S*?([a-z_]+_kernel)"
                       r"(?:I(\w+?)EE?v)?", line)
         if m:
-            args = re.findall(r"Li(\d+)E|^([fd])|(?<=E)([fd])",
+            args = re.findall(r"Li(\d+)E|Lb([01])E|^([fd])|(?<=E)([fd])",
                               m.group(2) or "")
-            args = [a or b or c for a, b, c in args]
+            args = [a or {"0": "false", "1": "true"}.get(b) or c or d
+                    for a, b, c, d in args]
             name = m.group(1) + (f"<{','.join(args)}>" if args else "")
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
                       line)
@@ -226,10 +229,38 @@ def median_ms(fn, reps=50):
     return statistics.median(times)
 
 
+def bits(t):
+    """t's bits as integers: torch.equal on them compares NaNs too."""
+    return t.view(torch.int64 if t.dtype == torch.float64 else torch.int32)
+
+
+def check_factor_alone(H, R, what):
+    """cholesky_batched(H) is chol_factor_solve(H, R)'s L bit for bit (one
+    kernel, the factor alone stops before the solve); returns the
+    entries that are not finite."""
+    F = chol.cholesky_batched(H)
+    L = chol.chol_factor_solve(H, R)[0]
+    torch.cuda.synchronize()
+    if not torch.equal(bits(F), bits(L)):
+        raise AssertionError(f"cholesky_batched {what}: differs from "
+                             "factor_solve's L in "
+                             f"{int((bits(F) != bits(L)).sum())} entries")
+    if not torch.equal(torch.triu(F, 1), torch.zeros_like(F)):
+        raise AssertionError(f"cholesky_batched {what}: nonzero entries "
+                             "above the diagonal")
+    bad = (~torch.isfinite(F).all(-1).all(-1)).nonzero().flatten().tolist()
+    low = torch.tril(torch.ones_like(F[0], dtype=torch.bool))
+    for b in bad:
+        if not bool(torch.isnan(F[b][low]).all()):
+            raise AssertionError(f"cholesky_batched {what}: entry {b}'s "
+                                 "lower triangle is not all NaN")
+    return bad
+
+
 def compare_kernels(dev):
     """Phase 4: kernel vs plain at the main path's n for several B."""
     out = {}
-    for B in (1, MAIN_B, 130):
+    for B in (1, MAIN_B, 130, BIG_N):
         Hs, r1, r2 = ipm_like_system(B, N_QP, seed=B)
         H64 = torch.as_tensor(Hs, device=dev)
         R1d = torch.as_tensor(r1, device=dev)
@@ -267,9 +298,15 @@ def compare_kernels(dev):
         if not e_k <= 4 * e_p + 1e-6:
             raise AssertionError(f"cholesky_batched B={B}: kernel error "
                                  f"{e_k} > 4 x plain f32 error {e_p} + 1e-6")
-        if not torch.equal(torch.triu(Fk, 1), torch.zeros_like(Fk)):
-            raise AssertionError(f"cholesky_batched B={B}: nonzero entries "
-                                 "above the diagonal")
+        if check_factor_alone(H, R1, f"B={B}"):
+            raise AssertionError(f"cholesky_batched B={B}: non-finite "
+                                 "entries on SPD input")
+        Hbad = H.clone()
+        Hbad[B // 2, 7, 7] = -1.0
+        bad = check_factor_alone(Hbad, R1, f"B={B}, non-SPD entry {B // 2}")
+        if bad != [B // 2]:
+            raise AssertionError(f"cholesky_batched B={B}: non-finite "
+                                 f"entries {bad}, expected [{B // 2}]")
         errs["factor"] = (e_k, e_p)
         R2c = R2[..., None]
         t = {
@@ -294,7 +331,9 @@ def compare_kernels(dev):
               f"{t['resolve'][0]:.4f} ms vs plain {t['resolve'][1]:.4f} ms, "
               f"cholesky_solve {t['resolve'][2]:.4f} ms; cholesky_batched "
               f"err {errs['factor'][0]:.3e} (plain f32 "
-              f"{errs['factor'][1]:.3e}) {t['factor'][0]:.4f} ms vs plain "
+              f"{errs['factor'][1]:.3e}), bit-equal to factor_solve's L "
+              f"(and with non-SPD entry {B // 2}: NaN there only), "
+              f"{t['factor'][0]:.4f} ms vs plain "
               f"{t['factor'][1]:.4f} ms, cholesky_ex {t['factor'][2]:.4f} ms")
 
     # a non-SPD instance turns into NaN in its own entry only
@@ -305,17 +344,11 @@ def compare_kernels(dev):
                                                      dtype=torch.float32))
     y = chol.chol_resolve(L, torch.as_tensor(r2, device=dev,
                                              dtype=torch.float32))
-    F = chol.cholesky_batched(H)
-    for name, v in (("factor_solve", x), ("resolve", y),
-                    ("cholesky_batched", F.flatten(1))):
+    for name, v in (("factor_solve", x), ("resolve", y)):
         bad = (~torch.isfinite(v).all(-1)).nonzero().flatten().tolist()
         if bad != [5]:
             raise AssertionError(f"{name}: non-finite entries {bad}, "
                                  "expected [5]")
-    if not bool(torch.isnan(F[5][torch.tril(torch.ones_like(
-            F[5], dtype=torch.bool))]).all()):
-        raise AssertionError("cholesky_batched: the non-SPD entry's lower "
-                             "triangle is not all NaN")
     phase("4 kernels", "non-SPD entry 5 of 64 -> NaN in entry 5 only")
     return out
 

@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .device import resolve_device
 from .sim.simulator import SwarmState
 from .world.esdf import ESDF
 
@@ -23,7 +24,9 @@ _BOOL_FIELDS = frozenset({"sfc_initialized", "rescue_active",
 def state_from_numpy(d: dict, device=None,
                      dtype: torch.dtype = torch.float32) -> SwarmState:
     """dict of numpy arrays (missing or None fields stay None) ->
-    SwarmState on `device`, floats in `dtype`."""
+    SwarmState on `device` (the CUDA device unless another is named),
+    floats in `dtype`."""
+    device = resolve_device(device)
     fields = {}
     for name in SwarmState._fields:
         v = d.get(name)
@@ -45,7 +48,9 @@ def state_to_numpy(state: SwarmState) -> dict:
 def esdf_from_numpy(d: dict, device=None,
                     dtype: torch.dtype = torch.float32) -> ESDF:
     """dict with dist (X, Y, Z), origin_key (3,), resolution, max_dist and
-    occ (or None) -> the port's ESDF with dist on `device` in `dtype`."""
+    occ (or None) -> the port's ESDF with dist on `device` (the CUDA device
+    unless another is named) in `dtype`."""
+    device = resolve_device(device)
     occ = d.get("occ")
     return ESDF(dist=torch.as_tensor(np.array(d["dist"]), device=device)
                 .to(dtype),

@@ -19,21 +19,25 @@
 // the launch itself, the column-by-column dependence of the factor and
 // the n-long dependent chains of the substitutions.
 //
-// factor_solve: one warp a matrix, four matrices a block (B = 64 is 16
-// blocks).  The warp copies H into its shared-memory tile (coalesced),
-// takes its rows into registers (lane l owns rows l and l + 32,
-// warp_chol.cuh), factors them with the scaled column broadcast by
-// shuffle -- no barrier at all -- and keeps each pivot's reciprocal.  Each
-// column goes back to the tile once it is final; the warp writes the tile
-// out coalesced (zeros above the diagonal) and runs both substitutions
-// from it with the right-hand side in registers, multiplying by the
-// reciprocals.  The
-// kernel is templated on a register capacity NC >= n: 40 for the QP's
-// n = 39 and 64 for the rest, f32 and f64 alike; f64 at n = 39 holds 72
-// doubles of rows a lane.
+// factor_solve and the factor alone (cholesky_batched): one kernel, one
+// warp a matrix, four matrices a block (B = 64 is 16 blocks; B not a
+// multiple of four masks the last warps).  The warp copies H into its
+// shared-memory tile (coalesced, eight loads a lane in flight), takes its
+// rows into registers (lane l owns rows l and l + 32, warp_chol.cuh),
+// factors them with the scaled column broadcast by shuffle -- no barrier
+// and no integer division at all -- and keeps each pivot's reciprocal.
+// Each column goes back to the tile once it is final; the warp writes the
+// tile out coalesced (zeros above the diagonal).  factor_solve then runs
+// both substitutions from the tile with the right-hand side in registers,
+// multiplying by the reciprocals; the factor alone stops after the write
+// (a template flag, kSolve), so cholesky_batched(H) is factor_solve's L
+// bit for bit: the same code up to that point.  The kernel is templated
+// on a register capacity NC >= n: 40 for the QP's n = 39 and 64 for the
+// rest, f32 and f64 alike; f64 at n = 39 holds 72 doubles of rows a lane.
 // A non-SPD entry (a pivot <= 0 or NaN) comes back with its lower
-// triangle and its x all NaN, as its plain version (cholesky_ex + NaN
-// fill) gives; the other warps of its block never see it.
+// triangle (and factor_solve's x) all NaN, zeros above the diagonal, as
+// its plain version (cholesky_ex + NaN fill) gives; the other warps of
+// its block never see it.
 //
 // resolve: factor_solve's launch shape and its solve.  One warp a
 // matrix, four a block (B not a multiple of four masks its last warps).
@@ -42,13 +46,9 @@
 // (n divisions spread over the lanes, off the substitution chain; factor()
 // keeps its reciprocals with the same code) and runs warp_chol::solve,
 // factor_solve's own substitutions.  So for the same L and rhs, resolve's
-// x equals factor_solve's x bit for bit.  A factor with a NaN lower triangle (factor_solve on a non-SPD
-// entry) gives an all-NaN x in that entry; its block-mates never see it.
-//
-// The factor alone (cholesky_batched) keeps the first design: one block
-// of 128 threads a matrix in shared memory, a block-wide factor with two
-// barriers a column (factor_block); it is the next to take factor_solve's
-// warp-a-matrix shape.
+// x equals factor_solve's x bit for bit.  A factor with a NaN lower
+// triangle (factor_solve on a non-SPD entry) gives an all-NaN x in that
+// entry; its block-mates never see it.
 
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -shared -Xcompiler -fPIC (lsc_planner_tpu_torch/ops/_build.py).
@@ -62,39 +62,8 @@
 
 namespace {
 
-constexpr int kMaxN = 64;       // two rows per lane in the one-warp solve
-constexpr int kThreads = 128;  // the factor alone: one block a matrix
-constexpr int kFsWarps = 4;    // matrices a block: factor_solve, resolve
-
-// Factor the n x n matrix in shared memory A in place (lower triangle ->
-// L) with the whole block, col (n) as scratch.  Returns true when a pivot
-// was not positive (the same answer in every thread: each reads the pivot
-// after a barrier).
-template <typename T>
-__device__ bool factor_block(T* A, T* col, int n) {
-  bool failed = false;
-  for (int k = 0; k < n; ++k) {
-    // no pivot floor: a non-positive pivot gives NaN/inf, which spreads
-    // through this instance only
-    const T pivot = A[k * n + k];
-    failed |= !(pivot > T(0));
-    const T inv = T(1) / sqrt(pivot);
-    for (int i = k + threadIdx.x; i < n; i += blockDim.x)
-      col[i] = A[i * n + k] * inv;
-    __syncthreads();
-    // rank-1 update of the trailing lower triangle, column k -> L
-    const int m = n - k - 1;
-    for (int e = threadIdx.x; e < m * m; e += blockDim.x) {
-      const int i = k + 1 + e / m;
-      const int j = k + 1 + e % m;
-      if (j <= i) A[i * n + j] -= col[i] * col[j];
-    }
-    for (int i = k + threadIdx.x; i < n; i += blockDim.x)
-      A[i * n + k] = col[i];
-    __syncthreads();
-  }
-  return failed;
-}
+constexpr int kMaxN = 64;      // two rows per lane in the one-warp solve
+constexpr int kFsWarps = 4;   // matrices a block: every kernel here
 
 template <typename T> __device__ T quiet_nan();
 template <> __device__ float quiet_nan<float>() {
@@ -104,8 +73,9 @@ template <> __device__ double quiet_nan<double>() {
   return __longlong_as_double(0x7ff8000000000000LL);
 }
 
-// factor_solve: one warp a matrix (see the note at the top); NC >= n.
-template <typename T, int NC>
+// factor_solve (kSolve) and the factor alone: one warp a matrix (see the
+// note at the top); NC >= n.  Without kSolve, rhs and x are not read.
+template <typename T, int NC, bool kSolve>
 __global__ void __launch_bounds__(kFsWarps * 32)
 factor_solve_kernel(const T* __restrict__ H, const T* __restrict__ rhs,
                     T* __restrict__ L_out, T* __restrict__ x, int n, int B) {
@@ -131,13 +101,15 @@ factor_solve_kernel(const T* __restrict__ H, const T* __restrict__ rhs,
   __syncwarp();
   T* Lb = L_out + b * nn;
   for (int e = lane; e < nn; e += 32) Lb[e] = tile[e];
-  const int r0 = lane, r1 = lane + 32;
-  T z0 = r0 < n ? rhs[b * n + r0] : T(0);
-  T z1 = r1 < n ? rhs[b * n + r1] : T(0);
-  warp_chol::solve(tile, n, rinv0, rinv1, z0, z1);
-  if (failed) z0 = z1 = nan;
-  if (r0 < n) x[b * n + r0] = z0;
-  if (r1 < n) x[b * n + r1] = z1;
+  if constexpr (kSolve) {
+    const int r0 = lane, r1 = lane + 32;
+    T z0 = r0 < n ? rhs[b * n + r0] : T(0);
+    T z1 = r1 < n ? rhs[b * n + r1] : T(0);
+    warp_chol::solve(tile, n, rinv0, rinv1, z0, z1);
+    if (failed) z0 = z1 = nan;
+    if (r0 < n) x[b * n + r0] = z0;
+    if (r1 < n) x[b * n + r1] = z1;
+  }
 }
 
 // resolve: one warp a matrix, factor_solve's solve (see the note at the
@@ -166,53 +138,25 @@ resolve_kernel(const T* __restrict__ L, const T* __restrict__ rhs,
   if (r1 < n) x[b * n + r1] = z1;
 }
 
-// cholesky_batched: the factor alone; a failed entry's lower triangle is
-// NaN, its upper triangle zero, as in the plain version.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-factor_kernel(const T* __restrict__ H, T* __restrict__ L_out, int n) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* A = reinterpret_cast<T*>(smem);
-  T* col = A + n * n;
-  const int nn = n * n;
-  const size_t b = blockIdx.x;
-  const T* Hb = H + b * nn;
-  for (int e = threadIdx.x; e < nn; e += blockDim.x) A[e] = Hb[e];
-  __syncthreads();
-  const bool failed = factor_block(A, col, n);
-  const T nan = quiet_nan<T>();
-  T* Lb = L_out + b * nn;
-  for (int e = threadIdx.x; e < nn; e += blockDim.x)
-    Lb[e] = (e % n) <= (e / n) ? (failed ? nan : A[e]) : T(0);
-}
-
-template <typename T>
-int launch_factor(const void* H, void* L, int B, int n, void* stream) {
-  if (n < 1 || n > kMaxN || B < 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (B == 0) return static_cast<int>(cudaGetLastError());
-  const size_t smem = static_cast<size_t>(n * n + n) * sizeof(T);
-  factor_kernel<T><<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(H), static_cast<T*>(L), n);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T, int NC>
+template <typename T, int NC, bool kSolve>
 int launch_factor_solve_nc(const T* H, const T* rhs, T* L, T* x, int B, int n,
                            cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(kFsWarps) * n * n * sizeof(T);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        factor_solve_kernel<T, NC>,
+        factor_solve_kernel<T, NC, kSolve>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int blocks = (B + kFsWarps - 1) / kFsWarps;
-  factor_solve_kernel<T, NC><<<blocks, kFsWarps * 32, smem, stream>>>(
+  factor_solve_kernel<T, NC, kSolve><<<blocks, kFsWarps * 32, smem, stream>>>(
       H, rhs, L, x, n, B);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+// factor_solve with kSolve, the factor alone (cholesky_batched) without:
+// rhs and x are then null and never read.
+template <typename T, bool kSolve>
 int launch_factor_solve(const void* H, const void* rhs, void* L, void* x,
                         int B, int n, void* stream) {
   if (n < 1 || n > kMaxN || B < 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -223,8 +167,9 @@ int launch_factor_solve(const void* H, const void* rhs, void* L, void* x,
   T* xx = static_cast<T*>(x);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   // NC = 40 holds the QP's n = 39; NC = 64 every other n up to kMaxN
-  if (n <= 40) return launch_factor_solve_nc<T, 40>(h, r, l, xx, B, n, st);
-  return launch_factor_solve_nc<T, 64>(h, r, l, xx, B, n, st);
+  if (n <= 40)
+    return launch_factor_solve_nc<T, 40, kSolve>(h, r, l, xx, B, n, st);
+  return launch_factor_solve_nc<T, 64, kSolve>(h, r, l, xx, B, n, st);
 }
 
 template <typename T>
@@ -253,12 +198,12 @@ extern "C" {
 
 int lsc_chol_factor_solve_f32(const void* H, const void* rhs, void* L,
                               void* x, int B, int n, void* stream) {
-  return launch_factor_solve<float>(H, rhs, L, x, B, n, stream);
+  return launch_factor_solve<float, true>(H, rhs, L, x, B, n, stream);
 }
 
 int lsc_chol_factor_solve_f64(const void* H, const void* rhs, void* L,
                               void* x, int B, int n, void* stream) {
-  return launch_factor_solve<double>(H, rhs, L, x, B, n, stream);
+  return launch_factor_solve<double, true>(H, rhs, L, x, B, n, stream);
 }
 
 int lsc_chol_resolve_f32(const void* L, const void* rhs, void* x, int B,
@@ -268,12 +213,14 @@ int lsc_chol_resolve_f32(const void* L, const void* rhs, void* x, int B,
 
 int lsc_chol_factor_f32(const void* H, void* L, int B, int n,
                         void* stream) {
-  return launch_factor<float>(H, L, B, n, stream);
+  return launch_factor_solve<float, false>(H, nullptr, L, nullptr, B, n,
+                                          stream);
 }
 
 int lsc_chol_factor_f64(const void* H, void* L, int B, int n,
                         void* stream) {
-  return launch_factor<double>(H, L, B, n, stream);
+  return launch_factor_solve<double, false>(H, nullptr, L, nullptr, B, n,
+                                           stream);
 }
 
 int lsc_chol_resolve_f64(const void* L, const void* rhs, void* x, int B,

@@ -46,13 +46,21 @@ def _solve_plain(L, rhs):
     return x.squeeze(-1)
 
 
-def chol_factor_solve_plain(H, rhs):
-    """torch.linalg.cholesky raises on a non-PD matrix; jnp's Cholesky
-    returns NaN.  cholesky_ex + a NaN fill of each failed entry keeps the
-    JAX behaviour."""
+def cholesky_batched_plain(H):
+    """Lower factor of H (..., n, n): cholesky_ex with each failed entry's
+    lower triangle NaN, zeros above the diagonal (jnp.linalg.cholesky's
+    NaN on a non-SPD input, chol_pallas.py:13-14).  torch.linalg.cholesky
+    raises on a non-PD matrix; cholesky_ex + the NaN fill keeps the JAX
+    behaviour, and zeros above the diagonal keep the kernels' layout."""
     L, info = torch.linalg.cholesky_ex(H)
     L = torch.where((info > 0)[..., None, None],
                     torch.full_like(L, float("nan")), L)
+    return torch.tril(L)
+
+
+def chol_factor_solve_plain(H, rhs):
+    """(cholesky_batched_plain(H), the solve of H x = rhs with it)."""
+    L = cholesky_batched_plain(H)
     return L, _solve_plain(L, rhs)
 
 
@@ -60,20 +68,13 @@ def chol_resolve_plain(L, rhs):
     return _solve_plain(L, rhs)
 
 
-def cholesky_batched_plain(H):
-    """Lower factor of H (..., n, n): cholesky_ex with each failed entry's
-    lower triangle NaN, zeros above the diagonal (jnp.linalg.cholesky's
-    NaN on a non-SPD input, chol_pallas.py:13-14)."""
-    L, info = torch.linalg.cholesky_ex(H)
-    L = torch.where((info > 0)[..., None, None],
-                    torch.full_like(L, float("nan")), L)
-    return torch.tril(L)
-
-
 # ----------------------------------------------------------------------
 # CUDA kernels
 # ----------------------------------------------------------------------
 def _check(mat, rhs, what):
+    """(mat as (B, n, n), rhs as (B, n) or None, the batch shape or None
+    when no reshape was needed, n); raises on what the kernels do not
+    take.  rhs None: the factor alone."""
     if mat.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"{what}: dtype {mat.dtype} not supported "
                         "(float32 or float64)")
@@ -81,20 +82,23 @@ def _check(mat, rhs, what):
     if mat.ndim < 2 or mat.shape[-2] != n:
         raise ValueError(f"{what}: expected (..., n, n), got "
                          f"{tuple(mat.shape)}")
-    if rhs.shape != mat.shape[:-1] or rhs.dtype != mat.dtype or \
-            rhs.device != mat.device:
+    if rhs is not None and (rhs.shape != mat.shape[:-1] or
+                            rhs.dtype != mat.dtype or
+                            rhs.device != mat.device):
         raise ValueError(f"{what}: rhs {tuple(rhs.shape)} {rhs.dtype} "
                          f"{rhs.device} does not match {tuple(mat.shape)} "
                          f"{mat.dtype} {mat.device}")
     if not 1 <= n <= MAX_N:
         raise ValueError(f"{what}: n = {n} outside the kernel's range "
                          f"1..{MAX_N}")
-    if mat.dim() == 3 and mat.is_contiguous() and rhs.is_contiguous():
+    if mat.dim() == 3 and mat.is_contiguous() and \
+            (rhs is None or rhs.is_contiguous()):
         # the IPM's call, 120 times a cycle: no reshapes (batch None)
         return mat, rhs, None, n
     batch = mat.shape[:-2]
     return (mat.reshape(-1, n, n).contiguous(),
-            rhs.reshape(-1, n).contiguous(), batch, n)
+            None if rhs is None else rhs.reshape(-1, n).contiguous(),
+            batch, n)
 
 
 def _unbatch(t, batch, *tail):
@@ -125,7 +129,7 @@ def _factor_solve_cuda(H, rhs):
 def _factor_cuda(H):
     global factor_launches
     lib = _build.load_library()
-    H3, _, batch, n = _check(H, H[..., 0], "cholesky_batched")
+    H3, _, batch, n = _check(H, None, "cholesky_batched")
     B = H3.shape[0]
     L = torch.empty_like(H3)
     err = _build.launch(getattr(lib, "lsc_chol_factor_" + _suffix(H.dtype)),

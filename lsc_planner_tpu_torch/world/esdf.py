@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..config import SP_EPSILON_FLOAT
+from ..device import resolve_device
 
 
 @dataclasses.dataclass
@@ -34,7 +35,10 @@ class ESDF:
     def from_occupancy(cls, occ: np.ndarray, origin_key, resolution: float,
                        max_dist: float = 1.0, dtype=torch.float32,
                        device=None) -> "ESDF":
+        """Distance field of the occupancy grid occ (X, Y, Z) bool, on
+        `device` (the CUDA device unless another is named)."""
         from scipy import ndimage
+        device = resolve_device(device)
         if occ.any():
             d = ndimage.distance_transform_edt(~occ, sampling=resolution)
         else:
@@ -55,7 +59,9 @@ class ESDF:
     def from_boxes(cls, boxes, world_min, world_max,
                    resolution: float = 0.1, max_dist: float = 1.0,
                    dtype=torch.float32, device=None) -> "ESDF":
-        """Distance field of mission `static` AABB obstacles alone."""
+        """Distance field of mission `static` AABB obstacles alone, on
+        `device` (the CUDA device unless another is named)."""
+        device = resolve_device(device)
         world_min = np.asarray(world_min, np.float64)
         world_max = np.asarray(world_max, np.float64)
         k0 = np.floor(world_min / resolution).astype(np.int64)

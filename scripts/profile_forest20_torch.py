@@ -16,10 +16,13 @@ time; and each of the port's own kernels' device us a launch and
 launches a cycle.  Fails when the trace
 holds no device time.
 
-With --kernels it times the chol-path IPM's two kernels instead, at the
-main path's shape (B = 64, n = 39, f32, IPM-like systems), and the
-wavefront kernel on forest20's cycle-4 priority grids (N = 20, (11, 41,
-41)) and on chip_smoke's 30 m forest ((21, 121, 121)), and prints as one
+With --kernels it times the chol kernels instead: the chol-path IPM's
+two at the main path's shape (B = 64, n = 39, f32, IPM-like systems), the
+factor alone (cholesky_batched) at the same shape, factor_solve and the
+factor alone at the fused IPM's batch of circle1024 (B = 1024, names
+ending in _b1024), and the wavefront kernel on forest20's cycle-4
+priority grids (N = 20, (11, 41, 41)) and on chip_smoke's 30 m forest
+((21, 121, 121)), and prints as one
 JSON line: each wrapper's device us a launch (200 launches captured in
 one CUDA graph, 20 for the wavefront, replayed, CUDA events over the
 replay / launches: no host time), its host us a call (2,000 calls
@@ -93,8 +96,15 @@ def time_kernels(smi):
     H, R1, R2 = (torch.as_tensor(a, device=dev, dtype=torch.float32)
                  for a in (Hs, r1, r2))
     L = chol.chol_factor_solve(H, R1)[0]
+    Hs, r1, _ = chip_smoke.ipm_like_system(chip_smoke.BIG_N,
+                                           chip_smoke.N_QP, 0)
+    Hb, Rb = (torch.as_tensor(a, device=dev, dtype=torch.float32)
+              for a in (Hs, r1))
     calls = {"factor_solve": lambda: chol.chol_factor_solve(H, R1),
-             "resolve": lambda: chol.chol_resolve(L, R2)}
+             "resolve": lambda: chol.chol_resolve(L, R2),
+             "cholesky_batched": lambda: chol.cholesky_batched(H),
+             "factor_solve_b1024": lambda: chol.chol_factor_solve(Hb, Rb),
+             "cholesky_batched_b1024": lambda: chol.cholesky_batched(Hb)}
     forest = SyncSimulator(chip_smoke.forest_mission(),
                            Param(goal_mode=GoalMode.PRIOR_BASED), device=dev)
     grids = {"wavefront_forest20": chip_smoke.capture_wavefront_calls(

@@ -415,7 +415,7 @@ def test_fused_dispatch_raises_and_off_runs(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", [1, 64, 130])
+@pytest.mark.parametrize("B", [1, 64, 130, 1024])
 def test_cholesky_batched_kernel_matches_plain(cuda, B):
     """The factor-only kernel against its plain version (cholesky_ex) in
     f32 and f64: f32 within 1e-4 relative of the f64 factor as the plain
@@ -446,6 +446,39 @@ def test_cholesky_batched_kernel_matches_plain(cuda, B):
     e_k = (Lk[ok].double() - L64[ok]).abs().max().item()
     e_p = (Lp[ok].double() - L64[ok]).abs().max().item()
     assert e_k <= 4 * e_p + 1e-6, (e_k, e_p)
+
+
+def bits(t):
+    """t's bits as integers: torch.equal on them compares NaNs too."""
+    return t.view(torch.int64 if t.dtype == torch.float64 else torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [39, 64])
+@pytest.mark.parametrize("B", [1, 64, 130, 1024])
+def test_cholesky_batched_is_factor_solve_factor(cuda, B, n, dtype):
+    """The factor alone runs factor_solve's kernel without its solve, so
+    cholesky_batched(H) is chol_factor_solve(H, r)'s L bit for bit, a
+    non-SPD entry's NaNs included (entry B // 2, inside a block of healthy
+    ones; at B = 1 the only entry); one launch each.  At both register
+    capacities (n = 39, 64) and B not a multiple of four (130)."""
+    Hs, r1, _ = ipm_like_system(B, n, seed=300 + B + n)
+    bad = B // 2
+    Hs[bad, 7, 7] = -1.0
+    H = torch.as_tensor(Hs, device=cuda, dtype=dtype)
+    R = torch.as_tensor(r1, device=cuda, dtype=dtype)
+    chol.reset_counts()
+    F = chol.cholesky_batched(H)
+    L = chol.chol_factor_solve(H, R)[0]
+    torch.cuda.synchronize()
+    assert (chol.factor_launches, chol.factor_solve_launches) == (1, 1)
+    assert torch.equal(bits(F), bits(L))
+    assert (~torch.isfinite(F).all(-1).all(-1)).nonzero().flatten() \
+        .tolist() == [bad]
+    assert torch.isnan(F[bad][torch.tril(torch.ones_like(
+        F[bad], dtype=torch.bool))]).all()
+    assert torch.equal(torch.triu(F, 1), torch.zeros_like(F))
 
 
 def wavefront_case(shape, seed, fill=0.2, outside=False):

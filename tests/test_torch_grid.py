@@ -173,7 +173,7 @@ def test_forest_cycle_matches_from_converted_state():
     for _ in range(3):
         state, _ = jsim._cycle_jit(state)
     j1, jinfo = jsim._cycle_jit(state)
-    t1, tinfo = tsim.cycle(state_from_numpy(_to_numpy(state),
+    t1, tinfo = tsim.cycle(state_from_numpy(_to_numpy(state), device=CPU,
                                             dtype=torch.float64))
     jd, td = _to_numpy(j1), state_to_numpy(t1)
     assert np.abs(td["traj"] - jd["traj"]).max() <= 1e-6

@@ -185,6 +185,44 @@ def test_cholesky_batched_plain_matches_pallas_interpret(rng):
     assert np.isnan(np.tril(Lt[2])[np.tril_indices(13)]).all()
 
 
+@pytest.mark.parametrize("dtype,bits", [(np.float64, np.uint64),
+                                        (np.float32, np.uint32)])
+def test_cholesky_batched_plain_is_factor_solve_plain_factor(rng, dtype,
+                                                             bits):
+    """The factor alone is factor_solve's factor, bit for bit, SPD and
+    non-SPD entries alike (the invariant the CUDA kernels hold by sharing
+    one kernel): a failed entry's lower triangle NaN, zeros above the
+    diagonal in every entry."""
+    H, r1, _ = _ipm_like(rng, 6, 13, dtype)
+    H[2, 4, 4] = -3.0
+    H[4] = -np.eye(13, dtype=dtype)
+    L = chol.cholesky_batched_plain(_t(H)).numpy()
+    Lf = chol.chol_factor_solve_plain(_t(H), _t(r1))[0].numpy()
+    np.testing.assert_array_equal(L.view(bits), Lf.view(bits))
+    bad = ~np.isfinite(L).all((-2, -1))
+    assert bad.nonzero()[0].tolist() == [2, 4]
+    low = np.tril(np.ones((13, 13), bool))
+    assert np.isnan(L[bad][:, low]).all()
+    assert (np.triu(L, 1) == 0).all()
+
+
+def test_chol_check_of_the_factor_alone():
+    """The factor alone passes no right-hand side to the wrappers' check:
+    a contiguous (B, n, n) batch goes to the kernel as it is, a batch of
+    more dimensions is flattened and restored, and what the kernel does
+    not take raises before any launch."""
+    H = torch.zeros(6, 4, 4)
+    H3, r, batch, n = chol._check(H, None, "cholesky_batched")
+    assert H3 is H and r is None and batch is None and n == 4
+    H3, r, batch, n = chol._check(torch.zeros(3, 2, 5, 5), None, "f")
+    assert H3.shape == (6, 5, 5) and r is None and batch == (3, 2)
+    for bad, err in ((torch.zeros(2, 3, 4), ValueError),
+                     (torch.zeros(2, 65, 65), ValueError),
+                     (torch.zeros(2, 3, 3, dtype=torch.int32), TypeError)):
+        with pytest.raises(err, match="cholesky_batched"):
+            chol._check(bad, None, "cholesky_batched")
+
+
 def test_chol_cuda_branch_raises_without_gpu(rng):
     """A CUDA tensor never reaches the plain versions: without a GPU the
     kernel loader raises, and other devices are refused."""

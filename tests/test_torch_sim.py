@@ -58,7 +58,7 @@ def test_state_round_trip():
     sim = TSim(_missions()[1], params()[1], dtype=torch.float64)
     state, _ = sim.cycle(sim.initial_state())
     d = state_to_numpy(state)
-    back = state_from_numpy(d, dtype=torch.float64)
+    back = state_from_numpy(d, device=CPU, dtype=torch.float64)
     for a, b in zip(state, back):
         assert (a is None and b is None) or torch.equal(a, b)
 
@@ -74,7 +74,7 @@ def test_full_cycle_matches_from_converted_state(goal_mode):
     for _ in range(5):
         state, _ = jsim._cycle_jit(state)
     j1, jinfo = jsim._cycle_jit(state)
-    t1, tinfo = tsim.cycle(state_from_numpy(_to_numpy(state),
+    t1, tinfo = tsim.cycle(state_from_numpy(_to_numpy(state), device=CPU,
                                             dtype=torch.float64))
     assert np.abs(t1.traj.numpy() - np.asarray(j1.traj)).max() <= 1e-6
     jd, td = _to_numpy(j1), state_to_numpy(t1)
@@ -134,7 +134,7 @@ def test_knn_cycle_matches_from_converted_state():
         state, _ = jsim._cycle_jit(state)
     states.append(state)
     j1, jinfo = jsim._cycle_jit(state)
-    t1, tinfo = tsim.cycle(state_from_numpy(_to_numpy(state),
+    t1, tinfo = tsim.cycle(state_from_numpy(_to_numpy(state), device=CPU,
                                             dtype=torch.float64))
     assert np.abs(t1.traj.numpy() - np.asarray(j1.traj)).max() <= 1e-6
     np.testing.assert_array_equal(tinfo.knn_overflow.numpy(),
@@ -224,6 +224,36 @@ def test_default_device_is_the_card():
             _TSim(_missions(4)[1], params()[1])
 
 
+@pytest.mark.parametrize("build", ["from_occupancy", "from_boxes",
+                                   "state_from_numpy", "esdf_from_numpy"])
+def test_world_and_state_builders_default_to_the_card(build):
+    """The ESDF builders and the state converters put their tensors on the
+    CUDA device when no device is named; without a card they raise rather
+    than build on the CPU."""
+    from lsc_planner_tpu_torch.convert import esdf_from_numpy
+    from lsc_planner_tpu_torch.world.esdf import ESDF as TESDF
+
+    occ = np.zeros((4, 4, 4), bool)
+    occ[1, 2, 3] = True
+    calls = {
+        "from_occupancy": lambda: TESDF.from_occupancy(occ, (0, 0, 0), 0.1)
+        .dist,
+        "from_boxes": lambda: TESDF.from_boxes(
+            [[0.1, 0.1, 0.0, 0.2, 0.2, 0.3]], (0, 0, 0), (0.4, 0.4, 0.4))
+        .dist,
+        "state_from_numpy": lambda: state_from_numpy(
+            {"pos": np.zeros((2, 3))}).pos,
+        "esdf_from_numpy": lambda: esdf_from_numpy(
+            {"dist": np.ones((4, 4, 4)), "origin_key": (0, 0, 0),
+             "resolution": 0.1, "max_dist": 1.0, "occ": occ}).dist,
+    }
+    if torch.cuda.is_available():
+        assert calls[build]().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="is_available"):
+            calls[build]()
+
+
 def test_patrol_swap_and_finish_match():
     p, tp = params(multisim_patrol=True)
     jm, tm = _missions()
@@ -233,7 +263,7 @@ def test_patrol_swap_and_finish_match():
     pos = np.asarray(state.pos).copy()
     pos[[1, 5]] = np.asarray(state.desired_goal)[[1, 5]]    # two arrived
     j = jsim._patrol_swap(state, jnp.asarray(pos))
-    t = tsim._patrol_swap(state_from_numpy(_to_numpy(state),
+    t = tsim._patrol_swap(state_from_numpy(_to_numpy(state), device=CPU,
                                            dtype=torch.float64),
                           torch.as_tensor(pos))
     for a, b in zip(t, j):
@@ -265,7 +295,7 @@ def test_rescue_and_stall_bookkeeping_match(rng, world):
     d["path_floor"] = d["pos"] + rng.normal(size=(N, 3))
     jstate = state._replace(**{k: jnp.asarray(v) for k, v in d.items()
                                if v is not None})
-    tstate = state_from_numpy(d, dtype=torch.float64)
+    tstate = state_from_numpy(d, device=CPU, dtype=torch.float64)
     pos = d["pos"] + rng.normal(size=(N, 3)) * 0.05
     vel = rng.normal(size=(N, 3)) * 0.05
     best = np.full(N, np.inf)
