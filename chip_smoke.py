@@ -58,6 +58,17 @@ Phases, one line each; any failure raises and exits non-zero:
      same cycles in f32 through the port's factored IPM on the chol
      kernels (qp_fused_mode "off"), its distance printed as a second
      witness
+ 12. several cycles a dispatch (make_scan_cycle: one CUDA graph of 10
+     cycles): the SFC face-expansion kernel against its plain version, bit
+     for bit, on forest20's cycle-4 inputs and on the 30 m forest's world
+     with 20 seeds, with kernel / plain ms and the bound; then circle64
+     and forest20 flown to the finish and circle1024 for its 40 cycles
+     with run(steps_per_dispatch=10), which captures the graph: cycles and
+     distance equal to phases 5, 8 and 10, the mission gates, ms a cycle
+     of both methods, the capture-plus-instantiate seconds and the kernel
+     launches captured in a block; and from the state after 20 uncaptured
+     cycles, 10 cycles through that graph against 10 uncaptured ones: the
+     differing bits in every SwarmState field (all 0)
 Then the kernels' JSON line (every kernel: launches on its main path,
 error against its plain version, kernel / plain / library ms, and the
 bound for the same work computed from this run's inputs), and last
@@ -75,13 +86,18 @@ import torch
 
 from lsc_planner_tpu_torch import (GoalMode, ObstacleSpec, Param,
                                    make_circle_mission, make_random_mission)
+from lsc_planner_tpu_torch.config import SP_EPSILON
 from lsc_planner_tpu_torch.convert import state_to_numpy
 from lsc_planner_tpu_torch.ops import _build, chol, ipm, wavefront
+from lsc_planner_tpu_torch.ops import corridor as corridor_ops
 from lsc_planner_tpu_torch.ops.grid_search import GridPlanner
 from lsc_planner_tpu_torch.planner import constraints
 from lsc_planner_tpu_torch.sim import audit
 from lsc_planner_tpu_torch.sim import simulator as sim_mod
-from lsc_planner_tpu_torch.sim.simulator import SyncSimulator
+from lsc_planner_tpu_torch.sim.simulator import (SyncSimulator,
+                                                  launch_counts,
+                                                  reset_launch_counts)
+from lsc_planner_tpu_torch.world.corridor import CorridorBuilder
 from lsc_planner_tpu_torch.world.esdf import ESDF
 
 N_QP = 39                   # QP variables per agent (3 dims x 13)
@@ -125,6 +141,9 @@ JAX_CPU_F32_FOREST_DIST = 109.9262466430664
 # the grid planner's 0.25 m its grids are (21, 121, 121), 307,461 cells
 FOREST30_WORLD = (-15.0, -15.0, 0.0, 15.0, 15.0, 5.0)
 FOREST30_TREES = 540
+# phase 12: cycles a dispatch, and the uncaptured cycles before its bit
+# comparison
+CAPTURE_K, CAPTURE_BEFORE = 10, 20
 # H100 peaks for the bounds (NVIDIA's data sheet, SXM): f32 outside the
 # tensor cores and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
@@ -143,6 +162,18 @@ def bound(nbytes, ops):
 
 def tensor_bytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def check_launches(what, **want):
+    """The kernel launches since the last reset_launch_counts()
+    (launch_counts()); raises unless each kernel's is its count in want, 0
+    for a kernel not named."""
+    got = launch_counts()
+    want = {k: want.get(k, 0) for k in got}
+    if got != want:
+        raise AssertionError(f"{what}: kernel launches {got}, expected "
+                             f"{want}")
+    return got
 
 
 def forest_mission(seed=FOREST_SEED, qn=FOREST_N, n_trees=FOREST_TREES,
@@ -517,18 +548,12 @@ def fused_bound(args, kw):
 def fly_circle64_fused(sim):
     """Phase 7: circle64 with every cycle's QP through the fused kernel."""
     param = sim.param
-    chol.reset_counts()
-    ipm.reset_counts()
+    reset_launch_counts()
     summary = sim.run()
     torch.cuda.synchronize()
     cycles = summary["iterations"]
     check_mission(summary, param, MAIN_B, "circle64 fused")
-    launches = (ipm.fused_launches, chol.factor_solve_launches,
-                chol.resolve_launches)
-    if launches != (cycles, 0, 0):
-        raise AssertionError(f"circle64 fused: launches (fused, "
-                             f"factor_solve, resolve) {launches}, expected "
-                             f"({cycles}, 0, 0)")
+    check_launches("circle64 fused", fused_ipm=cycles)
     ms_cycle = summary["wall_time"] / cycles * 1e3
     phase("7 circle64 fused", f"finished in {cycles} cycles (JAX CPU f32 "
                               f"XLA path: {JAX_CPU_F32_CYCLES}; the port's "
@@ -542,8 +567,7 @@ def fly_circle1024(sim):
     """Phase 8: BIG_CYCLES cycles of circle1024 (K = 32, "auto", so the
     fused kernel).  Returns the fused kernel's launch count."""
     state = sim.initial_state()
-    chol.reset_counts()
-    ipm.reset_counts()
+    reset_launch_counts()
     stats, times = [], []
     t_wall = time.perf_counter()
     for _ in range(BIG_CYCLES):
@@ -557,14 +581,9 @@ def fly_circle1024(sim):
         times.append(time.perf_counter() - t0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_wall
-    launches = (ipm.fused_launches, chol.factor_solve_launches,
-                chol.resolve_launches)
+    launches = check_launches("circle1024", fused_ipm=BIG_CYCLES)
     safety, failed, overflow, iters = (np.asarray(s) for s in zip(*stats))
     dist = float(state.distance)
-    if launches != (BIG_CYCLES, 0, 0):
-        raise AssertionError(f"circle1024: launches (fused, factor_solve, "
-                             f"resolve) {launches}, expected "
-                             f"({BIG_CYCLES}, 0, 0)")
     if not safety.min() >= 1.0:
         raise AssertionError(f"circle1024: collision, safety {safety.min()}")
     if failed.sum():
@@ -595,7 +614,10 @@ def fly_circle1024(sim):
     phase("8 circle1024", "stage ms (median of 5 cycles after 20, a sync "
                           "around each): " +
           ", ".join(f"{k} {v:.2f}" for k, v in st.items()))
-    return launches[0]
+    run = {"iterations": BIG_CYCLES, "total_flight_distance": dist,
+           "wall_time": wall,
+           "average_planning_time": statistics.mean(times[1:])}
+    return launches["fused_ipm"], run
 
 
 def capture_wavefront_calls(sim, cycles_before):
@@ -634,20 +656,31 @@ def random_wavefront_case(dev, shape, seed, fill=0.2):
             torch.as_tensor(goal, device=dev))
 
 
+_forest30 = {}
+
+
+def forest30_world(dev):
+    """(mission, Param, ESDF) of a 20-agent mission in a 30 x 30 x 5 m
+    synthetic forest at forest20's density, made once.  The ESDF is made
+    at the grid's 0.25 m, not the world's 0.1 m: ESDF.from_boxes merges
+    each of the 540 boxes on the host over every cell, minutes at 0.1 m."""
+    if dev not in _forest30:
+        m = forest_mission(n_trees=FOREST30_TREES, world=FOREST30_WORLD)
+        p = Param(goal_mode=GoalMode.PRIOR_BASED)
+        boxes = np.stack([np.concatenate([o.pose - o.dimensions,
+                                          o.pose + o.dimensions])
+                          for o in m.obstacles])
+        esdf = ESDF.from_boxes(boxes, m.world_min, m.world_max,
+                               resolution=p.grid_resolution, device=dev)
+        _forest30[dev] = (m, p, esdf)
+    return _forest30[dev]
+
+
 def forest30_static_grids(dev):
-    """The grid planner's static occupancy (N, Z, Y, X) of a 20-agent
-    mission in a 30 x 30 x 5 m synthetic forest at forest20's density, the
-    agents' goal cells (z, y, x) and the planner's wavefront cap.  The
-    ESDF under it is made at the grid's 0.25 m, not the world's 0.1 m:
-    ESDF.from_boxes merges each of the 540 boxes on the host over every
-    cell, minutes at 0.1 m."""
-    m = forest_mission(n_trees=FOREST30_TREES, world=FOREST30_WORLD)
-    p = Param(goal_mode=GoalMode.PRIOR_BASED)
-    boxes = np.stack([np.concatenate([o.pose - o.dimensions,
-                                      o.pose + o.dimensions])
-                      for o in m.obstacles])
-    esdf = ESDF.from_boxes(boxes, m.world_min, m.world_max,
-                           resolution=p.grid_resolution, device=dev)
+    """The grid planner's static occupancy (N, Z, Y, X) of the 30 m
+    forest's 20 agents (forest30_world), the agents' goal cells (z, y, x)
+    and the planner's wavefront cap."""
+    m, p, esdf = forest30_world(dev)
     grid = GridPlanner(m, p, esdf)
     occ = grid.static_occupancy(float(m.agents[0].radius))
     goal = grid.to_cell(torch.as_tensor(np.array([a.goal for a in m.agents]),
@@ -758,15 +791,9 @@ def fly_forest20(dev):
                         dtype=torch.float32)
     grid = sim.goal_planner.grid_planner
     occ_share = float(sim.esdf.occ.mean())
-    chol.reset_counts()
-    ipm.reset_counts()
-    wavefront.reset_counts()
+    reset_launch_counts()
     summary = sim.run()
     torch.cuda.synchronize()
-    launches = {"wavefront": wavefront.wavefront_launches,
-                "factor_solve": chol.factor_solve_launches,
-                "resolve": chol.resolve_launches,
-                "fused": ipm.fused_launches}
     cycles = summary["iterations"]
     check_mission(summary, param, FOREST_N, "forest20")
     if not summary["safety_ratio_obs"] >= 1.0:
@@ -777,13 +804,11 @@ def fly_forest20(dev):
         raise AssertionError(f"forest20: {cycles} cycles, more than {band} "
                              f"off the JAX CPU f32 run's "
                              f"{JAX_CPU_F32_FOREST_CYCLES}")
-    want = {"wavefront": 2 * cycles,
-            "factor_solve": cycles * param.qp_iterations,
-            "resolve": (cycles * param.qp_iterations *
-                        (1 + param.qp_correctors)),
-            "fused": 0}
-    if launches != want:
-        raise AssertionError(f"forest20: launches {launches} != {want}")
+    launches = check_launches(
+        "forest20", wavefront=2 * cycles,
+        factor_solve=cycles * param.qp_iterations,
+        resolve=cycles * param.qp_iterations * (1 + param.qp_correctors),
+        expand_boxes=cycles)
     ms_cycle = summary["wall_time"] / cycles * 1e3
     phase("10 forest20", f"{FOREST_N} agents, {FOREST_TREES} trees "
                          f"({100 * occ_share:.2f} % of the "
@@ -805,7 +830,7 @@ def fly_forest20(dev):
     phase("10 forest20", "stage ms (median of 5 cycles after 20, a sync "
                          "around each): " +
           ", ".join(f"{k} {v:.2f}" for k, v in st.items()))
-    return launches
+    return launches, sim, summary
 
 
 def fly_circle128_factored(dev):
@@ -826,8 +851,7 @@ def fly_circle128_all_pairs(sim):
     """Phase 11: ALL_CYCLES cycles of the 128-agent circle at Param's
     all-pairs default (C = 128), "auto", so one fused launch a cycle."""
     state = sim.initial_state()
-    chol.reset_counts()
-    ipm.reset_counts()
+    reset_launch_counts()
     stats = []
     t_wall = time.perf_counter()
     for _ in range(ALL_CYCLES):
@@ -837,14 +861,9 @@ def fly_circle128_all_pairs(sim):
             info.qp_iters.double().mean()]).tolist())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_wall
-    launches = (ipm.fused_launches, chol.factor_solve_launches,
-                chol.resolve_launches)
+    launches = check_launches("circle128 all pairs", fused_ipm=ALL_CYCLES)
     safety, failed, iters = (np.asarray(v) for v in zip(*stats))
     dist = float(state.distance)
-    if launches != (ALL_CYCLES, 0, 0):
-        raise AssertionError(f"circle128 all pairs: launches (fused, "
-                             f"factor_solve, resolve) {launches}, expected "
-                             f"({ALL_CYCLES}, 0, 0)")
     if not safety.min() >= 1.0:
         raise AssertionError(f"circle128 all pairs: collision, safety "
                              f"{safety.min()}")
@@ -872,16 +891,256 @@ def fly_circle128_all_pairs(sim):
                           f"{100 * rel_f:+.2f} %), "
                           f"{wall / ALL_CYCLES * 1e3:.2f} ms/cycle, "
                           f"mean tile iterations {iters.mean():.2f}, "
-                          f"{launches[0]} fused launches")
-    return launches[0]
+                          f"{launches['fused_ipm']} fused launches")
+    return launches["fused_ipm"]
 
 
-def check_mission(summary, param, qn, what):
-    """A run() summary finished under the cap, safely, with no QPFAILED and
+def capture_expand_call(sim, cycles_before):
+    """The inputs of the face-expansion call of one cycle of sim after
+    cycles_before cycles: the main path's own boxes, slots and table."""
+    state = sim.initial_state()
+    for _ in range(cycles_before):
+        state, _ = sim.cycle(state)
+    seen = []
+    launch = corridor_ops.expand_boxes
+
+    def record(*args):
+        seen.append(tuple(a.clone() if torch.is_tensor(a) else a
+                          for a in args))
+        return launch(*args)
+    corridor_ops.expand_boxes = record
+    try:
+        sim.cycle(state)
+    finally:
+        corridor_ops.expand_boxes = launch
+    if len(seen) != 1:
+        raise AssertionError(f"{len(seen)} face-expansion calls in one "
+                             "cycle, expected 1")
+    return seen[0]
+
+
+def forest30_expand_inputs(dev):
+    """The face expansion's inputs for the 30 m forest's 20 agents, each
+    seeded at its start toward its goal, against the margin table of that
+    world (forest30_world, at 0.25 m)."""
+    m, _, esdf = forest30_world(dev)
+    b = CorridorBuilder(esdf, m.world_min, m.world_max,
+                        agent_radius=float(m.agents[0].radius))
+    pts = torch.as_tensor(np.array([a.start for a in m.agents]),
+                          dtype=torch.float32, device=dev)
+    goals = torch.as_tensor(np.array([a.goal for a in m.agents]),
+                            dtype=torch.float32, device=dev)
+    lo, hi = b.initial_box(pts)
+    wmin, wmax = b._world_bounds(torch.float32)
+    return (lo, hi, b._axis_order(lo, hi, goals), ~b._obstructed(lo, hi),
+            b.sat, b._wmin32, wmin, wmax)
+
+
+def expand_sat_reads(args):
+    """The distinct SAT entries that the face expansion must read on these
+    inputs, and its tries.  The plain version's round-robin is replayed
+    (expand_boxes_plain's loop); a try reads the table only when its slab
+    is in bounds (the kernel tests that first), and then the eight corners
+    of each inclusion-exclusion term that is neither dropped at the world
+    minimum nor empty (OccupancySAT.box_obstructed and _box_count)."""
+    lo, hi, cand, seed_ok, sat, wmin32, wmin, wmax = args
+    N, dev, res = lo.shape[0], lo.device, sat.resolution
+    rows = torch.arange(N, device=dev)
+    offs = torch.arange(1, 7, device=dev)
+    active = seed_ok[:, None].expand(N, 6).clone()
+    p = torch.full((N,), 5, dtype=torch.int64, device=dev)
+    T = sat._corner_bits                                   # (8, 3)
+    S = sat.sat.shape
+    slabs, reads, tries = [], [], 0
+
+    class Recorder:     # the table, noting the slab of each try
+        resolution = res
+
+        def box_obstructed(self, s_lo, s_hi, at_min):
+            slabs.append((s_lo, s_hi, at_min))
+            return sat.box_obstructed(s_lo, s_hi, at_min)
+
+    while bool(active.any()):
+        going = active.any(-1)
+        slots = (p[:, None] + offs[None, :]) % 6
+        first = torch.argmax(torch.gather(active, 1, slots).to(torch.uint8),
+                             dim=-1)
+        p2 = slots[rows, first]
+        lo2, hi2, ok = corridor_ops.try_expand(Recorder(), lo, hi,
+                                               cand[rows, p2], wmin32, wmin,
+                                               wmax)
+        s_lo, s_hi, at_min = slabs.pop()
+        inb = ((s_lo.to(wmin.dtype) * res > wmin - SP_EPSILON).all(-1) &
+               (s_hi.to(wmin.dtype) * res < wmax + SP_EPSILON).all(-1))
+        # the terms' cell boxes (N, 8, 3), then their corners (N, 8, 8, 3)
+        l = s_lo.long() - sat._k0
+        h = s_hi.long() - sat._k0
+        a = l - 1 + at_min.long()
+        t_lo = torch.where(T, l[:, None, :], a[:, None, :])
+        t_hi = torch.where(T, l[:, None, :], h[:, None, :])
+        lo_c = torch.minimum(t_lo.clamp(min=0), sat._dims)
+        hi_c = torch.minimum((t_hi + 1).clamp(min=0), sat._dims)
+        read = (~(T & at_min[:, None, :]).any(-1) &
+                ~(hi_c <= lo_c).any(-1) & (going & inb)[:, None])
+        corner = torch.where(T, hi_c[:, :, None, :], lo_c[:, :, None, :])
+        flat = (corner[..., 0] * S[1] + corner[..., 1]) * S[2] + \
+            corner[..., 2]
+        reads.append(flat[read].reshape(-1))
+        tries += int(going.sum())
+        lo = torch.where(going[:, None], lo2, lo)
+        hi = torch.where(going[:, None], hi2, hi)
+        active[rows, p2] = torch.where(going, ok, active[rows, p2])
+        p = torch.where(going, p2, p)
+    return int(torch.cat(reads).unique().numel()), tries
+
+
+def expand_bound(args, out):
+    """The least time of the face expansion on these inputs: the boxes,
+    slots, flags and bounds read once, the boxes written once, and each
+    SAT entry that its tries need read once (int32, expand_sat_reads).
+    Returns (bound, entries, tries)."""
+    entries, tries = expand_sat_reads(args)
+    small = [t for t in args if torch.is_tensor(t)]
+    return (bound(tensor_bytes(*small, *out) + 4 * entries, 0.0), entries,
+            tries)
+
+
+def compare_expand(dev, forest_sim):
+    """Phase 12: the face-expansion kernel against its plain version, bit
+    for bit, on forest20's cycle-4 call and the 30 m forest's seeds.
+    Returns the forest20 numbers."""
+    main = None
+    for name, args in (("forest20 cycle 4", capture_expand_call(forest_sim,
+                                                                3)),
+                       ("forest30 starts", forest30_expand_inputs(dev))):
+        want = corridor_ops.expand_boxes_plain(*args)
+        got = corridor_ops.expand_boxes(*args)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], want[0]) and
+                torch.equal(got[1], want[1])):
+            bad = ((got[0] != want[0]) | (got[1] != want[1])).any(-1)
+            raise AssertionError(f"expand_boxes {name}: kernel differs from "
+                                 f"its plain version for agents "
+                                 f"{bad.nonzero().flatten().tolist()}")
+        err = max((g - w).abs().max().item() for g, w in zip(got, want))
+        t_k = median_ms(lambda: corridor_ops.expand_boxes(*args), reps=20)
+        t_p = median_ms(lambda: corridor_ops.expand_boxes_plain(*args),
+                        reps=5)
+        (b_ms, b_by), entries, tries = expand_bound(args, want)
+        phase("12 captured", f"expand_boxes {name}: N={args[0].shape[0]}, "
+                             f"table {tuple(args[4].sat.shape)}, {tries} "
+                             f"tries reading {entries} distinct entries, "
+                             f"bit-equal to its plain version; "
+                             f"{t_k:.4f} ms vs plain {t_p:.4f} ms, bound "
+                             f"{b_ms:.6f} ms ({b_by})")
+        if main is None:
+            main = (err, t_k, t_p, (b_ms, b_by))
+    return main
+
+
+def differing_bits(a, b):
+    """Bits that differ between tensors a and b of one dtype and shape
+    (a bool counts one bit)."""
+    if a.dtype == torch.bool:
+        return int((a != b).sum())
+    nbits = 8 * a.element_size()
+    view = {4: torch.int32, 8: torch.int64}[a.element_size()]
+    x = torch.bitwise_xor(a.view(view), b.view(view)).to(torch.int64)
+    if nbits == 32:
+        x = x & 0xFFFFFFFF
+    return sum(int(((x >> i) & 1).sum()) for i in range(nbits))
+
+
+def captured_bits(sim, what):
+    """From the state after CAPTURE_BEFORE uncaptured cycles, CAPTURE_K
+    cycles through the captured graph (the one fly_captured's run
+    captured: same shapes) against CAPTURE_K uncaptured ones: raises
+    unless every SwarmState field has the same bits."""
+    state = sim.initial_state()
+    for _ in range(CAPTURE_BEFORE):
+        state, _ = sim.cycle(state)
+    want = state
+    for _ in range(CAPTURE_K):
+        want, _ = sim.cycle(want)
+    multi = sim.make_scan_cycle(CAPTURE_K)
+    got, _ = multi(state)
+    torch.cuda.synchronize()
+    diffs = {f: differing_bits(a, b) for f, a, b in zip(got._fields, got,
+                                                          want)
+             if a is not None}
+    phase("12 captured", f"{what}: {CAPTURE_K} captured cycles after "
+                         f"{CAPTURE_BEFORE} against {CAPTURE_K} uncaptured: "
+                         f"differing bits {sum(diffs.values())} "
+                         f"({', '.join(f'{k} {v}' for k, v in diffs.items())}"
+                         ")")
+    if any(diffs.values()):
+        raise AssertionError(f"{what}: captured cycles differ from "
+                             f"uncaptured ones in {diffs}")
+
+
+def fly_captured(sim, what, uncaptured, max_iterations=None,
+                 finishes=True):
+    """A mission through run(steps_per_dispatch=CAPTURE_K), which captures
+    its graph: the same cycles and distance as its uncaptured run, and the
+    mission gates.  The counters, set to 0 before the run, move only in
+    its warm-up cycle and its capture (a replay moves none): each kernel's
+    count is (CAPTURE_K + 1) / CAPTURE_K of the block's."""
+    param = sim.param
+    reset_launch_counts()
+    summary = sim.run(max_iterations=max_iterations,
+                      steps_per_dispatch=CAPTURE_K)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    # the graph that run() captured for the mission's shapes
+    g = sim.cycle_graph(CAPTURE_K, sim.initial_state())
+    block = {k: v for k, v in g.launches.items() if v}
+    cycles = summary["iterations"]
+    check_mission(summary, param, sim.N, what + " captured",
+                  finished=finishes)
+    if sim.corridor is not None and not summary["safety_ratio_obs"] >= 1.0:
+        raise AssertionError(f"{what} captured: obstacle safety "
+                             f"{summary['safety_ratio_obs']} < 1")
+    same = (cycles == uncaptured["iterations"] and
+            summary["total_flight_distance"] ==
+            uncaptured["total_flight_distance"])
+    phase("12 captured", f"{what} run(steps_per_dispatch={CAPTURE_K}): "
+                         f"{cycles} cycles, distance "
+                         f"{summary['total_flight_distance']:.6f} m "
+                         f"(uncaptured {uncaptured['iterations']} cycles, "
+                         f"{uncaptured['total_flight_distance']:.6f} m), "
+                         f"min safety {summary['safety_ratio_agent']:.4f}, "
+                         f"min obstacle safety "
+                         f"{summary['safety_ratio_obs']:.4f}, QPFAILED "
+                         f"{summary['qp_failures']}; ms a cycle captured "
+                         f"{1e3 * summary['average_planning_time']:.2f} "
+                         f"(blocks after the first; "
+                         f"{1e3 * summary['wall_time'] / cycles:.2f} run "
+                         f"wall / cycles, capture included), uncaptured "
+                         f"{1e3 * uncaptured['average_planning_time']:.2f} "
+                         f"({1e3 * uncaptured['wall_time'] / cycles:.2f}); "
+                         f"capture + instantiate {g.capture_seconds:.2f} s; "
+                         f"kernel launches captured in a block {block}")
+    if not block or any(counts[k] * CAPTURE_K != v * (CAPTURE_K + 1)
+                        for k, v in g.launches.items()):
+        raise AssertionError(f"{what} captured: launches {counts} against "
+                             f"{block} a block of {CAPTURE_K} cycles and a "
+                             "warm-up cycle")
+    if not same:
+        raise AssertionError(f"{what} captured: {cycles} cycles, "
+                             f"{summary['total_flight_distance']} m against "
+                             f"{uncaptured['iterations']} cycles, "
+                             f"{uncaptured['total_flight_distance']} m "
+                             "uncaptured")
+    return summary
+
+
+def check_mission(summary, param, qn, what, finished=True):
+    """A run() summary finished under the cap (unless `finished` is False:
+    a run of a fixed number of cycles), safely, with no QPFAILED and
     finite final positions; raises otherwise."""
     cycles = summary["iterations"]
     pos = summary["final_state"].pos
-    if not cycles < param.multisim_max_planner_iteration:
+    if finished and not cycles < param.multisim_max_planner_iteration:
         raise AssertionError(f"{what}: did not finish within {cycles} "
                              "cycles")
     if not summary["safety_ratio_agent"] >= 1.0 or summary["is_collided"]:
@@ -940,22 +1199,14 @@ def main():
     param = Param(goal_mode=GoalMode.PRIOR_BASED)
     sim = SyncSimulator(circle_mission(qn), param, device=dev,
                         dtype=torch.float32)
-    chol.reset_counts()
-    ipm.reset_counts()
+    reset_launch_counts()
     summary = sim.run()
     torch.cuda.synchronize()
-    launches = {"factor_solve": chol.factor_solve_launches,
-                "resolve": chol.resolve_launches}
     cycles = summary["iterations"]
     check_mission(summary, param, qn, "circle64")
-    if ipm.fused_launches:
-        raise AssertionError(f"circle64: {ipm.fused_launches} fused launches "
-                             "on the chol path")
-    want = {"factor_solve": cycles * param.qp_iterations,
-            "resolve": cycles * param.qp_iterations *
-            (1 + param.qp_correctors)}
-    if launches != want:
-        raise AssertionError(f"kernel launches {launches} != {want}")
+    launches = check_launches(
+        "circle64", factor_solve=cycles * param.qp_iterations,
+        resolve=cycles * param.qp_iterations * (1 + param.qp_correctors))
     ms_cycle = summary["wall_time"] / cycles * 1e3
     phase("5 mission", f"circle{qn} PRIOR_BASED f32: finished in {cycles} "
                        f"cycles (JAX CPU f32: {JAX_CPU_F32_CYCLES}), safety "
@@ -985,7 +1236,7 @@ def main():
     fly_circle64_fused(small)
 
     # 8. the main path at 1024 agents: K-NN pruning and the fused kernel
-    fused_launches = fly_circle1024(big)
+    fused_launches, big_run = fly_circle1024(big)
 
     # 9. the wavefront kernel vs its plain version, on forest20's grids
     forest = SyncSimulator(forest_mission(), Param(
@@ -994,10 +1245,22 @@ def main():
         dev, forest)
 
     # 10. the obstacle-world path: forest20 to the finish
-    forest_launches = fly_forest20(dev)
+    forest_launches, forest_sim, forest_run = fly_forest20(dev)
 
     # 11. all pairs at 128 agents: C = 128 through the fused kernel
     fly_circle128_all_pairs(all_pairs)
+
+    # 12. several cycles a dispatch: the face-expansion kernel, then one
+    # CUDA graph of CAPTURE_K cycles on each main path
+    expand_err, expand_ms, expand_plain_ms, expand_bound_ = compare_expand(
+        dev, forest)
+    for flown, what, run, kw in (
+            (sim, "circle64", summary, {}),
+            (big, "circle1024", big_run, dict(max_iterations=BIG_CYCLES,
+                                              finishes=False)),
+            (forest_sim, "forest20", forest_run, {})):
+        fly_captured(flown, what, run, **kw)
+        captured_bits(flown, what)
 
     errs, times = results[MAIN_B]
     n, B = N_QP, MAIN_B
@@ -1041,6 +1304,14 @@ def main():
         # package: its launches there are 0
         chol_entry("cholesky_batched", "factor",
                    "lsc_planner_tpu/ops/chol_pallas.py:26", 0),
+        {"name": "expand_boxes", "route": "cuda",
+         "source": "lsc_planner_tpu_torch/csrc/corridor.cu",
+         "replaces": "lsc_planner_tpu/world/corridor.py:160 "
+                     "(lax.while_loop; no Pallas kernel)",
+         "launches": forest_launches["expand_boxes"],
+         "max_abs_err": expand_err, "ms": expand_ms,
+         "plain_ms": expand_plain_ms, "bound_ms": expand_bound_[0],
+         "bound_by": expand_bound_[1], "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -23,7 +23,7 @@ import torch
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("chol.cu", "ipm.cu", "wavefront.cu")
+SOURCES = ("chol.cu", "ipm.cu", "wavefront.cu", "corridor.cu")
 HEADERS = ("warp_chol.cuh",)     # included by chol.cu and ipm.cu
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -57,7 +57,14 @@ _SIGNATURES = {
     "lsc_ipm_fused_plan": [ctypes.c_int] * 7 + [_PTR],
     # occ, goal, out, steps; N, Z, Y, X, max_iters; stream
     "lsc_wavefront_f32": [_PTR] * 4 + [ctypes.c_int] * 5 + [_PTR],
+    # lo0, hi0, cand, seed_ok, sat; S0, S1, S2; k0 (3); wmin32, wmin, wmax;
+    # res, eps, eps_f; lo_out, hi_out; N; stream
+    "lsc_expand_boxes_f32": [_PTR] * 5 + [ctypes.c_int] * 3 +
+                            [ctypes.c_longlong] * 3 + [_PTR] * 3 +
+                            [ctypes.c_double] * 3 + [_PTR] * 2 +
+                            [ctypes.c_int, _PTR],
 }
+_SIGNATURES["lsc_expand_boxes_f64"] = _SIGNATURES["lsc_expand_boxes_f32"]
 
 
 def _nvcc() -> str:

@@ -72,11 +72,30 @@ def subdivision_matrix(n: int, a: float, b: float) -> np.ndarray:
     return B @ A @ np.linalg.inv(B)
 
 
+_tables = {}
+
+
+def _table(name: str, n: int, dtype, device) -> torch.Tensor:
+    """A constant tensor made once a (name, n, dtype, device): the basis
+    exponents i, the binomials C(n, i), or gravity (n unused), so that no
+    call copies host data to the device."""
+    key = (name, n, dtype, device)
+    if key not in _tables:
+        if name == "exponent":
+            t = torch.arange(n + 1, device=device)
+        elif name == "binom":
+            t = torch.tensor([float(nchoosek(n, k)) for k in range(n + 1)],
+                             dtype=dtype, device=device)
+        else:
+            t = torch.tensor([0.0, 0.0, GRAVITY], dtype=dtype, device=device)
+        _tables[key] = t
+    return _tables[key]
+
+
 def bernstein_basis(n: int, t: torch.Tensor) -> torch.Tensor:
     """Basis values b_{i,n}(t), shape t.shape + (n+1,)."""
-    i = torch.arange(n + 1, device=t.device)
-    binom = torch.tensor([float(nchoosek(n, k)) for k in range(n + 1)],
-                         dtype=t.dtype, device=t.device)
+    i = _table("exponent", n, None, t.device)
+    binom = _table("binom", n, t.dtype, t.device)
     tt = t[..., None]
 
     def safe_pow(base, expo):
@@ -87,7 +106,10 @@ def bernstein_basis(n: int, t: torch.Tensor) -> torch.Tensor:
 def bernstein_eval(ctrl: torch.Tensor, t) -> torch.Tensor:
     """Curve value at normalized time t; ctrl (..., n+1, d) -> (..., d)."""
     n = ctrl.shape[-2] - 1
-    t = torch.as_tensor(t, dtype=ctrl.dtype, device=ctrl.device)
+    if isinstance(t, torch.Tensor):
+        t = t.to(dtype=ctrl.dtype, device=ctrl.device)
+    else:       # a fill on the device, not a host copy
+        t = torch.full((), t, dtype=ctrl.dtype, device=ctrl.device)
     basis = bernstein_basis(n, t)
     return (basis[..., :, None] * ctrl).sum(-2)
 
@@ -116,8 +138,7 @@ def traj_state(traj: torch.Tensor, t: float, dt: float) -> dict:
     acc = bernstein_eval(acc_c, tau)
     jerk = bernstein_eval(jerk_c, tau)
 
-    g = torch.tensor([0.0, 0.0, GRAVITY], dtype=traj.dtype,
-                     device=traj.device)
+    g = _table("gravity", 0, traj.dtype, traj.device)
     thrust = acc + g
     tnorm = torch.linalg.vector_norm(thrust, dim=-1, keepdim=True)
     z_body = thrust / torch.clamp(tnorm, min=1e-9)

@@ -22,14 +22,20 @@ def _subsets(K: int, k: int) -> np.ndarray:
                       dtype=np.int64)
 
 
-def _solve_subsets(points, subs, feas_tol: float = 1e-7):
-    """Bordered min-norm systems for all subsets of one size.
+@lru_cache(maxsize=None)
+def _subsets_on(K: int, k: int, device) -> torch.Tensor:
+    """_subsets(K, k) on the device, made once (no host copy a call)."""
+    return torch.as_tensor(_subsets(K, k), device=device)
 
-    points: (..., K, 3); subs: (S, k) numpy indices.
+
+def _solve_subsets(points, k: int, feas_tol: float = 1e-7):
+    """Bordered min-norm systems for all subsets of size k of the K points.
+
+    points: (..., K, 3).
     Returns (cand (..., S, 3), d2 (..., S), feasible (..., S))."""
-    S, k = subs.shape
+    idx = _subsets_on(points.shape[-2], k, points.device)
+    S = idx.shape[0]
     batch_shape = points.shape[:-2]
-    idx = torch.as_tensor(subs, device=points.device)
     # comp[j][d]: flat (batch*S,) component d of subset slot j
     comp = [[points[..., idx[:, j], d].reshape(-1) for d in range(3)]
             for j in range(k)]
@@ -107,7 +113,7 @@ def _closest_point_enum(points, max_support):
     K = points.shape[-2]
     cands, d2s, feas = [], [], []
     for k in range(1, min(K, max_support) + 1):
-        c, d2, f = _solve_subsets(points, _subsets(K, k))
+        c, d2, f = _solve_subsets(points, k)
         cands.append(c)
         d2s.append(d2)
         feas.append(f)
@@ -144,7 +150,7 @@ def hull_normal(points, iters: int = 0, eps: float = 1e-10):
     closest, dist = closest_point_to_hull(points, iters=iters)
     safe = dist[..., None] > eps
     fallback = torch.zeros_like(closest)
-    fallback[..., 0] = 1.0
+    fallback[..., 0].fill_(1.0)
     normal = torch.where(safe, closest / torch.clamp(dist[..., None],
                                                       min=eps), fallback)
     return normal, dist

@@ -14,7 +14,9 @@ never syncs with the host on the dense path (it has no early exit) and
 syncs only every ``EXIT_CHECK_EVERY`` iterations on the factored path; the
 per-instance latch freezes finished instances, so iterations run past the
 JAX exit point change no iterate, and the reported ``iters`` (the JAX
-count) is tracked on the device.
+count) is tracked on the device.  While the stream captures a CUDA graph
+the factored path skips that read and runs every iteration: the same bits,
+with no host read inside the graph.
 """
 from __future__ import annotations
 
@@ -78,6 +80,11 @@ def _step_len(v, dv, tau: float = 0.995):
     return torch.clamp(tau * ratio.amin(-1), max=1.0)
 
 
+def _capturing(device) -> bool:
+    """Is the current stream on `device` capturing a CUDA graph?"""
+    return device.type == "cuda" and torch.cuda.is_current_stream_capturing()
+
+
 def _ipm(P, q, mv, rmv, gram, b, y0, iters, reg, s_min,
          tol_gap: float = 0.0, tol_rp: float = 0.0, tol_rd: float = 0.0,
          tol_scale=None, correctors: int = 0, tol_step: float = 0.0):
@@ -99,6 +106,8 @@ def _ipm(P, q, mv, rmv, gram, b, y0, iters, reg, s_min,
     lam = torch.ones_like(s)
     eye = torch.eye(nv, dtype=dtype, device=device)
     exit_on = tol_gap > 0.0 and tol_rp > 0.0 and tol_rd > 0.0
+    # the early exit's host read, skipped inside a graph (see the note)
+    exit_read = exit_on and not _capturing(device)
     done_i = torch.zeros(batch, dtype=torch.bool, device=device)
     prev_step = torch.full(batch, float("inf"), dtype=dtype, device=device)
     it_used = torch.full((), iters, dtype=torch.int32, device=device)
@@ -187,7 +196,7 @@ def _ipm(P, q, mv, rmv, gram, b, y0, iters, reg, s_min,
         y = torch.where(ok[..., None], y_n, y)
         s = torch.where(ok[..., None], s_n, s)
         lam = torch.where(ok[..., None], lam_n, lam)
-        if exit_on and (it + 1) % EXIT_CHECK_EVERY == 0 and \
+        if exit_read and (it + 1) % EXIT_CHECK_EVERY == 0 and \
                 bool(all_done):
             break
 
@@ -263,8 +272,8 @@ def solve_qp_lsc(P, q, A_st, b_st, normal, rhs, mask, F_seg, y0=None,
     st_dead = st_norm < 1e-3
     st_scale = 1.0 / torch.clamp(st_norm, min=1e-3)
     b_absmax = b_st.abs().amax(0)
-    b_absmax = torch.repeat_interleave(
-        b_absmax.reshape(-1, 2).amax(1), 2)
+    b_absmax = b_absmax.reshape(-1, 2).amax(1)[:, None].expand(
+        -1, 2).reshape(-1)
     st_scale = torch.minimum(st_scale,
                              1e3 / torch.clamp(b_absmax, min=1.0))
     st_scale = torch.where(st_dead, 0.0, st_scale)

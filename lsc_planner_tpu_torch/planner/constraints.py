@@ -86,7 +86,11 @@ def sfc_planes(boxes, active, init_traj=None,
                 init_traj[:, None]).sum(-1)                  # (N, 6, M, n+1)
         rhs = rhs + torch.clamp(0.5 * (lhs0 - rhs), 0.0, guard_margin)
     n1 = rhs.shape[-1]
-    active = torch.as_tensor(active, device=boxes.device).expand(N)
+    if isinstance(active, torch.Tensor):
+        active = active.to(boxes.device).expand(N)
+    else:       # a fill on the device, not a host copy
+        active = torch.full((N,), bool(active), dtype=torch.bool,
+                            device=boxes.device)
     mask = active[:, None, None].expand(N, 6, M)
     return PlaneConstraints(normal=normal, rhs=rhs.expand(N, 6, M, n1),
                             mask=mask)

@@ -122,11 +122,15 @@ class TrajOptimizer:
                                       "(ROADMAP queue 1, item 12)")
         self._cache = {}
 
-    def _t(self, name: str, dtype, device) -> torch.Tensor:
-        key = (name, dtype, device)
+    def _t(self, name: str, dtype, device, index=None) -> torch.Tensor:
+        """The table `name` (its entry `index` when it is a tuple) as a
+        tensor on the device, made once: no cycle copies it from the
+        host."""
+        key = (name, index, dtype, device)
         if key not in self._cache:
-            self._cache[key] = torch.as_tensor(getattr(self, name),
-                                               dtype=dtype, device=device)
+            a = getattr(self, name)
+            self._cache[key] = torch.as_tensor(
+                a if index is None else a[index], dtype=dtype, device=device)
         return self._cache[key]
 
     @cached_property
@@ -205,7 +209,7 @@ class TrajOptimizer:
         N = traj.shape[0]
         x = traj.permute(0, 3, 1, 2)[:, :self.dim].reshape(
             N, self.dim, self.M * (self.n + 1))
-        idx = torch.as_tensor(self.y_extract_idx, device=traj.device)
+        idx = self._t("y_extract_idx", torch.int64, traj.device)
         return x[:, :, idx].reshape(N, self.nv)
 
     # ------------------------------------------------------------------
@@ -307,12 +311,19 @@ class TrajOptimizer:
         k_idx = np.asarray([k for _kd, k, _m in kinds], np.int64)
         return kind_id, k_idx
 
+    def static_blocked_on(self, dtype, device):
+        """static_blocked as tensors on the device (U in dtype, the row
+        permutations int64), made once."""
+        return tuple(self._t("static_blocked", dt, device, k)
+                     for k, dt in enumerate((dtype, torch.int64,
+                                             torch.int64)))
+
     def static_b(self, world_min, world_max, max_vel, max_acc, gx):
         """Per-agent rhs of the static rows, (N, R_s); gx (N, dim, nvx) is
         the G @ s0 contribution."""
         A_x = self._t("A_x", gx.dtype, gx.device)
-        kind_id, k_idx = (torch.as_tensor(a, device=gx.device)
-                          for a in self._static_b_index)
+        kind_id = self._t("_static_b_index", torch.int64, gx.device, 0)
+        k_idx = self._t("_static_b_index", torch.int64, gx.device, 1)
         bound_r = torch.where(kind_id == 0, world_min[k_idx],
                               -world_max[k_idx])
         limit_r = torch.where((kind_id == 2)[None, :], -max_vel[:, k_idx],
@@ -406,12 +417,13 @@ class TrajOptimizer:
                       N >= p.qp_fused_min_agents)))
         if dense_bytes > 48 * 2 ** 20 or fused_ok:
             sol = qp_ops.solve_qp_lsc(
-                P, q, self.A_static_y, b_st, normal, b_pl4, mask_pl4,
-                F_seg, y0=y_warm, iters=p.qp_iterations,
+                P, q, self._t("A_static_y", dtype, dev), b_st, normal,
+                b_pl4, mask_pl4, F_seg, y0=y_warm, iters=p.qp_iterations,
                 tol_gap=p.qp_tol_gap, tol_rp=p.qp_tol_rp,
                 tol_rd=p.qp_tol_rd, tol_step=p.qp_tol_step,
                 correctors=p.qp_correctors, s_min=p.qp_s_min,
-                static_blocks=self.static_blocked, P_blk=P_blk,
+                static_blocks=self.static_blocked_on(dtype, dev),
+                P_blk=P_blk,
                 fused_mode=(p.qp_fused_mode if fused_ok else "off"))
             return self._recover(sol, N, dtype, tmask, current_goal, gx3)
 

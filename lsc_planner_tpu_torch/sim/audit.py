@@ -40,6 +40,19 @@ def _sample_weight_matrix(ts, dt, M, n) -> np.ndarray:
     return W
 
 
+_weights = {}
+
+
+def _sample_weights(ts, dt, M, n, dtype, device) -> torch.Tensor:
+    """_sample_weight_matrix on the device, made once a (ts, dt, M, n,
+    dtype, device), so that no cycle copies it from the host."""
+    key = (tuple(float(t) for t in ts), float(dt), M, n, dtype, device)
+    if key not in _weights:
+        _weights[key] = torch.as_tensor(_sample_weight_matrix(ts, dt, M, n),
+                                        dtype=dtype, device=device)
+    return _weights[key]
+
+
 def positions_at(trajs, ts, dt):
     """Positions of all agents at times ts: (T, N, 3).
 
@@ -47,8 +60,7 @@ def positions_at(trajs, ts, dt):
     collapses nearby agents onto one point); the matmul runs with TF32 off
     (device.exact_float32), which precision_self_check verifies."""
     M, n1 = trajs.shape[-3], trajs.shape[-2]
-    W = torch.as_tensor(_sample_weight_matrix(ts, dt, M, n1 - 1),
-                        dtype=trajs.dtype, device=trajs.device)
+    W = _sample_weights(ts, dt, M, n1 - 1, trajs.dtype, trajs.device)
     return torch.einsum("tmi,nmid->tnd", W, trajs)
 
 

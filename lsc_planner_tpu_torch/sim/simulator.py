@@ -9,23 +9,26 @@ the sampled safety audit.  In a static world (an ``esdf``, or mission
 grid, each agent's SFC box corridor is updated and its faces join the LSC
 rows, deadlock-rescue waypoints are ray-checked against the ESDF, and the
 static boxes are audited exactly.  The tables live as tensors on the
-simulator's device (the CUDA device unless the caller names another); the
-cycle syncs with the host only for loop exits (the QP's factored path, the
-corridor expansion), and ``run`` reads one small stats tensor back per
-cycle.
+simulator's device (the CUDA device unless the caller names another) and
+are made once; on the card a cycle syncs with the host only for the QP's
+factored-path exit read, and ``run`` reads one small stats tensor back per
+cycle.  ``run(steps_per_dispatch=k)`` runs k cycles a dispatch
+(``make_scan_cycle``, the JAX package's ``lax.scan``): on the card one
+CUDA graph of k cycles, with one host read a block.
 
 With ``max_neighbors = K`` (0 < K < N) each agent keeps LSC rows only for
 its K nearest neighbours, and the cycle reports the density-overflow audit
 of that pruning in ``CycleInfo.knn_overflow``.
 
 Off the ported slice (loading .bt octomap files, dynamic obstacles,
-planner modes other than LSC, experiment-mode pose injection, fused
-multi-cycle dispatch) the constructor or the call raises
+planner modes other than LSC, experiment-mode pose injection, cycle logs
+and stage profiles) the constructor or the call raises
 NotImplementedError naming its ROADMAP item.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import math
 import time
 from typing import NamedTuple, Optional
@@ -37,6 +40,8 @@ from ..config import Param, PlannerMode, PredictionMode
 from ..missions import Mission
 from ..device import resolve_device, synchronize
 from ..ops import bernstein as bz
+from ..ops import chol, ipm, wavefront
+from ..ops import corridor as corridor_ops
 from ..planner import constraints as cons
 from ..planner import goal as goal_mod
 from ..planner import prediction as pred
@@ -107,6 +112,24 @@ def _update_stall_count(prev_count, best_prev, prev_pos, pos, vel,
     return count.to(prev_count.dtype), progress, progress_best, best
 
 
+_rotation_cache = {}
+
+
+def _rotations(dtype, device):
+    """(cos, sin) of the three candidate rotations k pi / 2, k = 1..3, as
+    0-d tensors made once a (dtype, device): no cycle copies them from the
+    host."""
+    key = (dtype, device)
+    if key not in _rotation_cache:
+        cs = []
+        for k in range(1, 4):
+            theta = torch.tensor((math.pi / 2.0) * k, dtype=dtype,
+                                 device=device)
+            cs.append((torch.cos(theta), torch.sin(theta)))
+        _rotation_cache[key] = cs
+    return _rotation_cache[key]
+
+
 def _update_rescue(state, pos, desired_goal, stall_count, progress, p,
                    esdf=None, radius=None, world_min=None, world_max=None,
                    progress_best=None):
@@ -137,16 +160,13 @@ def _update_rescue(state, pos, desired_goal, stall_count, progress, p,
     stall_count = torch.where(engage, 0, stall_count)
 
     dirs = []
-    for k in range(1, 4):                                   # rotations
-        theta = torch.tensor((math.pi / 2.0) * k, dtype=pos.dtype,
-                             device=pos.device)
-        c, s = torch.cos(theta), torch.sin(theta)
+    for c, s in _rotations(pos.dtype, pos.device):
         rot = torch.stack([c * gdir[..., 0] + s * gdir[..., 1],
                            -s * gdir[..., 0] + c * gdir[..., 1],
                            gdir[..., 2]], dim=-1)
         dirs.append(rot / torch.clamp(_norm(rot, keepdim=True), min=1e-12))
     up = torch.zeros_like(pos)
-    up[..., 2] = 1.0
+    up[..., 2].fill_(1.0)
     dirs.append(up)
     cands = torch.stack([pos + d * reach for d in dirs], dim=-2)  # (N,4,3)
     floor_ok = None
@@ -205,6 +225,113 @@ def knn_select(pos, obs_pos, self_mask, K: int):
     return sel_d2[:, :K], nbr[:, :K]
 
 
+def reset_launch_counts() -> None:
+    """Sets every kernel wrapper's launch counter (ops/*.py) to 0."""
+    for mod in (chol, ipm, wavefront, corridor_ops):
+        mod.reset_counts()
+
+
+def launch_counts() -> dict:
+    """The kernel wrappers' launch counters (ops/*.py), by kernel."""
+    return {"factor_solve": chol.factor_solve_launches,
+            "resolve": chol.resolve_launches,
+            "cholesky_batched": chol.factor_launches,
+            "fused_ipm": ipm.fused_launches,
+            "wavefront": wavefront.wavefront_launches,
+            "expand_boxes": corridor_ops.expand_launches}
+
+
+def _stack_cycles(cycle, state, k):
+    """k calls of cycle from state, their outputs stacked as the JAX
+    package's scan body gives them: (state_k, (CycleInfo stacked (k, ...),
+    max_goal_dist (k,), cum_distance (k,)))."""
+    infos, goal_dist, cum_dist = [], [], []
+    for _ in range(k):
+        state, info = cycle(state)
+        infos.append(info)
+        goal_dist.append(_norm(state.pos - state.desired_goal).max())
+        cum_dist.append(state.distance)
+    stacked = CycleInfo(*[None if f[0] is None else torch.stack(f)
+                          for f in zip(*infos)])
+    return state, (stacked, torch.stack(goal_dist), torch.stack(cum_dist))
+
+
+class _CycleGraph:
+    """k cycles of a simulator as one CUDA graph (make_scan_cycle on the
+    card).  Captured at construction from the shapes of `state`: one
+    uncaptured warm-up cycle on a side stream first builds the kernel
+    library, the fused IPM's plan and every cached constant (none may be
+    made inside the graph), then k cycles are captured.  Their inputs are
+    static buffers (one a SwarmState field), their stacked outputs live in
+    the graph's pool, and the graph's last nodes copy state_k back into
+    the static inputs, so each replay advances k cycles.
+    ``launches``: the kernel launches one replay makes (the counters'
+    increase during capture; a replay moves no counter).
+    ``capture_seconds``: host seconds of the capture and instantiation."""
+
+    def __init__(self, sim, k, state):
+        dev = sim.device
+        self.static = SwarmState(*[None if f is None else f.clone()
+                                   for f in state])
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            sim.cycle(self.static)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        synchronize(dev)
+        before = launch_counts()
+        self.graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        # no garbage collection while capturing: an unreachable graph of an
+        # earlier capture, collected now, would destroy its CUDA graph,
+        # which a capturing stream forbids (the capture would fail)
+        gc_enabled = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(self.graph):
+                out, self.outputs = _stack_cycles(sim.cycle, self.static, k)
+                pairs = [(dst, src) for dst, src in zip(self.static, out)
+                         if dst is not None and src is not dst]
+                # an output that shares memory with a static buffer is
+                # copied first, so that no copy below reads a buffer
+                # already written
+                held = {f.untyped_storage().data_ptr() for f in self.static
+                        if f is not None}
+                pairs = [(dst, src.clone()
+                          if src.untyped_storage().data_ptr() in held
+                          else src) for dst, src in pairs]
+                for dst, src in pairs:
+                    dst.copy_(src)
+        finally:
+            if gc_enabled:
+                gc.enable()
+        synchronize(dev)
+        self.capture_seconds = time.perf_counter() - t0
+        after = launch_counts()
+        self.launches = {name: after[name] - before[name] for name in after}
+
+    def __call__(self, state):
+        if any(a is not b for a, b in zip(state, self.static)):
+            for dst, src in zip(self.static, state):
+                if dst is not None:
+                    dst.copy_(src)
+        self.graph.replay()
+        return self.static, self.outputs
+
+
+class _ScanCycle:
+    """make_scan_cycle's multi on the card: replays the simulator's graph of
+    k cycles for the state's shapes (SyncSimulator.cycle_graph).
+    ``graph`` is the _CycleGraph the last call replayed."""
+
+    def __init__(self, sim, k):
+        self.sim, self.k, self.graph = sim, k, None
+
+    def __call__(self, state):
+        self.graph = self.sim.cycle_graph(self.k, state)
+        return self.graph(state)
+
+
 def _no_rescue(state):
     return state.rescue_goal, torch.zeros_like(state.rescue_active), \
         torch.zeros_like(state.rescue_phase)
@@ -226,6 +353,8 @@ class SyncSimulator:
         self.device = resolve_device(self.device)
         self.N = self.mission.qn
         self.M, self.n = p.M, p.n
+        # make_scan_cycle's CUDA graphs by (k, the state's shapes and dtypes)
+        self._graphs = {}
         if p.planner_mode != PlannerMode.LSC:
             raise NotImplementedError(
                 f"planner mode {p.planner_mode.value} is not ported "
@@ -583,20 +712,64 @@ class SyncSimulator:
         d = _norm(state.pos - state.desired_goal)
         return bool(d.max() < self.param.goal_threshold)
 
+    def make_scan_cycle(self, k: int):
+        """k planning cycles in one dispatch (simulator.py:1001-1031, the
+        JAX package's lax.scan).  Returns multi(state) -> (state_k,
+        (CycleInfo stacked (k, ...), max_goal_dist (k,), cum_distance
+        (k,))); the stacked goal distances and cumulative flight distance
+        let the host recover the exact finishing cycle of a block.
+
+        On the card multi replays one CUDA graph of k cycles (_CycleGraph),
+        captured at the first call for the state's shapes and kept on the
+        simulator by (k, shapes, dtypes) (``cycle_graph``); ``multi.graph``
+        is the one the last call replayed (its ``launches`` a block and
+        ``capture_seconds``).  What it returns are the graph's own buffers,
+        overwritten by the next call (clone what must outlive it); a state
+        handed back in as it came out is not copied.  On the CPU multi runs
+        the same k cycles eagerly: the tests' oracle, never taken by a CUDA
+        simulator.  Dynamic obstacles, which the JAX
+        package refuses here with ValueError, are refused by the
+        constructor (ROADMAP queue 1, item 12)."""
+        if k < 1:
+            raise ValueError(f"make_scan_cycle: k = {k} < 1")
+        if self.device.type != "cuda":
+            return lambda state: _stack_cycles(self.cycle, state, k)
+        return _ScanCycle(self, k)
+
+    def cycle_graph(self, k: int, state: SwarmState) -> _CycleGraph:
+        """The CUDA graph of k cycles for the shapes of `state`, captured
+        from it at the first call and kept on the simulator."""
+        key = (k,) + tuple(None if f is None else (tuple(f.shape), f.dtype)
+                           for f in state)
+        if key not in self._graphs:
+            self._graphs[key] = _CycleGraph(self, k, state)
+        return self._graphs[key]
+
     def run(self, max_iterations: Optional[int] = None, log=None,
             profile: bool = False, steps_per_dispatch: int = 1) -> dict:
         """Host loop: cycle until every agent reaches its goal or the
         iteration cap.  Returns the summary dict of the JAX package's run
-        (stage_times stays empty)."""
+        (stage_times stays empty).  steps_per_dispatch = k > 1 runs blocks
+        of k cycles a dispatch (make_scan_cycle, simulator.py:1233-1259):
+        the finishing cycle is still recovered exactly from the per-cycle
+        goal distances, but per-cycle logs, profiles and pacing are
+        refused with ValueError, and the reported safety and QPFAILED
+        count include the cycles planned after the finish in its block."""
+        p = self.param
+        if steps_per_dispatch > 1:
+            if log is not None or profile or p.multisim_experiment or \
+                    p.multisim_planning_rate > 0:
+                raise ValueError("steps_per_dispatch > 1 is incompatible "
+                                 "with log/profile/experiment mode/"
+                                 "real-time pacing")
+            return self._run_fused(max_iterations, steps_per_dispatch)
+        if steps_per_dispatch < 1:
+            raise ValueError(f"steps_per_dispatch = {steps_per_dispatch} "
+                             "< 1")
         if log is not None or profile:
             raise NotImplementedError("cycle logs and stage profiles are "
                                       "not ported (ROADMAP queue 1, "
                                       "item 14)")
-        if steps_per_dispatch != 1:
-            raise NotImplementedError("several cycles per dispatch (CUDA "
-                                      "graph capture) is not ported "
-                                      "(ROADMAP queue 1, item 7)")
-        p = self.param
         max_iter = max_iterations or p.multisim_max_planner_iteration
         state = self.initial_state()
         t_wall0 = time.perf_counter()
@@ -635,6 +808,51 @@ class SyncSimulator:
                 time.sleep(1.0 / p.multisim_planning_rate)
         synchronize(self.device)
         wall = time.perf_counter() - t_wall0
+        pt = np.asarray(plan_times[1:]) if len(plan_times) > 1 else \
+            np.asarray(plan_times)
+        return self._summarize(state, pt, wall, iters_done, flight_time,
+                               is_collided, qp_failures)
+
+    def _run_fused(self, max_iterations, k: int) -> dict:
+        """run() for steps_per_dispatch = k > 1 (simulator.py:1378-1420):
+        blocks of k cycles a dispatch, one host read a block, the exact
+        finish from the stacked per-cycle goal distances."""
+        p = self.param
+        max_iter = max_iterations or p.multisim_max_planner_iteration
+        multi = self.make_scan_cycle(k)
+        state = self.initial_state()
+        t_wall0 = time.perf_counter()
+        plan_times = []
+        is_collided = False
+        flight_time = float("nan")
+        iters_done = 0
+        qp_failures = 0
+        for block in range((max_iter + k - 1) // k):
+            t0 = time.perf_counter()
+            state, (info, goal_dist, cum_dist) = multi(state)
+            # one device->host read a block
+            read = torch.cat([goal_dist.double(),
+                              info.safety_step_min.double(),
+                              info.qp_failed.sum(-1).double()]).cpu()
+            plan_times.append((time.perf_counter() - t0) / k)
+            gd, safety, failed = read.numpy().reshape(3, k)
+            qp_failures += int(failed.sum())
+            done = gd < p.goal_threshold
+            if not p.multisim_patrol and done.any():
+                j = int(np.argmax(done))              # first finished cycle
+                iters_done = block * k + j + 1
+                flight_time = iters_done * p.multisim_time_step
+                is_collided |= bool((safety[:j + 1] < 1.0).any())
+                # truncate metrics at the finish cycle (cycles j+1..k-1
+                # were planned speculatively inside the block)
+                state = state._replace(distance=cum_dist[j])
+                break
+            iters_done = block * k + k
+            is_collided |= bool((safety < 1.0).any())
+        wall = time.perf_counter() - t_wall0
+        # the graph's buffers: the next replay would overwrite them
+        state = SwarmState(*[None if f is None else f.clone()
+                             for f in state])
         pt = np.asarray(plan_times[1:]) if len(plan_times) > 1 else \
             np.asarray(plan_times)
         return self._summarize(state, pt, wall, iters_done, flight_time,

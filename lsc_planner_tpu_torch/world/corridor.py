@@ -3,12 +3,10 @@ lsc_planner_tpu/world/corridor.py).
 
 The reference grows a seed box one voxel face at a time
 (CorridorConstructor, corridor_constructor.hpp:184-232).  Every check here
-is an O(1) summed-area-table count (world/esdf.py), and the whole swarm
-expands its boxes in one batched loop: each agent's round-robin over its
-six faces advances one step an iteration, an agent whose faces are all
-blocked keeps its box, and the host looks at "any face still open" only
-every ``EXPAND_CHECK_EVERY`` iterations (the JAX package's vmapped
-while_loop, whose finished lanes are frozen the same way).
+is an O(1) summed-area-table count (world/esdf.py); the face expansion of
+the whole swarm is ``ops/corridor.py::expand_boxes``, one kernel launch on
+the card (each agent's round-robin in its own thread) and a batched loop
+on the CPU.
 """
 from __future__ import annotations
 
@@ -17,11 +15,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..config import SP_EPSILON, SP_EPSILON_FLOAT
+from ..config import SP_EPSILON
+from ..ops import corridor as corridor_ops
 from .esdf import ESDF, OccupancySAT
-
-# iterations of the batched face expansion between host exit checks
-EXPAND_CHECK_EVERY = 8
 
 
 @dataclasses.dataclass
@@ -65,15 +61,10 @@ class CorridorBuilder:
         hi = torch.where(near, rp, torch.ceil(p)).to(torch.int32)
         return lo, hi
 
-    def _at_world_min(self, lo):
-        """Does the box's low corner sit at the world minimum (within eps)?
-        (corridor_constructor.hpp:104).  Compared in float32 whatever the
-        working dtype, as the JAX package does."""
-        res = self.esdf.resolution
-        return lo.to(torch.float32) * res <= self._wmin32 + SP_EPSILON_FLOAT
-
     def _obstructed(self, lo, hi):
-        return self.sat.box_obstructed(lo, hi, self._at_world_min(lo))
+        return self.sat.box_obstructed(
+            lo, hi, corridor_ops.at_world_min(lo, self.esdf.resolution,
+                                              self._wmin32))
 
     def _axis_order(self, lo, hi, goal):
         """setAxisCand (corridor_constructor.hpp:142-182) for a batch:
@@ -105,57 +96,19 @@ class CorridorBuilder:
         return torch.cat([first, last.flip(-1)], dim=-1)       # (N, 6)
 
     # ------------------------------------------------------------------
-    def _try_expand(self, lo, hi, axis6, dtype):
-        """One-voxel expansion of face axis6 (0-2 low faces, 3-5 high
-        faces) of each box (N, 3).  Returns (lo', hi', ok)."""
-        res = self.esdf.resolution
-        ax = (axis6 % 3)[:, None]
-        is_high = (axis6 >= 3)[:, None]
-        one = (torch.arange(3, device=lo.device)[None, :] == ax).to(lo.dtype)
-        lo_n = torch.where(is_high, lo, lo - one)
-        hi_n = torch.where(is_high, hi + one, hi)
-        # update slab: old face -> new face along ax, full elsewhere
-        on_ax = one.bool()
-        s_lo = torch.where(on_ax, torch.where(is_high, hi, lo_n), lo_n)
-        s_hi = torch.where(on_ax, torch.where(is_high, hi_n, lo), hi_n)
-        free = ~self._obstructed(s_lo, s_hi)
-        wmin, wmax = self._world_bounds(dtype)
-        inb = ((s_lo.to(dtype) * res > wmin - SP_EPSILON).all(-1) &
-               (s_hi.to(dtype) * res < wmax + SP_EPSILON).all(-1))
-        ok = free & inb
-        return (torch.where(ok[:, None], lo_n, lo),
-                torch.where(ok[:, None], hi_n, hi), ok)
-
     def expand_boxes(self, points, goals):
         """Expand each seed box around points (N, 3) toward goals (N, 3):
         the exact round-robin face expansion of expand_box
-        (corridor_constructor.hpp:184-232) for the whole batch.
+        (corridor_constructor.hpp:184-232) for the whole batch, in bounds in
+        the points' dtype (``ops/corridor.py::expand_boxes``).
         Returns (box_min (N, 3), box_max (N, 3) metric, seed_ok (N,))."""
         res = self.esdf.resolution
-        N = points.shape[0]
-        dev = points.device
         lo, hi = self.initial_box(points)
         seed_ok = ~self._obstructed(lo, hi)
         cand = self._axis_order(lo, hi, goals)
-        active = seed_ok[:, None].expand(N, 6).clone()
-        p = torch.full((N,), 5, dtype=torch.int64, device=dev)
-        offs = torch.arange(1, 7, device=dev)
-        rows = torch.arange(N, device=dev)
-        while bool(active.any()):
-            for _ in range(EXPAND_CHECK_EVERY):
-                going = active.any(-1)
-                # next active slot strictly after p, cyclically
-                slots = (p[:, None] + offs[None, :]) % 6
-                first = torch.argmax(torch.gather(active, 1, slots).to(
-                    torch.uint8), dim=-1)
-                p2 = slots[rows, first]
-                lo2, hi2, ok = self._try_expand(lo, hi, cand[rows, p2],
-                                                points.dtype)
-                # a finished agent's box and state no longer change
-                lo = torch.where(going[:, None], lo2, lo)
-                hi = torch.where(going[:, None], hi2, hi)
-                active[rows, p2] = torch.where(going, ok, active[rows, p2])
-                p = torch.where(going, p2, p)
+        wmin, wmax = self._world_bounds(points.dtype)
+        lo, hi = corridor_ops.expand_boxes(lo, hi, cand, seed_ok, self.sat,
+                                           self._wmin32, wmin, wmax)
         return (lo.to(points.dtype) * res, hi.to(points.dtype) * res,
                 seed_ok)
 

@@ -2,6 +2,7 @@
 """Profile the port's forest20 cycle on one CUDA GPU.
 
     python3 scripts/profile_forest20_torch.py [--warm 20] [--cycles 3]
+    python3 scripts/profile_forest20_torch.py --captured [--warm 20]
     python3 scripts/profile_forest20_torch.py --kernels
 
 Builds chip_smoke.py's forest20 (20 agents, 60 tree columns, seed 0) on
@@ -16,17 +17,29 @@ time; and each of the port's own kernels' device us a launch and
 launches a cycle.  Fails when the trace
 holds no device time.
 
+With --captured the same JSON line also holds, under "captured", the
+same cycles run several a dispatch (make_scan_cycle(10): one CUDA graph
+of 10 cycles, replayed): the capture-plus-instantiate seconds, the kernel
+launches in a block (the launch counters' increase during capture), wall
+ms a cycle over three untraced replays, and from one traced replay the
+kernel launches and device-busy ms a cycle and the device-busy share of
+the untraced wall time, and the port's own kernels' device us a launch;
+beside them the device ms a cycle of a replay timed with CUDA events
+(busy and idle time on the stream).
+
 With --kernels it times the chol kernels instead: the chol-path IPM's
 two at the main path's shape (B = 64, n = 39, f32, IPM-like systems), the
 factor alone (cholesky_batched) at the same shape, factor_solve and the
 factor alone at the fused IPM's batch of circle1024 (B = 1024, names
-ending in _b1024), and the wavefront kernel on forest20's cycle-4
+ending in _b1024), the face expansion on forest20's cycle-4 call
+(expand_boxes_forest20), and the wavefront kernel on forest20's cycle-4
 priority grids (N = 20, (11, 41, 41)) and on chip_smoke's 30 m forest
 ((21, 121, 121)), and prints as one
 JSON line: each wrapper's device us a launch (200 launches captured in
-one CUDA graph, 20 for the wavefront, replayed, CUDA events over the
-replay / launches: no host time), its host us a call (2,000 calls
-enqueued without a synchronize, 200 for the wavefront) and its
+one CUDA graph, 20 for the wavefront and the face expansion, replayed,
+CUDA events over the replay / launches: no host time), its host us a call
+(2,000 calls enqueued without a synchronize, 200 for the wavefront and
+the face expansion) and its
 CUDA-event us a call (median of 50, as chip_smoke phase 4); and the host
 us of reading the current stream with a device guard and
 torch.cuda.current_stream against the raw stream (ops/_build.py::launch).
@@ -45,8 +58,10 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 import chip_smoke  # noqa: E402
+from chip_smoke import CAPTURE_K  # noqa: E402
 from lsc_planner_tpu_torch import GoalMode, Param  # noqa: E402
 from lsc_planner_tpu_torch.ops import chol, wavefront  # noqa: E402
+from lsc_planner_tpu_torch.ops import corridor as corridor_ops  # noqa: E402
 from lsc_planner_tpu_torch.sim.simulator import SyncSimulator  # noqa: E402
 
 
@@ -113,11 +128,14 @@ def time_kernels(smi):
     for name, (occ, goal, cap) in grids.items():
         calls[name] = (lambda occ=occ, goal=goal, cap=cap:
                        wavefront.wavefront_batched_steps(occ, goal, cap))
+    expand = chip_smoke.capture_expand_call(forest, 3)
+    calls["expand_boxes_forest20"] = lambda: corridor_ops.expand_boxes(
+        *expand)
     # launches a graph and host-timed calls: fewer for the wavefront,
     # whose launches are longer and whose outputs (held by the graph) are
-    # up to 25 MB
-    counts = {name: (20, 200) if name in grids else (200, 2000)
-              for name in calls}
+    # up to 25 MB, and for the face expansion, whose launches are longer
+    counts = {name: (20, 200) if name in grids or name.startswith(
+        "expand") else (200, 2000) for name in calls}
 
     def guarded():
         with torch.cuda.device(dev):
@@ -143,10 +161,69 @@ def time_kernels(smi):
     }), flush=True)
 
 
+def trace(fn, cycles):
+    """The device events of the profiler's trace of fn, and its per-cycle
+    figures: kernel launches, copies and sets, device-busy ms, and each of
+    the port's own kernels' device us a launch and launches a cycle."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+    device = [e for e in prof.key_averages()
+              if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    copies = [e for e in device if e.key.startswith(("Memcpy", "Memset"))]
+    kernels = [e for e in device if e not in copies]
+    busy_us = sum(device_us(e) for e in device)
+    return device, {
+        "kernel_launches_per_cycle": sum(e.count for e in kernels) / cycles,
+        "copies_and_sets_per_cycle": sum(e.count for e in copies) / cycles,
+        "device_busy_ms_per_cycle": busy_us / 1e3 / cycles,
+        # the port's own kernels (csrc/*.cu, in anonymous namespaces)
+        "own_kernels_us_per_launch_and_launches_per_cycle": {
+            e.key.split("::", 1)[1].split("(")[0]: [
+                device_us(e) / e.count, e.count / cycles]
+            for e in kernels if e.key.removeprefix("void ").startswith(
+                "(anonymous namespace)::")}}
+
+
+def captured_figures(sim, state):
+    """Figures of CAPTURE_K cycles a dispatch from `state` (see the
+    module docstring)."""
+    multi = sim.make_scan_cycle(CAPTURE_K)
+    s, _ = multi(state)                 # capture, then the first replay
+    torch.cuda.synchronize()
+    g = multi.graph
+
+    def replays(n):
+        nonlocal s
+        t0 = time.perf_counter()
+        for _ in range(n):
+            s, _ = multi(s)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / (n * CAPTURE_K)
+    wall_ms = replays(3)
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    s, _ = multi(s)
+    b.record()
+    b.synchronize()
+    _, traced = trace(lambda: replays(1), CAPTURE_K)
+    return dict({"cycles_a_dispatch": CAPTURE_K,
+                 "capture_and_instantiate_s": g.capture_seconds,
+                 "kernel_launches_a_block": {k: v for k, v in
+                                             g.launches.items() if v},
+                 "wall_ms_per_cycle": wall_ms,
+                 "event_ms_per_cycle": a.elapsed_time(b) / CAPTURE_K,
+                 "device_busy_share": traced["device_busy_ms_per_cycle"] /
+                 wall_ms}, **traced)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--warm", type=int, default=20)
     ap.add_argument("--cycles", type=int, default=3)
+    ap.add_argument("--captured", action="store_true",
+                    help="also profile the cycles captured 10 a dispatch")
     ap.add_argument("--kernels", action="store_true",
                     help="time the chol and wavefront kernels instead "
                          "(see the module docstring)")
@@ -174,37 +251,23 @@ def main():
         torch.cuda.synchronize()
         return 1e3 * (time.perf_counter() - t0) / args.cycles
     wall_ms = run_cycles()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        traced_wall_ms = run_cycles()
-    device = [e for e in prof.key_averages()
-              if str(getattr(e, "device_type", "")).endswith("CUDA")]
-    copies = [e for e in device if e.key.startswith(("Memcpy", "Memset"))]
-    kernels = [e for e in device if e not in copies]
-    busy_us = sum(device_us(e) for e in device)
-    launches = sum(e.count for e in kernels)
-    if busy_us <= 0.0:
+    traced_wall = []
+    device, traced = trace(lambda: traced_wall.append(run_cycles()),
+                           args.cycles)
+    if traced["device_busy_ms_per_cycle"] <= 0.0:
         raise RuntimeError("the trace holds no device time")
     top = sorted(device, key=device_us, reverse=True)[:10]
-    print(json.dumps({
+    out = dict({
         "card": smi, "cycles": args.cycles, "after": args.warm,
         "wall_ms_per_cycle": wall_ms,
-        "traced_wall_ms_per_cycle": traced_wall_ms,
-        "kernel_launches_per_cycle": launches / args.cycles,
-        "copies_and_sets_per_cycle": sum(e.count for e in copies) /
-        args.cycles,
-        "device_busy_ms_per_cycle": busy_us / 1e3 / args.cycles,
-        "device_busy_share": busy_us / 1e3 / args.cycles / wall_ms,
+        "traced_wall_ms_per_cycle": traced_wall[0]}, **traced)
+    out.update({
+        "device_busy_share": traced["device_busy_ms_per_cycle"] / wall_ms,
         "top_kernels_ms_per_cycle": {
-            e.key[:80]: device_us(e) / 1e3 / args.cycles for e in top},
-        # the port's own kernels (csrc/*.cu, in anonymous namespaces)
-        "own_kernels_us_per_launch_and_launches_per_cycle": {
-            e.key.split("::", 1)[1].split("(")[0]: [
-                device_us(e) / e.count, e.count / args.cycles]
-            for e in kernels if e.key.removeprefix("void ").startswith(
-                "(anonymous namespace)::")},
-    }), flush=True)
+            e.key[:80]: device_us(e) / 1e3 / args.cycles for e in top}})
+    if args.captured:
+        out["captured"] = captured_figures(sim, state)
+    print(json.dumps(out), flush=True)
 
 
 if __name__ == "__main__":

@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from lsc_planner_tpu_torch.ops import chol, ipm, qp, wavefront
+from lsc_planner_tpu_torch.ops import corridor as corridor_ops
 
 
 @pytest.fixture
@@ -580,3 +581,257 @@ def test_wavefront_kernel_goal_outside_the_grid(cuda, shape, max_iters):
     assert torch.equal(got, want) and torch.equal(steps, want_steps)
     assert bool((got[1] == wavefront.BIG).all())
     assert int(steps[1]) == (8 if max_iters > 0 else 0)
+
+
+# ----------------------------------------------------------------------
+# the corridor's face expansion, and several cycles a dispatch
+# ----------------------------------------------------------------------
+CORRIDOR_WORLD = (-3.0, -3.0, 0.0, 3.0, 3.0, 2.5)
+FOREST20_WORLD = (-5.0, -5.0, 0.0, 5.0, 5.0, 2.5)
+
+
+def shell_boxes(c=(0.0, 0.0, 1.25), h=0.6, t=0.1):
+    """Six slabs of a hollow cube around c: inner half-size h, walls t."""
+    c = np.asarray(c)
+    out = []
+    for a in range(3):
+        for s in (-1.0, 1.0):
+            lo, hi = c - h - t, c + h + t
+            if s < 0:
+                hi = hi.copy()
+                hi[a] = c[a] - h
+            else:
+                lo = lo.copy()
+                lo[a] = c[a] + h
+            out.append(np.concatenate([lo, hi]))
+    return np.stack(out)
+
+
+def corridor_case(case, mis):
+    """(world, obstacle boxes, seed points, goals) of a face-expansion
+    case: random seeds in a 4-agent forest (some inside a tree's margin),
+    an empty world, seeds boxed in by a hollow cube, seeds on the world
+    minimum, and forest20's starts (toward their goals) with random seeds;
+    `mis` is either package's missions module."""
+    rng = np.random.default_rng(11)
+    world = CORRIDOR_WORLD
+    if case in ("random", "forest20"):
+        if case == "random":
+            m = forest_mission(mis, 3, 4, 12, world)
+        else:
+            world = FOREST20_WORLD
+            m = forest_mission(mis, 0)
+        boxes = np.stack([np.concatenate([o.pose - o.dimensions,
+                                          o.pose + o.dimensions])
+                          for o in m.obstacles])
+        pts = rng.uniform(world[:3], world[3:], size=(24, 3))
+        goals = rng.uniform(world[:3], world[3:], size=(24, 3))
+        if case == "forest20":
+            pts = np.concatenate([[a.start for a in m.agents], pts])
+            goals = np.concatenate([[a.goal for a in m.agents], goals])
+    elif case == "empty":
+        boxes = np.zeros((0, 6))
+        pts = np.array([[0.0, 0.0, 1.0], [1.23, -0.77, 2.0]])
+        goals = np.array([[2.0, 1.0, 1.0], [-3.0, 3.0, 0.0]])
+    elif case == "boxed_in":
+        boxes = shell_boxes()
+        pts = np.array([[0.0, 0.0, 1.25], [0.05, -0.12, 1.3]])
+        goals = np.array([[2.5, 2.5, 2.0], [-2.5, 0.0, 0.2]])
+    else:                                   # seeds on the world minimum
+        boxes = shell_boxes()
+        pts = np.array([world[:3], [-3.0, 0.4, 1.0], [1.0, -3.0, 0.0]])
+        goals = np.array([[0.0, 0.0, 1.0], [3.0, 0.0, 1.0],
+                          [1.0, 3.0, 2.0]])
+    return world, boxes, pts, goals
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["random", "empty", "boxed_in",
+                                  "world_min", "forest20"])
+def test_corridor_kernel_matches_plain(cuda, case, dtype):
+    """The face-expansion kernel against its plain version on the same
+    card tensors, bit for bit, one launch; CorridorBuilder's metric boxes
+    from it equal the plain version's."""
+    from lsc_planner_tpu_torch import missions
+    from lsc_planner_tpu_torch.world.corridor import CorridorBuilder
+    from lsc_planner_tpu_torch.world.esdf import ESDF
+
+    world, boxes, pts, goals = corridor_case(case, missions)
+    esdf = ESDF.from_boxes(boxes, world[:3], world[3:], resolution=0.1,
+                           dtype=dtype, device=cuda)
+    b = CorridorBuilder(esdf, np.asarray(world[:3]), np.asarray(world[3:]),
+                        0.15, dtype=dtype)
+    p = torch.as_tensor(pts, dtype=dtype, device=cuda)
+    g = torch.as_tensor(goals, dtype=dtype, device=cuda)
+    lo, hi = b.initial_box(p)
+    ok = ~b._obstructed(lo, hi)
+    cand = b._axis_order(lo, hi, g)
+    wmin, wmax = b._world_bounds(dtype)
+    args = (lo, hi, cand, ok, b.sat, b._wmin32, wmin, wmax)
+    want = corridor_ops.expand_boxes_plain(*args)
+    corridor_ops.reset_counts()
+    got = corridor_ops.expand_boxes(*args)
+    torch.cuda.synchronize()
+    assert corridor_ops.expand_launches == 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert bool(((want[1] - want[0]) >= (hi - lo)).all())
+    bmin, bmax, seed_ok = b.expand_boxes(p, g)
+    torch.cuda.synchronize()
+    assert torch.equal(bmin, want[0].to(dtype) * 0.1)
+    assert torch.equal(bmax, want[1].to(dtype) * 0.1)
+    assert torch.equal(seed_ok, ok)
+
+
+def state_bit_diffs(a, b):
+    """Differing elements, field by field, of two SwarmStates (floats by
+    their bits, so NaNs compare too)."""
+    out = {}
+    for f, x, y in zip(a._fields, a, b):
+        if x is None or y is None:
+            assert x is None and y is None, f
+            continue
+        if x.is_floating_point():
+            x, y = bits(x), bits(y)
+        out[f] = int((x != y).sum())
+    return out
+
+
+def captured_against_uncaptured(sim, before, k=10, blocks=1):
+    """From the state after `before` cycles: `blocks` replays of k
+    captured cycles (each replay fed the state the last returned, as
+    run() does) against the same cycles uncaptured.  Returns (differing
+    elements a field after each block, the captured block's launches,
+    the counters' increase over the replays)."""
+    from lsc_planner_tpu_torch.sim import simulator as sim_mod
+
+    state = sim.initial_state()
+    for _ in range(before):
+        state, _ = sim.cycle(state)
+    want, wants = state, []
+    for _ in range(blocks):
+        for _ in range(k):
+            want, _ = sim.cycle(want)
+        wants.append(want)
+    multi = sim.make_scan_cycle(k)
+    got, diffs = state, []
+    got, _ = multi(got)
+    torch.cuda.synchronize()
+    graph = multi.graph
+    diffs.append(state_bit_diffs(got, wants[0]))
+    counts = sim_mod.launch_counts()
+    for w in wants[1:]:
+        got, _ = multi(got)
+        torch.cuda.synchronize()
+        diffs.append(state_bit_diffs(got, w))
+    after = sim_mod.launch_counts()
+    return diffs, graph.launches, {n: after[n] - counts[n] for n in after}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["circle64", "circle130_all_pairs",
+                                  "forest20"])
+def test_captured_cycles_are_bit_equal(cuda, case):
+    """10 cycles captured in one CUDA graph and replayed equal 10
+    uncaptured cycles in every SwarmState field, bit for bit: circle64
+    (dense rows on the chol kernels; two blocks, the second fed the
+    first's output), a 130-agent all-pairs circle after 5 cycles (the
+    fused IPM) and forest20 (grid planner, wavefront, corridor, chol).
+    The launch counters record the captured block and do not move on a
+    replay."""
+    from lsc_planner_tpu_torch import (GoalMode, Param, make_circle_mission,
+                                       missions)
+    from lsc_planner_tpu_torch.sim.simulator import SyncSimulator
+
+    def circle(qn):         # chip_smoke.py's circle swap (bench.py:65-71)
+        r = max(4.0, 0.45 * qn / np.pi)
+        return make_circle_mission(qn, radius=r, world=(-r - 2, -r - 2, 0,
+                                                        r + 2, r + 2, 2.5))
+    p = Param(goal_mode=GoalMode.PRIOR_BASED)
+    if case == "circle64":
+        m, before, blocks = circle(64), 3, 2
+    elif case == "circle130_all_pairs":
+        m, before, blocks = circle(130), 5, 1
+    else:
+        m, before, blocks = forest_mission(missions, 0), 3, 1
+    sim = SyncSimulator(m, p, device=cuda)
+    diffs, launches, moved = captured_against_uncaptured(sim, before,
+                                                         blocks=blocks)
+    for d in diffs:
+        assert not any(d.values()), d
+    assert not any(moved.values()), moved
+    if case == "circle130_all_pairs":
+        assert launches["fused_ipm"] == 10
+        assert launches["factor_solve"] == launches["resolve"] == 0
+    else:
+        assert launches["factor_solve"] == 10 * p.qp_iterations
+        assert launches["resolve"] == 10 * p.qp_iterations * \
+            (1 + p.qp_correctors)
+    if case == "forest20":
+        assert launches["wavefront"] == 20 and launches["expand_boxes"] == 10
+
+
+def factored_problem(rng, N, C, dtype, device):
+    """(args, keywords) of a factored-row QP solve (qp.solve_qp_lsc) with
+    Param's shapes, random SPD cost blocks and planes, a warm start, the
+    blocked static rows, and production tolerances (40 iterations at most,
+    one Gondzio corrector)."""
+    from lsc_planner_tpu_torch.config import Param
+    from lsc_planner_tpu_torch.planner.optimizer import TrajOptimizer
+
+    opt = TrajOptimizer(Param())
+    nv, nf, M, n1 = opt.nv, opt.nf, opt.M, opt.n + 1
+    Lb = rng.normal(size=(N, nf, nf)) * 0.3
+    P_blk = Lb @ np.swapaxes(Lb, -1, -2) + 2.0 * np.eye(nf)
+    P = np.zeros((N, nv, nv))
+    for k in range(3):
+        P[:, k * nf:(k + 1) * nf, k * nf:(k + 1) * nf] = P_blk
+    args = [P, rng.normal(size=(N, nv)), opt.A_static_y,
+            rng.normal(size=(N, opt.A_static_y.shape[0])) - 5.0,
+            rng.normal(size=(N, C, M, 3)),
+            rng.normal(size=(N, C, M, n1)) - 3.0,
+            rng.uniform(size=(N, C, M, n1)) > 0.3, opt.F_seg]
+    args = [torch.as_tensor(np.asarray(a), device=device) for a in args]
+    args = [a.to(dtype) if a.is_floating_point() else a for a in args]
+    kw = dict(y0=torch.as_tensor(rng.normal(size=(N, nv)) * 0.1,
+                                 dtype=dtype, device=device),
+              iters=40, tol_gap=1e-6, tol_rp=1e-4, tol_rd=0.2, correctors=1,
+              static_blocks=opt.static_blocked_on(dtype, device))
+    return args, kw
+
+
+@pytest.mark.cuda
+def test_ipm_exit_read_is_skipped_under_capture(cuda):
+    """The factored path inside a CUDA graph: the capture succeeds (no host
+    read), runs all 40 iterations (40 factor_solve launches captured) and
+    replays to the bits of the uncaptured solve, which exits early.  The
+    duality-gap tolerance is 1e-3, not factored_problem's 1e-6: at 1e-6
+    the uncaptured solve of this problem runs all 40 iterations, and the
+    early exit would go untested."""
+    args, kw = factored_problem(np.random.default_rng(5), 16, 5,
+                                torch.float32, cuda)
+    kw["tol_gap"] = 1e-3
+    chol.reset_counts()
+    ref = qp.solve_qp_lsc(*args, **kw)
+    torch.cuda.synchronize()
+    eager = chol.factor_solve_launches
+    assert 1 < int(ref.iters) < 40 and eager < 40
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        qp.solve_qp_lsc(*args, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    chol.reset_counts()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        got = qp.solve_qp_lsc(*args, **kw)
+    assert chol.factor_solve_launches == 40
+    g.replay()
+    torch.cuda.synchronize()
+    for f, a, b in zip(ref._fields, got, ref):
+        if a is None:
+            assert b is None, f
+            continue
+        if a.is_floating_point():
+            a, b = bits(a), bits(b)
+        assert torch.equal(a, b), f

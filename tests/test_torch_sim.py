@@ -186,8 +186,9 @@ def test_off_slice_raises(change, item):
 def test_obstacles_and_fused_dispatch_raise():
     """A static box is world geometry now: the port folds it into the same
     ESDF as the JAX package (equal to the last bit) and builds the corridor
-    and the grid planner; dynamic obstacles and fused dispatch still
-    raise."""
+    and the grid planner; dynamic obstacles still raise, and several
+    cycles a dispatch refuse a per-cycle log with ValueError as the JAX
+    package does."""
     jp, tp = params()
     jm, m = _missions()
     box = dict(pose=np.array([0.0, 0.0, 1.25]),
@@ -207,9 +208,12 @@ def test_obstacles_and_fused_dispatch_raise():
     m.obstacles = [tmis.ObstacleSpec(kind="straight")]
     with pytest.raises(NotImplementedError, match="item 12"):
         TSim(m, tp)
+    # several cycles a dispatch refuse per-cycle host work as the JAX
+    # package does (test_simulator.py::test_fused_dispatch_rejects_dynamic_
+    # obstacles)
     sim = TSim(_missions(4)[1], tp)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        sim.run(steps_per_dispatch=2)
+    with pytest.raises(ValueError):
+        sim.run(steps_per_dispatch=4, log=object())
     with pytest.raises(ValueError, match="qp_fused_mode"):
         TSim(_missions(4)[1], params(qp_fused_mode="interpret")[1])
 
