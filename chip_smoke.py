@@ -69,6 +69,32 @@ Phases, one line each; any failure raises and exits non-zero:
      launches captured in a block; and from the state after 20 uncaptured
      cycles, 10 cycles through that graph against 10 uncaptured ones: the
      differing bits in every SwarmState field (all 0)
+ 13. dynamic obstacles (run(), f32, PRIOR_BASED, obstacles evaluated on the
+     host each cycle): dyn64, circle64 with 8 obstacles crossing the ring
+     (2 each of spin, straight, multisim_patrol and gaussian, 0.3 m, 0.5
+     m/s), flown to the finish with the previous-solution prediction
+     (cycles within max(20 %, 10) of the JAX package's CPU f32 run; agent
+     safety >= 1, 0 QPFAILED, obstacle safety > 0.85), then 40 cycles each
+     with the ORACLE prediction and with the per-agent Kalman filters on
+     observations with 0.02 m of noise: obstacle safety > 0.85 (0.8 with
+     the noise), finite positions, agent safety and QPFAILED printed
+     beside the JAX package's (under these modes agents predict one
+     another at constant velocity, and the JAX package's own ORACLE run of
+     dyn64 collides in f64, see fly_dynamic); all with 40 factor_solve and
+     80 resolve launches a cycle; dyn1024, circle1024 K=32
+     with 16 straight obstacles across the ring, 20 cycles: one fused-IPM
+     launch a cycle at C = K + 16 = 48, agent safety >= 1, 0 QPFAILED; ms a
+     cycle and the host's obstacle step a cycle
+ 14. worlds: forest20's occupancy written to a .bt (save_bt) and loaded
+     with ESDF.from_bt on the card, distance field and occupancy bit for
+     bit with ESDF.from_occupancy of that occupancy, then flown with no
+     static boxes and world_use_octomap (finished, agent safety >= 1, 0
+     QPFAILED, cycles within max(20 %, 10) of the JAX package's CPU f32
+     run of the same .bt, two wavefront, 40 factor_solve, 80 resolve and
+     one face-expansion launch a cycle); forest20 with the exact castRay
+     (grid_los_exact_castray): 20 uncaptured cycles, then
+     run(steps_per_dispatch=10) of 20 cycles with the same bits in every
+     SwarmState field; the grid goal stage's ms against phase 10's
 Then the kernels' JSON line (every kernel: launches on its main path,
 error against its plain version, kernel / plain / library ms, and the
 bound for the same work computed from this run's inputs), and last
@@ -76,16 +102,19 @@ bound for the same work computed from this run's inputs), and last
 """
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from lsc_planner_tpu_torch import (GoalMode, ObstacleSpec, Param,
-                                   make_circle_mission, make_random_mission)
+                                   PredictionMode, make_circle_mission,
+                                   make_random_mission)
 from lsc_planner_tpu_torch.config import SP_EPSILON
 from lsc_planner_tpu_torch.convert import state_to_numpy
 from lsc_planner_tpu_torch.ops import _build, chol, ipm, wavefront
@@ -99,6 +128,7 @@ from lsc_planner_tpu_torch.sim.simulator import (SyncSimulator,
                                                   reset_launch_counts)
 from lsc_planner_tpu_torch.world.corridor import CorridorBuilder
 from lsc_planner_tpu_torch.world.esdf import ESDF
+from lsc_planner_tpu_torch.world.mapping import occupancy_to_keys, save_bt
 
 N_QP = 39                   # QP variables per agent (3 dims x 13)
 MAIN_B = 64                 # agents in the flown mission = QP batch
@@ -144,6 +174,27 @@ FOREST30_TREES = 540
 # phase 12: cycles a dispatch, and the uncaptured cycles before its bit
 # comparison
 CAPTURE_K, CAPTURE_BEFORE = 10, 20
+# phase 13: dynamic obstacles of 0.3 m at 0.5 m/s (downwash 1, max_acc 1)
+DYN_SIZE, DYN_SPEED = 0.3, 0.5
+# cycles of the ORACLE and Kalman runs of dyn64, its Kalman filters'
+# observation noise (m), and dyn1024's cycles and obstacles
+DYN_MODE_CYCLES, DYN_NOISE = 40, 0.02
+DYN1024_CYCLES, DYN1024_OBSTACLES = 20, 16
+# The JAX package's SyncSimulator.run() of dyn64 (PRIOR_BASED, Param
+# defaults, previous-solution prediction) on a CPU in float32: 146 cycles,
+# min safety 1.0047, obstacle safety 1.0215, 0 QPFAILED, 1255.059 m (the
+# port's CPU f32 run: 140 cycles, 1.0063, 1.0565, 0 QPFAILED).
+JAX_CPU_F32_DYN64_CYCLES = 146
+# The JAX package's SyncSimulator.run() of forest20's agents in the .bt
+# world written from forest20's occupancy (ESDF.from_bt, no static boxes,
+# world_use_octomap) on a CPU in float32: 99 cycles, min safety 1.0401,
+# 0 QPFAILED, 107.607 m.  In f64 both packages fly 160 cycles (safety
+# 1.12769, 110.4232 m); the port's CPU f32 run keeps one agent in a
+# livelock to the 1000-cycle cap (tests/test_torch_f32_missions.py
+# forest20_bt forest20_bt_f64).
+JAX_CPU_F32_FOREST_BT_CYCLES = 99
+# phase 14: cycles of the exact castRay's uncaptured and captured runs
+CASTRAY_CYCLES = 20
 # H100 peaks for the bounds (NVIDIA's data sheet, SXM): f32 outside the
 # tensor cores and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
@@ -198,6 +249,65 @@ def forest_mission(seed=FOREST_SEED, qn=FOREST_N, n_trees=FOREST_TREES,
                                 pose=np.array([c[0], c[1], zc]),
                                 dimensions=np.array([0.15, 0.15, zh]))
                    for c in trees]
+    return m
+
+
+def dyn64_mission(qn=MAIN_B):
+    """circle_mission(qn) (radius 9.17 m at 64 agents) with 8 dynamic
+    obstacles at the agents' height: two spin about the centre (radii 3 and
+    6 m, opposite senses), two straight and two multisim_patrol lines
+    cross the ring from 1.3 m outside it to the far side, and two gaussian
+    random walks start near the centre (numpy seeds 6 and 7 of the
+    obstacle generator)."""
+    m = circle_mission(qn)
+    r = float(np.linalg.norm(m.agents[0].start[:2])) + 1.3
+    z = float(m.agents[0].start[2])
+
+    def p(x, y):
+        return np.array([x, y, z])
+    kw = dict(size=DYN_SIZE, max_acc=1.0, downwash=1.0)
+    m.obstacles = [
+        ObstacleSpec(kind="spin", axis_position=p(0, 0),
+                     axis_ori=np.array([0.0, 0.0, 1.0]), start=p(3.0, 0),
+                     speed=DYN_SPEED, **kw),
+        ObstacleSpec(kind="spin", axis_position=p(0, 0),
+                     axis_ori=np.array([0.0, 0.0, -1.0]), start=p(0, -6.0),
+                     speed=DYN_SPEED, **kw),
+        ObstacleSpec(kind="straight", start=p(-r, 2.0), goal=p(r, 2.0),
+                     speed=DYN_SPEED, **kw),
+        ObstacleSpec(kind="straight", start=p(2.0, r), goal=p(2.0, -r),
+                     speed=DYN_SPEED, **kw),
+        ObstacleSpec(kind="multisim_patrol",
+                     waypoints=np.array([p(-r, -3.0), p(r, -3.0)]),
+                     speed=DYN_SPEED, **kw),
+        ObstacleSpec(kind="multisim_patrol",
+                     waypoints=np.array([p(-3.0, r), p(-3.0, -r)]),
+                     speed=DYN_SPEED, **kw),
+        ObstacleSpec(kind="gaussian", start=p(1.0, -1.0),
+                     initial_vel=np.array([0.3, 0.2, 0.0]), stddev_acc=0.3,
+                     max_vel=DYN_SPEED, acc_update_cycle=0.5, **kw),
+        ObstacleSpec(kind="gaussian", start=p(-1.0, 1.0),
+                     initial_vel=np.array([-0.2, -0.3, 0.0]), stddev_acc=0.3,
+                     max_vel=DYN_SPEED, acc_update_cycle=0.5, **kw)]
+    return m
+
+
+def dyn1024_mission():
+    """circle_mission(1024) (radius 146.7 m) with DYN1024_OBSTACLES
+    straight obstacles across the ring: each starts 1.5 m outside it,
+    midway between two agents, and heads for the far side at 0.5 m/s."""
+    m = circle_mission(BIG_N)
+    r = float(np.linalg.norm(m.agents[0].start[:2])) + 1.5
+    z = float(m.agents[0].start[2])
+    m.obstacles = []
+    for k in range(DYN1024_OBSTACLES):
+        th = 2 * math.pi * (k + 0.5 / BIG_N * DYN1024_OBSTACLES) / \
+            DYN1024_OBSTACLES
+        start = np.array([r * math.cos(th), r * math.sin(th), z])
+        m.obstacles.append(ObstacleSpec(
+            kind="straight", size=DYN_SIZE, max_acc=1.0, downwash=1.0,
+            start=start, goal=np.array([-start[0], -start[1], z]),
+            speed=DYN_SPEED))
     return m
 
 
@@ -830,7 +940,7 @@ def fly_forest20(dev):
     phase("10 forest20", "stage ms (median of 5 cycles after 20, a sync "
                          "around each): " +
           ", ".join(f"{k} {v:.2f}" for k, v in st.items()))
-    return launches, sim, summary
+    return launches, sim, summary, st
 
 
 def fly_circle128_factored(dev):
@@ -1153,6 +1263,257 @@ def check_mission(summary, param, qn, what, finished=True):
         raise AssertionError(f"{what}: non-finite final positions")
 
 
+def time_obstacle_step(sim):
+    """Times sim's host obstacle step (SyncSimulator.dynamic_inputs) in
+    each cycle of its runs: returns the list the seconds go to."""
+    times, step = [], sim.dynamic_inputs
+
+    def timed(*args):
+        t0 = time.perf_counter()
+        out = step(*args)
+        times.append(time.perf_counter() - t0)
+        return out
+    sim.dynamic_inputs = timed
+    return times
+
+
+def fly_dynamic_mode(dev, mode, noise, min_obs, cycles=None):
+    """One dyn64 run() under prediction `mode` (set after validated(), as
+    the JAX package's tests set it) with observation noise `noise`:
+    obstacle safety above min_obs, 40 factor_solve and 80 resolve launches
+    a cycle, and, run to the finish (cycles None), the mission gates; a
+    run of `cycles` cycles is held to finite positions.  Returns (summary,
+    host step ms a cycle)."""
+    param = Param(goal_mode=GoalMode.PRIOR_BASED, obs_observer_stddev=noise)
+    sim = SyncSimulator(dyn64_mission(), param, device=dev,
+                        dtype=torch.float32)
+    sim.param.prediction_mode = mode
+    host = time_obstacle_step(sim)
+    what = f"dyn64 {mode.name}" + (f" noise {noise} m" if noise else "")
+    reset_launch_counts()
+    summary = sim.run(max_iterations=cycles)
+    torch.cuda.synchronize()
+    done = summary["iterations"]
+    pos = summary["final_state"].pos
+    if cycles is None:
+        check_mission(summary, sim.param, MAIN_B, what)
+    elif done != cycles or not bool(torch.isfinite(pos).all()):
+        raise AssertionError(f"{what}: {done} cycles of {cycles}, finite "
+                             f"positions {bool(torch.isfinite(pos).all())}")
+    if not summary["safety_ratio_obs"] > min_obs:
+        raise AssertionError(f"{what}: obstacle safety "
+                             f"{summary['safety_ratio_obs']} <= {min_obs}")
+    check_launches(what, factor_solve=done * param.qp_iterations,
+                   resolve=done * param.qp_iterations *
+                   (1 + param.qp_correctors))
+    host_ms = 1e3 * statistics.mean(host)
+    phase("13 dynamic", f"{what}: {done} cycles"
+                        f"{' (finished)' if cycles is None else ''}, safety "
+                        f"{summary['safety_ratio_agent']:.4f}, obstacle "
+                        f"safety {summary['safety_ratio_obs']:.4f} (bound "
+                        f"{min_obs}), {summary['qp_failures']} QPFAILED, "
+                        f"{1e3 * summary['wall_time'] / done:.2f} ms/cycle "
+                        f"(run wall / cycles; "
+                        f"{1e3 * summary['average_planning_time']:.2f} ms "
+                        f"mean after the first), host obstacle step "
+                        f"{host_ms:.2f} ms a cycle, {done * 40} factor_solve"
+                        f" and {done * 80} resolve launches")
+    return summary, host_ms
+
+
+def fly_dynamic(dev):
+    """Phase 13: dyn64 with each prediction mode, then dyn1024."""
+    summary, _ = fly_dynamic_mode(dev, PredictionMode.PREVIOUS_SOLUTION,
+                                  0.0, 0.85)
+    cycles = summary["iterations"]
+    band = max(0.2 * JAX_CPU_F32_DYN64_CYCLES, 10)
+    if not abs(cycles - JAX_CPU_F32_DYN64_CYCLES) <= band:
+        raise AssertionError(f"dyn64: {cycles} cycles, more than {band} off "
+                             f"the JAX CPU f32 run's "
+                             f"{JAX_CPU_F32_DYN64_CYCLES}")
+    phase("13 dynamic", f"dyn64 finished in {cycles} cycles (JAX CPU f32: "
+                        f"{JAX_CPU_F32_DYN64_CYCLES}, band {band:g})")
+    # Under ORACLE and the Kalman filters the agents predict one another at
+    # constant velocity (simulator.py:542-550 of the JAX package), which
+    # the LSC planes' safety argument does not cover: in dyn64's converging
+    # crowd the JAX package's own runs break the agent gates.  40 cycles on
+    # a CPU (tests/test_torch_f32_missions.py dyn64_oracle_f64 ...): ORACLE
+    # in f64, min safety 0.8954 at cycle 27 (the port 0.9155; the two
+    # within 1.2e-5 m a cycle up to cycle 21), in f32 2 QPFAILED at cycles
+    # 37-38 (min safety 1.0086); the Kalman filters in f64, 0.9656 and a
+    # QPFAILED at cycle 39 (the port 1.0315; within 5.3e-6 m a cycle up to
+    # cycle 27), in f32 1.0132 and none.  These runs are held to what the
+    # modes change, the obstacle safety, and their agent figures are
+    # printed beside the JAX package's f32 ones.
+    for mode, noise, min_obs, jax_f32 in (
+            (PredictionMode.ORACLE, 0.0, 0.85, "1.0086, 2 QPFAILED"),
+            (PredictionMode.LINEAR_KALMAN_FILTER, DYN_NOISE, 0.8,
+             "1.0132, 0 QPFAILED")):
+        fly_dynamic_mode(dev, mode, noise, min_obs, DYN_MODE_CYCLES)
+        phase("13 dynamic", f"  (the JAX package's CPU f32 run of these "
+                            f"cycles: min safety {jax_f32})")
+
+    # dyn1024: K-NN columns plus the obstacles' through the fused kernel
+    param = Param(goal_mode=GoalMode.PRIOR_BASED, max_neighbors=BIG_K)
+    sim = SyncSimulator(dyn1024_mission(), param, device=dev,
+                        dtype=torch.float32)
+    host = time_obstacle_step(sim)
+    rows, launch = [], ipm.ipm_lsc_fused
+
+    def record(*args, **kw):        # the row groups C of each fused call
+        rows.append(args[5].shape[1])
+        return launch(*args, **kw)
+    ipm.ipm_lsc_fused = record
+    try:
+        reset_launch_counts()
+        summary = sim.run(max_iterations=DYN1024_CYCLES)
+        torch.cuda.synchronize()
+    finally:
+        ipm.ipm_lsc_fused = launch
+    check_mission(summary, param, BIG_N, "dyn1024", finished=False)
+    check_launches("dyn1024", fused_ipm=DYN1024_CYCLES)
+    want_c = BIG_K + DYN1024_OBSTACLES
+    if rows != [want_c] * DYN1024_CYCLES:
+        raise AssertionError(f"dyn1024: fused calls at C = {rows}, expected "
+                             f"{DYN1024_CYCLES} at {want_c}")
+    phase("13 dynamic", f"dyn1024 (K={BIG_K} + {DYN1024_OBSTACLES} straight "
+                        f"obstacles): {DYN1024_CYCLES} cycles, one fused "
+                        f"launch a cycle at C = {want_c}, min safety "
+                        f"{summary['safety_ratio_agent']:.4f}, obstacle "
+                        f"safety {summary['safety_ratio_obs']:.4f}, 0 "
+                        f"QPFAILED, "
+                        f"{1e3 * summary['wall_time'] / DYN1024_CYCLES:.2f} "
+                        f"ms/cycle (run wall / cycles; "
+                        f"{1e3 * summary['average_planning_time']:.2f} ms "
+                        f"mean after the first), host obstacle step "
+                        f"{1e3 * statistics.mean(host):.2f} ms a cycle")
+
+
+def forest20_bt_world(dev, tmpdir):
+    """forest20's occupancy (ESDF.from_boxes(...).occ) written to a .bt in
+    tmpdir with save_bt and loaded with ESDF.from_bt on dev: raises unless
+    its distance field, occupancy and origin are those of
+    ESDF.from_occupancy of that occupancy, bit for bit.  Returns (forest20's
+    mission without its boxes, the loaded ESDF)."""
+    m = forest_mission()
+    res = Param().world_resolution
+    boxes = np.stack([np.concatenate([o.pose - o.dimensions,
+                                      o.pose + o.dimensions])
+                      for o in m.obstacles])
+    src = ESDF.from_boxes(boxes, m.world_min, m.world_max, resolution=res,
+                          device=dev)
+    path = os.path.join(tmpdir, "forest20.bt")
+    t0 = time.perf_counter()
+    nodes = save_bt(path, occupancy_to_keys(src.occ, src.origin_key), res)
+    t1 = time.perf_counter()
+    esdf = ESDF.from_bt(path, m.world_min, m.world_max, device=dev)
+    t2 = time.perf_counter()
+    ref = ESDF.from_occupancy(src.occ, src.origin_key, res, device=dev)
+    if not (np.array_equal(esdf.occ, src.occ) and
+            np.array_equal(esdf.origin_key, ref.origin_key) and
+            esdf.resolution == ref.resolution and
+            torch.equal(bits(esdf.dist), bits(ref.dist))):
+        raise AssertionError("forest20 .bt: ESDF.from_bt differs from "
+                             "ESDF.from_occupancy of the occupancy written")
+    phase("14 worlds", f"forest20 .bt: {nodes} octree nodes, "
+                       f"{os.path.getsize(path)} B, save_bt {t1 - t0:.2f} s,"
+                       f" ESDF.from_bt {t2 - t1:.2f} s; dist "
+                       f"{tuple(esdf.dist.shape)} and occupancy "
+                       f"({100 * esdf.occ.mean():.2f} % occupied) bit-equal "
+                       "to ESDF.from_occupancy's")
+    m.obstacles = []
+    return m, esdf
+
+
+def fly_forest20_bt(dev):
+    """Phase 14: forest20 in its .bt world through run() on the card."""
+    with tempfile.TemporaryDirectory() as tmpdir:
+        mission, esdf = forest20_bt_world(dev, tmpdir)
+    param = Param(goal_mode=GoalMode.PRIOR_BASED, world_use_octomap=True)
+    sim = SyncSimulator(mission, param, device=dev, dtype=torch.float32,
+                        esdf=esdf)
+    reset_launch_counts()
+    summary = sim.run()
+    torch.cuda.synchronize()
+    cycles = summary["iterations"]
+    check_mission(summary, param, FOREST_N, "forest20 .bt")
+    band = max(0.2 * JAX_CPU_F32_FOREST_BT_CYCLES, 10)
+    if not abs(cycles - JAX_CPU_F32_FOREST_BT_CYCLES) <= band:
+        raise AssertionError(f"forest20 .bt: {cycles} cycles, more than "
+                             f"{band} off the JAX CPU f32 run's "
+                             f"{JAX_CPU_F32_FOREST_BT_CYCLES}")
+    launches = check_launches(
+        "forest20 .bt", wavefront=2 * cycles,
+        factor_solve=cycles * param.qp_iterations,
+        resolve=cycles * param.qp_iterations * (1 + param.qp_correctors),
+        expand_boxes=cycles)
+    phase("14 worlds", f"forest20 .bt flown: finished in {cycles} cycles "
+                       f"(JAX CPU f32: {JAX_CPU_F32_FOREST_BT_CYCLES}), "
+                       f"safety {summary['safety_ratio_agent']:.4f}, 0 "
+                       f"QPFAILED, distance "
+                       f"{summary['total_flight_distance']:.3f} m, "
+                       f"{1e3 * summary['wall_time'] / cycles:.2f} ms/cycle "
+                       f"(run wall / cycles; "
+                       f"{1e3 * summary['average_planning_time']:.2f} ms "
+                       f"mean after the first), launches {launches}")
+
+
+def fly_forest20_castray(dev, forest_stages):
+    """Phase 14: forest20 with the exact castRay: CASTRAY_CYCLES uncaptured
+    cycles, then run(steps_per_dispatch=CAPTURE_K) of as many cycles, which
+    captures the bisection in its graph: the same bits in every field."""
+    param = Param(goal_mode=GoalMode.PRIOR_BASED,
+                  grid_los_exact_castray=True)
+    sim = SyncSimulator(forest_mission(), param, device=dev,
+                        dtype=torch.float32)
+    what = "forest20 castray"
+    state = sim.initial_state()
+    reset_launch_counts()
+    stats = []
+    t0 = time.perf_counter()
+    for _ in range(CASTRAY_CYCLES):
+        state, info = sim.cycle(state)
+        stats.append(torch.stack([info.safety_step_min.double(),
+                                  info.qp_failed.sum().double()]).tolist())
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / CASTRAY_CYCLES
+    c = CASTRAY_CYCLES
+    check_launches(what, wavefront=2 * c, factor_solve=c * 40,
+                   resolve=c * 80, expand_boxes=c)
+    safety, failed = (np.asarray(v) for v in zip(*stats))
+    if not safety.min() >= 1.0 or failed.sum():
+        raise AssertionError(f"{what}: min safety {safety.min()}, "
+                             f"{int(failed.sum())} QPFAILED")
+    reset_launch_counts()
+    summary = sim.run(max_iterations=c, steps_per_dispatch=CAPTURE_K)
+    torch.cuda.synchronize()
+    k = CAPTURE_K + 1       # the warm-up cycle and the captured ones
+    check_launches(what + " captured", wavefront=2 * k, factor_solve=k * 40,
+                   resolve=k * 80, expand_boxes=k)
+    got = summary["final_state"]
+    diffs = {f: differing_bits(a, b) for f, a, b in zip(got._fields, got,
+                                                          state)
+             if a is not None}
+    if summary["iterations"] != c or any(diffs.values()):
+        raise AssertionError(f"{what}: run(steps_per_dispatch={CAPTURE_K}) "
+                             f"of {summary['iterations']} cycles differs "
+                             f"from {c} uncaptured cycles in {diffs}")
+    st = stage_times(sim, [(sim.goal_planner, "plan",
+                            "goal planning (grid)")])
+    label = "goal planning (grid)"
+    phase("14 worlds", f"{what} (castray depth "
+                       f"{sim.goal_planner.grid_planner.castray_depth}): "
+                       f"{c} cycles, min safety {safety.min():.4f}, 0 "
+                       f"QPFAILED, {ms:.2f} ms/cycle uncaptured, "
+                       f"{1e3 * summary['average_planning_time']:.2f} "
+                       f"captured (blocks after the first); "
+                       f"run(steps_per_dispatch={CAPTURE_K}) of {c} cycles: "
+                       f"differing bits {sum(diffs.values())}; grid goal "
+                       f"stage {st[label]:.2f} ms (median of 5 cycles after "
+                       f"20, a sync around each; phase 10's sampled rays "
+                       f"{forest_stages[label]:.2f} ms)")
+
+
 def main():
     # 1. the card
     if not torch.cuda.is_available():
@@ -1245,7 +1606,7 @@ def main():
         dev, forest)
 
     # 10. the obstacle-world path: forest20 to the finish
-    forest_launches, forest_sim, forest_run = fly_forest20(dev)
+    forest_launches, forest_sim, forest_run, forest_stages = fly_forest20(dev)
 
     # 11. all pairs at 128 agents: C = 128 through the fused kernel
     fly_circle128_all_pairs(all_pairs)
@@ -1261,6 +1622,13 @@ def main():
             (forest_sim, "forest20", forest_run, {})):
         fly_captured(flown, what, run, **kw)
         captured_bits(flown, what)
+
+    # 13. dynamic obstacles, evaluated on the host each cycle
+    fly_dynamic(dev)
+
+    # 14. worlds: a .bt octomap, and the exact castRay
+    fly_forest20_bt(dev)
+    fly_forest20_castray(dev, forest_stages)
 
     errs, times = results[MAIN_B]
     n, B = N_QP, MAIN_B

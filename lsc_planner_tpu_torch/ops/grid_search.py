@@ -40,10 +40,6 @@ class GridPlanner:
 
     def __post_init__(self):
         p = self.param
-        if p.grid_los_exact_castray:
-            raise NotImplementedError("the exact castRay recursion "
-                                      "(grid_los_exact_castray) is not "
-                                      "ported (ROADMAP queue 1, item 11)")
         gres = p.grid_resolution
         wmin = np.asarray(self.mission.world_min, np.float64)
         wmax = np.asarray(self.mission.world_max, np.float64)
@@ -224,17 +220,70 @@ class GridPlanner:
                0.5 * self.param.world_resolution - SP_EPSILON_FLOAT)
         return min_clear[:, None, :] > thr[:, :, None]
 
+    @property
+    def castray_depth(self) -> int:
+        """Dyadic recursion depth of the exact castRay DP: deep enough that
+        any all-clear segment resolves by the sphere-cover test
+        (d_l < 2 sqrt(margin * resolution) given endpoint clearance
+        > margin + resolution/2), so the fixed-depth cutoff never fires on
+        a ray the reference recursion would accept."""
+        p = self.param
+        diag = float(np.linalg.norm(self.grid_max - self.grid_min)) + 1e-6
+        r_min = min(float(a.radius) for a in self.mission.agents)
+        d_resolve = 2.0 * np.sqrt(max(r_min * p.world_resolution, 1e-6))
+        return max(1, min(10, int(np.ceil(np.log2(diag / d_resolve)))))
+
+    def _ray_safe_bisect(self, pts, init_end, radius, ratios):
+        """Exact castRay recursion (grid_based_planner.cpp:409-433) as a
+        bottom-up DP over dyadic segments: a level-l segment is safe iff
+        its endpoints clear margin + resolution/2 and (the sphere-cover
+        test sqrt(d_l^2/4 + margin^2) < min(1, endpoint clearances) passes
+        or both level-(l+1) halves are safe).  Fixed depth, no host sync.
+        Returns (N, 6, P) bool."""
+        p = self.param
+        depth = self.castray_depth
+        t = torch.linspace(0.0, 1.0, 2 ** depth + 1, dtype=pts.dtype,
+                           device=pts.device)
+        ray = init_end[:, None, None, :] + \
+            (pts - init_end[:, None, :])[:, :, None, :] * \
+            t[None, None, :, None]
+        c = self.esdf.at_points(ray)                           # (N, P, S)
+        length = torch.linalg.vector_norm(pts - init_end[:, None, :],
+                                          dim=-1)              # (N, P)
+        m = (radius[:, None] * ratios[None, :])[:, None, :, None]
+        res_thr = 0.5 * p.world_resolution - SP_EPSILON_FLOAT
+        max_dist = 1.0                                 # castRay's clamp
+        safe = None
+        for level in range(depth, -1, -1):
+            cl = c[:, :, ::2 ** (depth - level)]               # (N,P,2^l+1)
+            left = cl[:, :, None, :-1]                         # (N,P,1,2^l)
+            right = cl[:, :, None, 1:]
+            d_l = (length / (2 ** level))[:, :, None, None]
+            thr = torch.sqrt(0.25 * d_l * d_l + m * m)
+            eok = (left > m + res_thr) & (right > m + res_thr)
+            cover = (thr < max_dist) & (left > thr) & (right > thr)
+            if safe is None:
+                safe = eok & cover
+            else:
+                safe = eok & (cover | (safe[..., 0::2] & safe[..., 1::2]))
+        return safe[..., 0].transpose(1, 2)                    # (N, 6, P)
+
     def los_free_goal(self, path_points, init_end, desired_goal, radius):
         """findLOSFreeGoal (grid_based_planner.cpp:350-407): the furthest
         path point in line of sight of the initial-trajectory endpoint,
         with margin ratios 1.5 -> 1.0 until the sub-goal moves > 0.3 m, and
-        the path floor when no ratio moves.  path_points (N, P, 3),
-        init_end/desired_goal (N, 3), radius (N,) -> (N, 3)."""
+        the path floor when no ratio moves (the exact castRay,
+        grid_los_exact_castray, keeps the reference's LOS shortcuts only).
+        path_points (N, P, 3), init_end/desired_goal (N, 3), radius (N,)
+        -> (N, 3)."""
         N = path_points.shape[0]
         pts = torch.cat([path_points, desired_goal[:, None]], dim=1)
         P = pts.shape[1]
         ratios = self._ratios
-        safe = self._ray_safe_sampled(pts, init_end, radius, ratios)
+        if self.param.grid_los_exact_castray:
+            safe = self._ray_safe_bisect(pts, init_end, radius, ratios)
+        else:
+            safe = self._ray_safe_sampled(pts, init_end, radius, ratios)
         prefix_safe = torch.cumprod(safe.to(torch.int32), dim=-1).bool()
         n_safe = prefix_safe.sum(-1)                           # (N, 6)
         last_idx = torch.clamp(n_safe - 1, min=0)
@@ -249,6 +298,8 @@ class GridPlanner:
         any_moved = moved.any(1)
         first = torch.where(any_moved, first, 5)
         sel = los[torch.arange(N, device=pts.device), first]
+        if self.param.grid_los_exact_castray:
+            return sel
         floor_pt = pts[:, min(2, P - 1), :]
         sel_d = torch.linalg.vector_norm(sel - init_end, dim=-1)
         floor_d = torch.linalg.vector_norm(floor_pt - init_end, dim=-1)

@@ -96,6 +96,15 @@ def step_distance(trajs, dt, record_time_step, time_step):
     return torch.linalg.vector_norm(torch.diff(pos, dim=0), dim=-1).sum()
 
 
+def obstacle_safety_ratio(pos, obs_pos, radius, obs_radius):
+    """Agent-vs-dynamic-obstacle safety (multi_sync_simulator.cpp:480-499),
+    plain euclidean distance over the summed radii.  pos (N, 3), obs_pos
+    (O, 3), radius (N,), obs_radius (O,)."""
+    dist = torch.linalg.vector_norm(pos[:, None, :] - obs_pos[None, :, :],
+                                    dim=-1)
+    return torch.amin(dist / (radius[:, None] + obs_radius[None, :]))
+
+
 def static_box_safety_ratio(pos, boxes, radius):
     """Agent-vs-static-AABB safety: exact box distance over agent radius
     (the box closest-point form, obstacle.hpp:437-478).  pos (N, 3), boxes

@@ -20,10 +20,18 @@ With ``max_neighbors = K`` (0 < K < N) each agent keeps LSC rows only for
 its K nearest neighbours, and the cycle reports the density-overflow audit
 of that pruning in ``CycleInfo.knn_overflow``.
 
-Off the ported slice (loading .bt octomap files, dynamic obstacles,
-planner modes other than LSC, experiment-mode pose injection, cycle logs
-and stage profiles) the constructor or the call raises
-NotImplementedError naming its ROADMAP item.
+Mission dynamic obstacles (every obstacle kind but ``static``) are
+evaluated on the host each cycle, as in the JAX package: ``run`` steps the
+obstacle models (chasing ones after the nearest agent, which reads the
+agents' positions back), runs the Kalman filters or the oracle's
+Bernstein fit of the prediction mode, and hands the cycle their positions,
+velocities and predictions, which join each agent's LSC rows after its
+agent columns.  Several cycles a dispatch refuse them with ValueError.
+
+Off the ported slice (planner modes other than LSC, the ORCA prediction
+mode, experiment-mode pose injection, cycle logs and stage profiles) the
+constructor or the call raises NotImplementedError naming its ROADMAP
+item.
 """
 from __future__ import annotations
 
@@ -36,7 +44,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..config import Param, PlannerMode, PredictionMode
+from ..config import InitialTrajMode, Param, PlannerMode, PredictionMode
 from ..missions import Mission
 from ..device import resolve_device, synchronize
 from ..ops import bernstein as bz
@@ -49,6 +57,8 @@ from ..planner.optimizer import TrajOptimizer
 from ..world.corridor import CorridorBuilder, update_sfc
 from ..world.esdf import ESDF
 from . import audit
+from .kalman import LinearKalmanFilter
+from .obstacles import ChasingObstacle, ObstacleGenerator
 
 
 class SwarmState(NamedTuple):
@@ -361,9 +371,8 @@ class SyncSimulator:
                 "(ROADMAP queue 1, items 12-13)")
         static_specs = [o for o in self.mission.obstacles
                         if o.kind == "static"]
-        if len(static_specs) < len(self.mission.obstacles):
-            raise NotImplementedError("dynamic obstacles are not ported "
-                                      "(ROADMAP queue 1, item 12)")
+        dyn_specs = [o for o in self.mission.obstacles
+                     if o.kind != "static"]
         if p.multisim_experiment:
             raise NotImplementedError("experiment-mode pose injection and "
                                       "slack rows are not ported (ROADMAP "
@@ -435,6 +444,25 @@ class SyncSimulator:
                 self.esdf, self.mission.world_min, self.mission.world_max,
                 agent_radius=float(self.mission.agents[0].radius),
                 dtype=self.dtype)
+
+        # dynamic obstacles (obstacle_generator.hpp analog), evaluated on the
+        # host each cycle; static boxes are world geometry above
+        self.obstacle_generator = None
+        self.O_dyn = len(dyn_specs)
+        self._kf = None
+        if self.O_dyn:
+            self.obstacle_generator = ObstacleGenerator(
+                dataclasses.replace(self.mission, obstacles=dyn_specs),
+                noise_std=p.obs_observer_stddev)
+            gen = self.obstacle_generator
+            radii, dw, acc = gen.radii, gen.downwash, gen.max_acc
+        else:
+            radii, dw, acc = np.zeros(0), np.ones(0), np.zeros(0)
+        self.obs_radius_dyn = t(radii)
+        self.obs_downwash_dyn = t(dw)
+        # the obstacles' acceleration bounds size their slack and RSFC
+        # rows (JAX simulator.py:735-737), which come with item 12's rest
+        self.obs_max_acc_dyn = t(acc)
         self.goal_planner = goal_mod.GoalPlanner(self.mission, p, self.esdf,
                                                  dtype=self.dtype)
 
@@ -489,32 +517,80 @@ class SyncSimulator:
                 torch.where(is_first, state.vel, rvel),
                 torch.where(is_first, state.acc, racc))
 
-    def predict_and_init(self, traj, pos, vel, seq):
-        """Previous-solution prediction, which in LSC mode is also every
-        agent's initial trajectory (the first cycle uses constant
-        velocity).  Returns (init, prediction)."""
+    def _traj_for_mode(self, mode, traj, pos, vel, seq, prev_goal=None):
+        """The trajectory of a prediction or initial-trajectory mode
+        (traj_planner.cpp:610-1061, simulator.py:509-553)."""
         p = self.param
-        if p.prediction_mode != PredictionMode.PREVIOUS_SOLUTION:
-            raise NotImplementedError(
-                f"prediction mode {p.prediction_mode.value} is not ported "
-                "(ROADMAP queue 1, item 12)")
-        shifted = pred.shift_previous_solution(traj)
-        const_vel = pred.constant_velocity_traj(pos, vel, self.M, self.n,
-                                                p.dt)
-        init = torch.where(seq >= 1, shifted, const_vel)
-        return init, init
+        if mode == InitialTrajMode.GREEDY:
+            # straight toward the previous cycle's current goal at the
+            # nominal velocity, held at the ideal flight time
+            # (initialTrajPlanningGreedy, traj_planner.cpp:983-995)
+            goal = prev_goal if prev_goal is not None else pos
+            delta = goal - pos
+            dist = _norm(delta, keepdim=True)
+            dirn = delta / torch.clamp(dist, min=1e-9)
+            t_ideal = dist / torch.clamp(self.nominal_velocity[:, None],
+                                         min=1e-9)
+            m = torch.arange(self.M, dtype=pos.dtype,
+                             device=pos.device)[:, None]
+            i = torch.arange(self.n + 1, dtype=pos.dtype,
+                             device=pos.device)[None, :]
+            tau = (m + i / self.n) * p.dt                    # (M, n+1)
+            t_held = torch.minimum(tau[None, :, :, None],
+                                   t_ideal[:, None, None, :])
+            return pos[:, None, None, :] + dirn[:, None, None, :] * \
+                self.nominal_velocity[:, None, None, None] * t_held
+        if mode in (PredictionMode.PREVIOUS_SOLUTION,
+                    InitialTrajMode.PREVIOUS_SOLUTION,
+                    InitialTrajMode.SKIP):
+            # SKIP (the reference's debugger mode) is the shift here too
+            shifted = pred.shift_previous_solution(traj)
+            const_vel = pred.constant_velocity_traj(pos, vel, self.M,
+                                                    self.n, p.dt)
+            return torch.where(seq >= 1, shifted, const_vel)
+        if mode in (PredictionMode.VELOCITY, InitialTrajMode.VELOCITY,
+                    PredictionMode.ORACLE,
+                    PredictionMode.LINEAR_KALMAN_FILTER):
+            # the oracle and the filter refine the dynamic obstacles'
+            # predictions (on the host, dynamic_inputs); agents predict each
+            # other at constant velocity (traj_planner.cpp:741-749)
+            return pred.constant_velocity_traj(pos, vel, self.M, self.n,
+                                               p.dt)
+        if mode in (PredictionMode.POSITION, InitialTrajMode.POSITION):
+            return pred.constant_position_traj(pos, self.M, self.n)
+        raise NotImplementedError(f"{type(mode).__name__} {mode.value} is "
+                                  "not ported (ROADMAP queue 1, item 13)")
+
+    def predict_and_init(self, traj, pos, vel, seq, prev_goal=None):
+        """Obstacle prediction and initial trajectory, in the modes that
+        self.param names when called (a test may set them after
+        validated(), as the JAX package's do).  Under the previous-solution
+        modes one tensor is both.  Returns (init, prediction)."""
+        p = self.param
+        prediction = self._traj_for_mode(p.prediction_mode, traj, pos, vel,
+                                         seq)
+        if p.initial_traj_mode.value == p.prediction_mode.value:
+            return prediction, prediction
+        init = self._traj_for_mode(p.initial_traj_mode, traj, pos, vel,
+                                   seq, prev_goal=prev_goal)
+        return init, prediction
 
     def plan_block(self, pos, vel, acc, init, seq, pred_global,
                    obs_pos_global, obs_goal_global, obs_prev_global,
                    self_mask, radius, downwash, nominal_velocity, max_vel,
                    max_acc, desired_goal, sfc_prev=None, sfc_initialize=None,
-                   sfc_seed=None, rescue_goal=None, rescue_active=None):
+                   sfc_seed=None, rescue_goal=None, rescue_active=None,
+                   dyn_pos=None, dyn_vel=None, dyn_pred=None):
         """Plan one block of agents (L, ...) against the global obstacle
-        view (N_total, ...): goals, K-NN pruning, LSC planes, the SFC
-        corridor in a static world, QP.  Returns (QPResult, current_goal,
-        sfc, knn_overflow, path_floor); knn_overflow (L,) flags agents
-        whose K-th nearest neighbour is still inside the interaction ball
-        (None without pruning); sfc is sfc_prev without a static world."""
+        view (N_total, ...): goals, K-NN pruning, the dynamic obstacles'
+        columns after the agents', LSC planes, the SFC corridor in a static
+        world, QP.  dyn_pred is (O_dyn, M, n+1, 3), or per agent (L, O_dyn,
+        M, n+1, 3); without it the dynamic obstacles are predicted at
+        constant velocity from dyn_pos, dyn_vel.  Returns (QPResult,
+        current_goal, sfc, knn_overflow, path_floor); knn_overflow (L,)
+        flags agents whose K-th nearest neighbour is still inside the
+        interaction ball (None without pruning); sfc is sfc_prev without a
+        static world."""
         p = self.param
         L = pos.shape[0]
         O = pred_global.shape[0]
@@ -547,10 +623,44 @@ class SyncSimulator:
             obs_radius = self.radius[None, :].expand(L, O)
             obs_downwash = self.downwash[None, :].expand(L, O)
             obs_mask = ~self_mask
+        dev = pos.device
+        obs_is_agent = torch.ones((L, O), dtype=torch.bool, device=dev)
+
+        # the mission's dynamic obstacles after the agent columns
+        # (simulator.py:675-710; non-agents take constant-velocity
+        # predictions, traj_planner.cpp:838-847, unless the oracle or a
+        # per-agent filter hands in its own)
+        if self.O_dyn and dyn_pos is not None:
+            Od = self.O_dyn
+            if dyn_pred is None:
+                dyn_pred = pred.constant_velocity_traj(dyn_pos, dyn_vel, M,
+                                                       n, p.dt)
+            obs_pred = torch.cat([obs_pred, dyn_pred.expand(
+                L, Od, M, n + 1, 3)], dim=1)
+            obs_is_agent = torch.cat([obs_is_agent, torch.zeros(
+                (L, Od), dtype=torch.bool, device=dev)], dim=1)
+            obs_mask = torch.cat([obs_mask, torch.ones(
+                (L, Od), dtype=torch.bool, device=dev)], dim=1)
+            obs_radius = torch.cat(
+                [obs_radius, self.obs_radius_dyn[None].expand(L, Od)], dim=1)
+            obs_downwash = torch.cat(
+                [obs_downwash, self.obs_downwash_dyn[None].expand(L, Od)],
+                dim=1)
+
+        if p.prediction_mode == PredictionMode.VELOCITY:
+            # linear-prediction slow-down (generateLSC preamble,
+            # traj_planner.cpp:1310-1330): colliding straight-line
+            # predictions are contracted so the LSC margins stay feasible
+            alpha = pred.linear_prediction_slowdown(
+                init, obs_pred, radius, obs_radius, obs_mask,
+                horizon=M * p.dt,
+                esdf=self.goal_planner.esdf if p.world_use_octomap else None)
+            init = pred.contract_trajectories(init, alpha)
+            obs_pred = pred.contract_trajectories(obs_pred, alpha[:, None])
+
         planes = cons.lsc_planes(
             init, obs_pred, radius, downwash, obs_radius, obs_downwash,
-            torch.ones((L, O), dtype=torch.bool, device=pos.device),
-            obs_mask, guard_margin=p.lsc_guard_margin)
+            obs_is_agent, obs_mask, guard_margin=p.lsc_guard_margin)
 
         # SFC corridors against the static world (generateFeasibleSFC,
         # traj_planner.cpp:1451-1491), their faces after the LSC rows
@@ -584,10 +694,18 @@ class SyncSimulator:
                 torch.where(near, state.start, state.desired_goal))
 
     # ------------------------------------------------------------------
-    def cycle(self, state: SwarmState):
-        """One synchronous planning cycle for all agents.
-        Returns (new_state, CycleInfo)."""
+    def cycle(self, state: SwarmState, dyn_pos=None, dyn_vel=None,
+              dyn_pred=None):
+        """One synchronous planning cycle for all agents, with the dynamic
+        obstacles' positions and velocities (O_dyn, 3) and, from the oracle
+        or the per-agent filters, their predictions (dynamic_inputs gives
+        all three; without them the obstacles sit at the origin, as in the
+        JAX package).  Returns (new_state, CycleInfo)."""
         p = self.param
+        if self.O_dyn and dyn_pos is None:
+            dyn_pos = torch.zeros((self.O_dyn, 3), dtype=self.dtype,
+                                  device=self.device)
+            dyn_vel = torch.zeros_like(dyn_pos)
         pos, vel, acc = self.propagate(state)
         start, desired_goal = self._patrol_swap(state, pos)
 
@@ -609,7 +727,8 @@ class SyncSimulator:
             rescue_goal, rescue_active, rescue_phase = _no_rescue(state)
 
         init, prediction = self.predict_and_init(state.traj, pos, vel,
-                                                 state.seq)
+                                                 state.seq,
+                                                 prev_goal=state.current_goal)
         # SFC seed: the previous solution's endpoint, or the current
         # position on (re-)initialization (traj_planner.cpp:1454-1473)
         sfc_initialize = ~state.sfc_initialized
@@ -624,7 +743,8 @@ class SyncSimulator:
             max_acc=self.max_acc, desired_goal=desired_goal,
             sfc_prev=state.sfc, sfc_initialize=sfc_initialize,
             sfc_seed=sfc_seed, rescue_goal=rescue_goal,
-            rescue_active=rescue_active)
+            rescue_active=rescue_active, dyn_pos=dyn_pos, dyn_vel=dyn_vel,
+            dyn_pred=dyn_pred)
 
         # QPFAILED report + feasible fallback (simulator.py:890-898): a
         # failing agent keeps its shifted previous solution
@@ -637,6 +757,11 @@ class SyncSimulator:
         step_dist = audit.step_distance(
             traj, p.dt, p.multisim_record_time_step, p.multisim_time_step)
         safety_obs = state.safety_obs_min
+        if self.O_dyn:
+            safety_obs = torch.minimum(safety_obs,
+                                       audit.obstacle_safety_ratio(
+                                           pos, dyn_pos, self.radius,
+                                           self.obs_radius_dyn))
         if self.static_boxes.shape[0]:
             safety_obs = torch.minimum(safety_obs,
                                        audit.static_box_safety_ratio(
@@ -679,8 +804,9 @@ class SyncSimulator:
         p = self.param
         N = self.N
         pos, vel, _ = self.propagate(prev_state)
-        init, prediction = self.predict_and_init(prev_state.traj, pos, vel,
-                                                 prev_state.seq)
+        init, prediction = self.predict_and_init(
+            prev_state.traj, pos, vel, prev_state.seq,
+            prev_goal=prev_state.current_goal)
         planes = cons.lsc_planes(
             init, prediction[None].expand(N, *prediction.shape),
             self.radius, self.downwash,
@@ -712,6 +838,76 @@ class SyncSimulator:
         d = _norm(state.pos - state.desired_goal)
         return bool(d.max() < self.param.goal_threshold)
 
+    def dynamic_inputs(self, t_sim: float, state: SwarmState):
+        """The host's dynamic-obstacle step of the cycle at time t_sim
+        (run(), simulator.py:1273-1321): chasing obstacles take the
+        agent nearest to them in `state` as their goal (a read of
+        state.pos), the models step to t_sim, and the prediction mode
+        refines what the agents see: the Kalman filters (one a dynamic
+        obstacle, or, with observation noise, one an agent and obstacle on
+        that agent's own noisy observation, as the reference's planners
+        each filter their own message) or the oracle's fit of the true
+        motion.  The numpy f64 results are cast to the simulator's dtype
+        where the JAX package casts them.  Returns (dyn_pos, dyn_vel,
+        dyn_pred or None) on the simulator's device."""
+        p = self.param
+        gen = self.obstacle_generator
+        chasers = [m for m in gen.models if isinstance(m, ChasingObstacle)]
+        if chasers:
+            host_pos = state.pos.cpu().numpy()
+            for m in chasers:
+                d = np.linalg.norm(host_pos - m.pos, axis=-1)
+                m.set_goal_point(host_pos[int(np.argmin(d))])
+        dp, dv = gen.update(t_sim)
+
+        def t(a):       # a copy: the generator reuses its arrays
+            return torch.tensor(a, dtype=self.dtype, device=self.device)
+        dyn_pred = None
+        if p.prediction_mode == PredictionMode.LINEAR_KALMAN_FILTER:
+            per_agent = gen.noise_std > 0
+            if self._kf is None:
+                self._kf = LinearKalmanFilter(
+                    self.N * self.O_dyn if per_agent else self.O_dyn,
+                    p.filter_sigma_y_sq, p.filter_sigma_v_sq,
+                    p.filter_sigma_a_sq)
+            if per_agent:
+                fp, fv = self._kf.filter(gen.observed(self.N).reshape(-1, 3),
+                                         t_sim)
+                shape = (self.N, self.O_dyn, 3)
+                dyn_pred = pred.constant_velocity_traj(
+                    t(fp.reshape(shape)), t(fv.reshape(shape)), self.M,
+                    self.n, p.dt)
+            else:
+                dp, dv = self._kf.filter(gen.observed(), t_sim)
+        if p.prediction_mode == PredictionMode.ORACLE:
+            dyn_pred = t(self._oracle_prediction(t_sim))
+        return t(dp), t(dv), dyn_pred
+
+    def _oracle_prediction(self, t_sim: float) -> np.ndarray:
+        """Perfect dynamic-obstacle prediction: the true model sampled over
+        the horizon and fitted with Bernstein control points a segment
+        (obstaclePredictionWithOracle, traj_planner.cpp:715-751).
+        Returns (O_dyn, M, n+1, 3) float64."""
+        p = self.param
+        M, n = self.M, self.n
+        basis = np.zeros((n + 1, n + 1))
+        for r, tau in enumerate(np.linspace(0.0, 1.0, n + 1)):
+            for i in range(n + 1):
+                basis[r, i] = bz.nchoosek(n, i) * tau ** i * \
+                    (1 - tau) ** (n - i)
+        basis_inv = np.linalg.inv(basis)
+        out = np.zeros((self.O_dyn, M, n + 1, 3))
+        for oi, model in enumerate(self.obstacle_generator.models):
+            if isinstance(model, ChasingObstacle):
+                raise ValueError("oracle does not support chasing "
+                                 "obstacles (traj_planner.cpp:719-721)")
+            for m in range(M):
+                targets = np.stack([
+                    model.state(t_sim + (m + i / n) * p.dt)[0]
+                    for i in range(n + 1)])
+                out[oi, m] = basis_inv @ targets
+        return out
+
     def make_scan_cycle(self, k: int):
         """k planning cycles in one dispatch (simulator.py:1001-1031, the
         JAX package's lax.scan).  Returns multi(state) -> (state_k,
@@ -727,11 +923,14 @@ class SyncSimulator:
         overwritten by the next call (clone what must outlive it); a state
         handed back in as it came out is not copied.  On the CPU multi runs
         the same k cycles eagerly: the tests' oracle, never taken by a CUDA
-        simulator.  Dynamic obstacles, which the JAX
-        package refuses here with ValueError, are refused by the
-        constructor (ROADMAP queue 1, item 12)."""
+        simulator.  Dynamic obstacles, evaluated on the host each cycle,
+        are refused with ValueError, as the JAX package refuses them."""
         if k < 1:
             raise ValueError(f"make_scan_cycle: k = {k} < 1")
+        if self.obstacle_generator is not None:
+            raise ValueError("several cycles a dispatch need device-only "
+                             "state; dynamic obstacles are evaluated on the "
+                             "host each cycle (use steps_per_dispatch=1)")
         if self.device.type != "cuda":
             return lambda state: _stack_cycles(self.cycle, state, k)
         return _ScanCycle(self, k)
@@ -752,16 +951,18 @@ class SyncSimulator:
         (stage_times stays empty).  steps_per_dispatch = k > 1 runs blocks
         of k cycles a dispatch (make_scan_cycle, simulator.py:1233-1259):
         the finishing cycle is still recovered exactly from the per-cycle
-        goal distances, but per-cycle logs, profiles and pacing are
-        refused with ValueError, and the reported safety and QPFAILED
-        count include the cycles planned after the finish in its block."""
+        goal distances, but per-cycle logs, profiles, dynamic obstacles and
+        pacing are refused with ValueError, and the reported safety and
+        QPFAILED count include the cycles planned after the finish in its
+        block."""
         p = self.param
         if steps_per_dispatch > 1:
             if log is not None or profile or p.multisim_experiment or \
+                    self.obstacle_generator is not None or \
                     p.multisim_planning_rate > 0:
                 raise ValueError("steps_per_dispatch > 1 is incompatible "
-                                 "with log/profile/experiment mode/"
-                                 "real-time pacing")
+                                 "with log/profile/dynamic obstacles/"
+                                 "experiment mode/real-time pacing")
             return self._run_fused(max_iterations, steps_per_dispatch)
         if steps_per_dispatch < 1:
             raise ValueError(f"steps_per_dispatch = {steps_per_dispatch} "
@@ -781,7 +982,11 @@ class SyncSimulator:
         for it in range(max_iter):
             prev_state = state
             t0 = time.perf_counter()
-            state, info = self.cycle(state)
+            if self.obstacle_generator is not None:
+                state, info = self.cycle(state, *self.dynamic_inputs(
+                    it * p.multisim_time_step, state))
+            else:
+                state, info = self.cycle(state)
             # one device->host read per cycle
             safety, n_failed, goal_dist = torch.stack([
                 info.safety_step_min.double(),

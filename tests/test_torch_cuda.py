@@ -730,17 +730,19 @@ def captured_against_uncaptured(sim, before, k=10, blocks=1):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["circle64", "circle130_all_pairs",
-                                  "forest20"])
+                                  "forest20", "forest20_castray",
+                                  "forest20_velocity"])
 def test_captured_cycles_are_bit_equal(cuda, case):
     """10 cycles captured in one CUDA graph and replayed equal 10
     uncaptured cycles in every SwarmState field, bit for bit: circle64
     (dense rows on the chol kernels; two blocks, the second fed the
     first's output), a 130-agent all-pairs circle after 5 cycles (the
-    fused IPM) and forest20 (grid planner, wavefront, corridor, chol).
-    The launch counters record the captured block and do not move on a
-    replay."""
-    from lsc_planner_tpu_torch import (GoalMode, Param, make_circle_mission,
-                                       missions)
+    fused IPM) and forest20 (grid planner, wavefront, corridor, chol),
+    also with the exact castRay and with the VELOCITY prediction's
+    slow-down against the ESDF.  The launch counters record the captured
+    block and do not move on a replay."""
+    from lsc_planner_tpu_torch import (GoalMode, Param, PredictionMode,
+                                       make_circle_mission, missions)
     from lsc_planner_tpu_torch.sim.simulator import SyncSimulator
 
     def circle(qn):         # chip_smoke.py's circle swap (bench.py:65-71)
@@ -754,7 +756,11 @@ def test_captured_cycles_are_bit_equal(cuda, case):
         m, before, blocks = circle(130), 5, 1
     else:
         m, before, blocks = forest_mission(missions, 0), 3, 1
+        p.grid_los_exact_castray = case == "forest20_castray"
+        p.world_use_octomap = case == "forest20_velocity"
     sim = SyncSimulator(m, p, device=cuda)
+    if case == "forest20_velocity":
+        sim.param.prediction_mode = PredictionMode.VELOCITY
     diffs, launches, moved = captured_against_uncaptured(sim, before,
                                                          blocks=blocks)
     for d in diffs:
@@ -767,7 +773,7 @@ def test_captured_cycles_are_bit_equal(cuda, case):
         assert launches["factor_solve"] == 10 * p.qp_iterations
         assert launches["resolve"] == 10 * p.qp_iterations * \
             (1 + p.qp_correctors)
-    if case == "forest20":
+    if case.startswith("forest20"):
         assert launches["wavefront"] == 20 and launches["expand_boxes"] == 10
 
 
@@ -835,3 +841,60 @@ def test_ipm_exit_read_is_skipped_under_capture(cuda):
         if a.is_floating_point():
             a, b = bits(a), bits(b)
         assert torch.equal(a, b), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,noise", [("PREVIOUS_SOLUTION", 0.0),
+                                        ("VELOCITY", 0.0), ("ORACLE", 0.0),
+                                        ("LINEAR_KALMAN_FILTER", 0.02)])
+def test_dynamic_obstacle_cycles_on_the_card_match_the_cpu(cuda, mode,
+                                                          noise):
+    """tests/test_dynamic_obstacles.py's 2-agent mission with a spinning,
+    a straight and a chasing obstacle, 10 cycles of run() in f64 under
+    each prediction mode: the card's trajectories within 1e-6 m of the
+    CPU's (the host obstacle step, its copies to the card and, for the
+    chasing obstacle, its read of the agents' positions)."""
+    from lsc_planner_tpu_torch import (AgentSpec, GoalMode, Mission,
+                                       ObstacleSpec, Param, PredictionMode)
+    from lsc_planner_tpu_torch.sim.simulator import SyncSimulator
+
+    def mission():
+        agents = []
+        for qi, (s, g) in enumerate([((-3.0, 0.5, 1.0), (3.0, 0.5, 1.0)),
+                                     ((3.0, -0.5, 1.0), (-3.0, -0.5, 1.0))]):
+            a = AgentSpec(id=qi, cid=qi + 1)
+            a.start, a.goal = np.asarray(s), np.asarray(g)
+            agents.append(a)
+        return Mission(
+            world_min=np.array([-5.0, -5, 0]),
+            world_max=np.array([5.0, 5, 2.5]), agents=agents,
+            obstacles=[
+                ObstacleSpec(kind="spin", size=0.3, max_acc=2.0,
+                             axis_position=np.array([0.0, 2.0, 1.0]),
+                             axis_ori=np.array([0.0, 0.0, 1.0]),
+                             start=np.array([0.0, 3.0, 1.0]), speed=0.5),
+                ObstacleSpec(kind="straight", size=0.25, max_acc=1.0,
+                             start=np.array([0.0, -3.0, 1.0]),
+                             goal=np.array([0.0, 3.0, 1.0]), speed=0.2),
+                ObstacleSpec(kind="chasing", size=0.2, max_acc=1.0,
+                             start=np.array([1.0, 2.5, 1.0]), max_vel=0.4,
+                             gamma_target=0.5, gamma_obs=1.0)][
+                :2 if mode == "ORACLE" else 3])
+
+    trajs = []
+    for device in (cuda, torch.device("cpu")):
+        p = Param(goal_mode=GoalMode.STATIC, qp_iterations=12,
+                  obs_observer_stddev=noise)
+        sim = SyncSimulator(mission(), p, device=device, dtype=torch.float64)
+        sim.param.prediction_mode = PredictionMode[mode]
+        out, cycle = [], sim.cycle
+
+        def rec(state, *dyn):
+            new = cycle(state, *dyn)
+            out.append(new[0].traj.cpu())
+            return new
+        sim.cycle = rec
+        sim.run(max_iterations=10)
+        trajs.append(torch.stack(out))
+    assert trajs[0].shape == trajs[1].shape == (10, 2, 5, 6, 3)
+    assert (trajs[0] - trajs[1]).abs().max().item() <= 1e-6

@@ -41,6 +41,7 @@ from lsc_planner_tpu.world.esdf import ESDF as JESDF
 from lsc_planner_tpu_torch import missions as tmis
 from lsc_planner_tpu_torch.config import GoalMode as TGoalMode
 from lsc_planner_tpu_torch.config import Param
+from lsc_planner_tpu_torch.config import PredictionMode as TPredictionMode
 from lsc_planner_tpu_torch.ops import corridor as corridor_ops
 from lsc_planner_tpu_torch.ops import qp
 from lsc_planner_tpu_torch.sim.simulator import SyncSimulator as _TSim
@@ -290,13 +291,16 @@ class HostTraffic(TorchDispatchMode):
 
 
 @pytest.mark.parametrize("case", ["circle_dense", "knn_factored_fused",
-                                  "forest"])
+                                  "forest", "forest_castray",
+                                  "forest_velocity"])
 def test_a_cycle_makes_no_host_traffic(case, monkeypatch):
     """After one warm-up cycle (which makes every cached constant), a cycle
     creates no tensor from host data and reads nothing back, outside the
     plain versions that stand in for the kernels on the CPU: the dense and
-    the factored (fused) QP rows, K-NN pruning, the grid planner and the
-    corridor.  The IPM's exit read is skipped as under graph capture."""
+    the factored (fused) QP rows, K-NN pruning, the grid planner (with the
+    exact castRay too), the corridor, and the VELOCITY prediction's
+    slow-down against the ESDF.  The IPM's exit read is skipped as under
+    graph capture."""
     circle = tmis.make_circle_mission(8, radius=3.0,
                                       world=(-5, -5, 0, 5, 5, 2.5))
     m, p = {
@@ -306,9 +310,17 @@ def test_a_cycle_makes_no_host_traffic(case, monkeypatch):
             qp_fused_mode="on")),
         "forest": (forest_mission(tmis, 3, 4, 12, WORLD),
                    Param(goal_mode=TGoalMode.PRIOR_BASED)),
+        "forest_castray": (forest_mission(tmis, 3, 4, 12, WORLD),
+                           Param(goal_mode=TGoalMode.PRIOR_BASED,
+                                 grid_los_exact_castray=True)),
+        "forest_velocity": (forest_mission(tmis, 3, 4, 12, WORLD),
+                            Param(goal_mode=TGoalMode.PRIOR_BASED,
+                                  world_use_octomap=True)),
     }[case]
     monkeypatch.setattr(qp, "_capturing", lambda device: True)
     sim = TSim(m, p, dtype=torch.float32)
+    if case == "forest_velocity":
+        sim.param.prediction_mode = TPredictionMode.VELOCITY
     state, _ = sim.cycle(sim.initial_state())
     with HostTraffic() as h:
         sim.cycle(state)

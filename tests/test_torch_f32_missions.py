@@ -11,9 +11,19 @@ safety >= 1, 0 QPFAILED, cycles within max(20 %, 10) of JAX's.
 Run as a script, it prints each package's f32 and f64 cycle counts for
 every case of CASES, and with the case "circle128" the distance flown over
 the 20 all-pairs cycles of the 128-agent circle that chip_smoke.py's phase
-11 flies, by each package in f32 and f64.
+11 flies, by each package in f32 and f64.  The cases "dyn64" and
+"forest20_bt" are chip_smoke.py's phase 13 and 14 missions (its own
+builders; the .bt world written and loaded on the CPU): each package's
+f32 run ("forest20_bt_f64": in f64).  The cases "dyn64_oracle", "dyn64_lkf" (f32), "dyn64_oracle_f64"
+and "dyn64_lkf_f64" are phase 13's 40-cycle runs of dyn64 under the ORACLE
+prediction and the per-agent Kalman filters (0.02 m of noise): each
+package's min safety, QPFAILED and obstacle safety, and, a line a cycle,
+the max trajectory difference between the packages and each one's step
+safety.
 """
+import dataclasses
 import math
+import tempfile
 import sys
 
 import jax
@@ -119,6 +129,92 @@ def circle128_distances(cycles=20):
     return out
 
 
+def jax_mission(tm):
+    """The JAX package's Mission with the fields of the port's Mission tm."""
+    d = {f.name: getattr(tm, f.name) for f in dataclasses.fields(tm)}
+    d["agents"] = [jmis.AgentSpec(**dataclasses.asdict(a))
+                   for a in tm.agents]
+    d["obstacles"] = [jmis.ObstacleSpec(**dataclasses.asdict(o))
+                      for o in tm.obstacles]
+    return jmis.Mission(**d)
+
+
+def chip_smoke_runs(name):
+    """{run: summary} of chip_smoke.py's dyn64 or forest20_bt mission, each
+    package's SyncSimulator.run() on the CPU in f32 (forest20_bt_f64: in
+    f64) (PRIOR_BASED, Param defaults; the .bt world with
+    world_use_octomap, each package's own ESDF.from_bt of the same
+    file)."""
+    import chip_smoke
+    from lsc_planner_tpu.world.esdf import ESDF as JESDF
+    from lsc_planner_tpu_torch.world.esdf import ESDF as TESDF
+
+    kw = dict(goal_mode=GoalMode.PRIOR_BASED)
+    dt = "f64" if name.endswith("_f64") else "f32"
+    jdt, tdt = ((jnp.float64, torch.float64) if dt == "f64"
+                else (jnp.float32, torch.float32))
+    jesdf = tesdf = None
+    if name == "dyn64":
+        tm = chip_smoke.dyn64_mission()
+    else:
+        kw["world_use_octomap"] = True
+        with tempfile.TemporaryDirectory() as tmpdir:
+            tm, _ = chip_smoke.forest20_bt_world("cpu", tmpdir)
+            path = tmpdir + "/forest20.bt"
+            jesdf = JESDF.from_bt(path, tm.world_min, tm.world_max,
+                                  dtype=jdt)
+            tesdf = TESDF.from_bt(path, tm.world_min, tm.world_max,
+                                  dtype=tdt, device="cpu")
+    jp, tp = params(**kw)
+    return {"jax_" + dt: JSim(jax_mission(tm), jp, esdf=jesdf,
+                              dtype=jdt).run(),
+            "port_" + dt: TSim(tm, tp, device="cpu", esdf=tesdf,
+                               dtype=tdt).run()}
+
+
+DYN64_MODES = {"dyn64_oracle": ("ORACLE", 0.0, "f32"),
+               "dyn64_lkf": ("LINEAR_KALMAN_FILTER", 0.02, "f32"),
+               "dyn64_oracle_f64": ("ORACLE", 0.0, "f64"),
+               "dyn64_lkf_f64": ("LINEAR_KALMAN_FILTER", 0.02, "f64")}
+
+
+def dyn64_mode_runs(name, cycles=40):
+    """Both packages' run() of `cycles` cycles of chip_smoke.py's dyn64
+    under the prediction mode of DYN64_MODES[name], set after validated()
+    as the JAX package's tests set it.  Returns (a (max |traj diff|, JAX
+    step safety, port step safety) tuple a cycle, {run: summary})."""
+    import chip_smoke
+    from lsc_planner_tpu.config import PredictionMode
+
+    mode, noise, dt = DYN64_MODES[name]
+    jp, tp = params(goal_mode=GoalMode.PRIOR_BASED, obs_observer_stddev=noise)
+    jdt, tdt = ((jnp.float64, torch.float64) if dt == "f64"
+                else (jnp.float32, torch.float32))
+    jsim = JSim(jax_mission(chip_smoke.dyn64_mission()), jp, dtype=jdt)
+    tsim = TSim(chip_smoke.dyn64_mission(), tp, device="cpu", dtype=tdt)
+    jsim.param.prediction_mode = PredictionMode[mode]
+    tsim.param.prediction_mode = type(tsim.param.prediction_mode)[mode]
+    jt, tt = [], []
+
+    def jcycle(state, *dyn):
+        out = jsim._cycle_jit(state, *dyn)
+        jt.append((np.asarray(out[0].traj), float(out[1].safety_step_min)))
+        return out
+    tcycle = tsim.cycle
+
+    def trec(state, *dyn):
+        out = tcycle(state, *dyn)
+        tt.append((out[0].traj.numpy().copy(),
+                   float(out[1].safety_step_min)))
+        return out
+    tsim.cycle = trec
+    runs = {"jax_" + dt: jsim.run(max_iterations=cycles, cycle_fn=jcycle),
+            "port_" + dt: tsim.run(max_iterations=cycles)}
+    per_cycle = [(float(np.abs(a[0] - b[0]).max()), a[1], b[1])
+                 for a, b in zip(jt, tt)]
+    return per_cycle, runs
+
+
 def main(names):
     """Print, a JSON line a case, the cycles, safety and distance of the
     JAX package's and the port's CPU runs in f32 and f64."""
@@ -131,6 +227,27 @@ def main(names):
             print(json.dumps({"case": name, **{
                 key: dict(zip(("distance", "safety", "qp_failures"), v))
                 for key, v in circle128_distances().items()}}), flush=True)
+            continue
+        if name in DYN64_MODES:
+            per_cycle, runs = dyn64_mode_runs(name)
+            for k, (diff, js, ts) in enumerate(per_cycle):
+                print(json.dumps({"case": name, "cycle": k, "traj_diff": diff,
+                                  "jax_safety": js, "port_safety": ts}))
+            print(json.dumps({"case": name, **{key: dict(
+                cycles=int(r["iterations"]),
+                safety=float(r["safety_ratio_agent"]),
+                obstacle_safety=float(r["safety_ratio_obs"]),
+                qp_failures=int(r["qp_failures"]))
+                for key, r in runs.items()}}), flush=True)
+            continue
+        if name in ("dyn64", "forest20_bt", "forest20_bt_f64"):
+            print(json.dumps({"case": name, **{key: dict(
+                cycles=int(r["iterations"]),
+                safety=float(r["safety_ratio_agent"]),
+                obstacle_safety=float(r["safety_ratio_obs"]),
+                qp_failures=int(r["qp_failures"]),
+                distance=float(r["total_flight_distance"]))
+                for key, r in chip_smoke_runs(name).items()}}), flush=True)
             continue
         jm, tm, kw = _case(name)
         jp, tp = params(**kw)

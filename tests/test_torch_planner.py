@@ -109,8 +109,8 @@ def test_goal_planner_matches(rng, mode):
 
 def test_goal_planner_off_slice_raises():
     """Goal modes off the slice raise; with an ESDF the planner builds the
-    grid planner on the JAX package's grid, and the exact castRay option
-    raises."""
+    grid planner on the JAX package's grid, with the exact castRay option
+    too, at the JAX package's recursion depth."""
     from lsc_planner_tpu.world.esdf import ESDF as JESDF
     from lsc_planner_tpu_torch.convert import esdf_from_numpy, esdf_to_numpy
 
@@ -127,8 +127,52 @@ def test_goal_planner_off_slice_raises():
     assert tg.max_wavefront_iters == jg.max_wavefront_iters
     _close(tg._grid_pts, jg._grid_pts, 0.0)
     _close(tg.static_occupancy(0.15), jg.static_occupancy(0.15))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgoal.GoalPlanner(tm, params(grid_los_exact_castray=True)[1], tesdf)
+    jp, tp = params(grid_los_exact_castray=True)
+    tg = tgoal.GoalPlanner(tm, tp, tesdf).grid_planner
+    assert tg.castray_depth == jgoal.GoalPlanner(jm, jp, jesdf).grid_planner \
+        .castray_depth
+
+
+def _boxed_planners(rng, **kw):
+    """Both packages' grid planners (f64) of a 4-agent circle among eight
+    random boxes, with the exact castRay."""
+    from lsc_planner_tpu.ops.grid_search import GridPlanner as JGrid
+    from lsc_planner_tpu.world.esdf import ESDF as JESDF
+    from lsc_planner_tpu_torch.convert import esdf_from_numpy, esdf_to_numpy
+    from lsc_planner_tpu_torch.ops.grid_search import GridPlanner as TGrid
+
+    jm, tm = missions("make_circle_mission", 4, radius=3.0,
+                      world=(-5, -5, 0, 5, 5, 2.5))
+    lo = rng.uniform([-4, -4, 0], [3, 3, 0.5], size=(8, 3))
+    boxes = np.concatenate([lo, lo + rng.uniform(0.3, 1.5, size=(8, 3))], 1)
+    jesdf = JESDF.from_boxes(boxes, jm.world_min, jm.world_max,
+                             dtype=jnp.float64)
+    tesdf = esdf_from_numpy(esdf_to_numpy(jesdf), device="cpu",
+                            dtype=torch.float64)
+    jp, tp = params(grid_los_exact_castray=True, **kw)
+    return (JGrid(jm, jp, esdf=jesdf, dtype=jnp.float64),
+            TGrid(tm, tp, esdf=tesdf, dtype=torch.float64))
+
+
+def test_ray_safe_bisect_matches_jax(rng):
+    """The exact castRay DP on a boxed ESDF: equal bool for bool to the JAX
+    package's (both outcomes occur), and the LOS goal it selects equal."""
+    jg, tg = _boxed_planners(rng)
+    N, P = 6, 9
+    origin = rng.uniform([-4, -4, 0.3], [4, 4, 2.0], size=(N, 3))
+    pts = rng.uniform([-4.5, -4.5, 0.2], [4.5, 4.5, 2.3], size=(N, P, 3))
+    pts[:, 0] = origin + rng.normal(size=(N, 3)) * 0.2    # short rays
+    radius = np.full(N, 0.15)
+    ratios = np.asarray([1.5, 1.4, 1.3, 1.2, 1.1, 1.0])
+    want = np.asarray(jg._ray_safe_bisect(*map(jnp.asarray, (
+        pts, origin, radius, ratios))))
+    got = tg._ray_safe_bisect(*map(_t, (pts, origin, radius, ratios)))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert 0 < want.sum() < want.size
+    goal = rng.uniform([-4, -4, 0.5], [4, 4, 2.0], size=(N, 3))
+    _close(tg.los_free_goal(_t(pts), _t(origin), _t(goal), _t(radius)),
+           jg.los_free_goal(jnp.asarray(pts), jnp.asarray(origin),
+                            jnp.asarray(goal), jnp.asarray(radius)), 0.0)
 
 
 @pytest.mark.parametrize("inclusive", [False, True])

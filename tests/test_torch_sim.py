@@ -186,9 +186,10 @@ def test_off_slice_raises(change, item):
 def test_obstacles_and_fused_dispatch_raise():
     """A static box is world geometry now: the port folds it into the same
     ESDF as the JAX package (equal to the last bit) and builds the corridor
-    and the grid planner; dynamic obstacles still raise, and several
-    cycles a dispatch refuse a per-cycle log with ValueError as the JAX
-    package does."""
+    and the grid planner; a dynamic obstacle builds the obstacle generator
+    and its attribute tensors as the JAX package does, and several cycles a
+    dispatch refuse a per-cycle log with ValueError as the JAX package
+    does."""
     jp, tp = params()
     jm, m = _missions()
     box = dict(pose=np.array([0.0, 0.0, 1.25]),
@@ -205,9 +206,19 @@ def test_obstacles_and_fused_dispatch_raise():
     np.testing.assert_array_equal(td["dist"], jd["dist"])
     np.testing.assert_array_equal(td["occ"], jd["occ"])
     np.testing.assert_array_equal(td["origin_key"], jd["origin_key"])
-    m.obstacles = [tmis.ObstacleSpec(kind="straight")]
-    with pytest.raises(NotImplementedError, match="item 12"):
-        TSim(m, tp)
+    straight = dict(kind="straight", size=0.3, max_acc=1.0, downwash=1.5,
+                    start=np.array([0.0, -4.0, 1.0]),
+                    goal=np.array([0.0, 4.0, 1.0]), speed=0.5)
+    jm.obstacles = [jmis.ObstacleSpec(kind="static", **box),
+                    jmis.ObstacleSpec(**straight)]
+    m.obstacles = [tmis.ObstacleSpec(kind="static", **box),
+                   tmis.ObstacleSpec(**straight)]
+    jsim = JSim(jm, jp, dtype=jnp.float64)
+    sim = TSim(m, tp, dtype=torch.float64)
+    assert sim.O_dyn == jsim.O_dyn == 1 and sim.static_boxes.shape[0] == 1
+    for k in ("obs_radius_dyn", "obs_downwash_dyn", "obs_max_acc_dyn"):
+        np.testing.assert_array_equal(getattr(sim, k).numpy(),
+                                      np.asarray(getattr(jsim, k)), err_msg=k)
     # several cycles a dispatch refuse per-cycle host work as the JAX
     # package does (test_simulator.py::test_fused_dispatch_rejects_dynamic_
     # obstacles)
@@ -229,22 +240,28 @@ def test_default_device_is_the_card():
 
 
 @pytest.mark.parametrize("build", ["from_occupancy", "from_boxes",
-                                   "state_from_numpy", "esdf_from_numpy"])
-def test_world_and_state_builders_default_to_the_card(build):
+                                   "from_bt", "state_from_numpy",
+                                   "esdf_from_numpy"])
+def test_world_and_state_builders_default_to_the_card(build, tmp_path):
     """The ESDF builders and the state converters put their tensors on the
     CUDA device when no device is named; without a card they raise rather
     than build on the CPU."""
     from lsc_planner_tpu_torch.convert import esdf_from_numpy
     from lsc_planner_tpu_torch.world.esdf import ESDF as TESDF
+    from lsc_planner_tpu_torch.world.mapping import save_bt
 
     occ = np.zeros((4, 4, 4), bool)
     occ[1, 2, 3] = True
+    bt = str(tmp_path / "cell.bt")
+    save_bt(bt, np.array([[1, 2, 3]]), 0.1)
     calls = {
         "from_occupancy": lambda: TESDF.from_occupancy(occ, (0, 0, 0), 0.1)
         .dist,
         "from_boxes": lambda: TESDF.from_boxes(
             [[0.1, 0.1, 0.0, 0.2, 0.2, 0.3]], (0, 0, 0), (0.4, 0.4, 0.4))
         .dist,
+        "from_bt": lambda: TESDF.from_bt(bt, (0.05, 0.05, 0.05),
+                                         (0.35, 0.35, 0.35)).dist,
         "state_from_numpy": lambda: state_from_numpy(
             {"pos": np.zeros((2, 3))}).pos,
         "esdf_from_numpy": lambda: esdf_from_numpy(
