@@ -17,8 +17,13 @@ Phases, one line each; any failure raises and exits non-zero:
      factor_solve's x bit for bit; cholesky_batched returns factor_solve's
      L bit for bit, also with a non-SPD entry (NaN in its lower triangle,
      in that entry only); NaN stays in a non-SPD entry; kernel, plain and
-     library times (CUDA events, median of 50); plus one f64 cycle of an
-     8-agent circle on the card against the CPU
+     library times (CUDA events, median of 50); the large-n kernels (one
+     block a matrix) the same way at n in {65, 199, 359, 399, 1024} and B
+     in {1, 64, 130} (n = 1024: B in {1, 130}), f32 and f64, and on the
+     systems of rsfc64's fourth cycle (B = 64, n = 365, f32; held to the
+     plain version by backward error, these KKT systems being
+     ill-conditioned) with kernel, plain and library times (median of 20);
+     plus one f64 cycle of an 8-agent circle on the card against the CPU
   5. flies the 64-agent circle swap (PRIOR_BASED, float32, all-pairs LSC)
      through SyncSimulator.run() on the card and checks it finished safely
      through the kernels (launch counts = cycles * 40 and cycles * 80)
@@ -26,6 +31,7 @@ Phases, one line each; any failure raises and exits non-zero:
      to an f64 plain run) on the QPs that the fourth cycle of phases 7 and
      8 hands it (B = 64, C = 64 and B = 1024, C = 32) and that the first
      cycle of the 128-agent all-pairs circle hands it (B = 128, C = 128),
+     in 3-D and in a 2-D world (circle128-2d: the kernel's ndim 2),
      with tolerances off (3 iterations) and at Param's tolerances; both
      times (CUDA events, median of 20); at Param's tolerances also the
      kernel's time with the rows forced into the layout it did not pick
@@ -41,8 +47,9 @@ Phases, one line each; any failure raises and exits non-zero:
      over a 30 x 30 x 5 m world at 0.25 m ((21, 121, 121), 307,461 cells,
      N = 20, the static grids of its 20 agents), on random grids with
      unreachable cells and an occupied goal (two of them at X = 70, two
-     64-bit words a row, and one at (21, 121, 121)), and where the cap
-     ends the loop (max_iters 8 and 13); kernel and plain times (CUDA
+     64-bit words a row, one at (21, 121, 121), and two of one z layer,
+     as a 2-D world's grids are), and where the cap ends the loop
+     (max_iters 8 and 13); kernel and plain times (CUDA
      events, median of 20), mean relaxation steps
  10. forest20 (20 agents in a seeded synthetic forest of 60 tree columns,
      simple_forest's bbox and resolution) flown with run() on the card
@@ -95,6 +102,23 @@ Phases, one line each; any failure raises and exits non-zero:
      (grid_los_exact_castray): 20 uncaptured cycles, then
      run(steps_per_dispatch=10) of 20 cycles with the same bits in every
      SwarmState field; the grid goal stage's ms against phase 10's
+ 15. the other planner modes (f32, PRIOR_BASED; JAX's CPU f32 runs of
+     the same missions as constants): bvc64 (BVC) to the finish, dense
+     rows at n = 45 on the one-warp chol kernels, cycles within max(20 %,
+     10) of JAX's; rsfc64 (RECIPROCAL_RSFC), 20 cycles of the slack QP at
+     n = 365 on the large-n chol kernels, distance within 10 % of JAX's,
+     safety > 0.9, then the same 20 cycles through
+     run(steps_per_dispatch=10) with 0 differing bits; exp64 (experiment
+     mode) through cycle() and inject_positions: 4 agents pushed 0.3-0.5
+     m before cycle 5, that cycle finite with max primal residual < 0.1,
+     the flags set and cleared and the SFCs re-seeded, then 60 cycles
+     with safety > 0.8 after it; circle64-2d to the finish (z within 0.05
+     m of z_2d, cycles in the band of JAX's), then 10 captured cycles
+     after 20 against 10 uncaptured, bit for bit; circle128-2d, 20
+     all-pairs cycles through the fused IPM's 2-D instantiation, one
+     launch a cycle, distance within 10 % of JAX's f64 run; rh64
+     (RIGHT_HAND), 40 cycles, safety >= 1; the launch counts of each
+     (40 factor_solve and 80 resolve a cycle on the kernels of its n)
 Then the kernels' JSON line (every kernel: launches on its main path,
 error against its plain version, kernel / plain / library ms, and the
 bound for the same work computed from this run's inputs), and last
@@ -115,6 +139,7 @@ import torch
 from lsc_planner_tpu_torch import (GoalMode, ObstacleSpec, Param,
                                    PredictionMode, make_circle_mission,
                                    make_random_mission)
+from lsc_planner_tpu_torch.config import PlannerMode
 from lsc_planner_tpu_torch.config import SP_EPSILON
 from lsc_planner_tpu_torch.convert import state_to_numpy
 from lsc_planner_tpu_torch.ops import _build, chol, ipm, wavefront
@@ -157,6 +182,12 @@ JAX_CPU_F32_KNN_OVERFLOW_MAX = 0
 # the port's f32 run to the f64 distance and prints the others beside it
 # (tests/test_torch_f32_missions.py circle128 prints these runs).
 ALL_N, ALL_CYCLES = 128, 20
+# phase 4: the large-n chol kernels' sizes.  The slack QP's n is nv + C M
+# with a slack entry for each of C = 64 agent columns (an agent's own
+# column is masked but keeps its entries, as in the JAX package): 359 for
+# exp64 (nv 39), 365 for rsfc64 (nv 45, no stop-at-horizon rows), 399
+# = 39 + 72 x 5 for dyn64's 64 agents and 8 obstacles in experiment mode
+LARGE_NS = (65, 199, 359, 399, 1024)
 JAX_CPU_F64_DIST_128 = 530.7035639320115
 JAX_CPU_F32_DIST_128 = 454.4812316894531
 OFF3 = dict(iters=3, tol_gap=0.0, tol_rp=0.0, correctors=1)
@@ -195,6 +226,43 @@ JAX_CPU_F32_DYN64_CYCLES = 146
 JAX_CPU_F32_FOREST_BT_CYCLES = 99
 # phase 14: cycles of the exact castRay's uncaptured and captured runs
 CASTRAY_CYCLES = 20
+# phase 15: the other planner modes at circle64 / circle128 width, each
+# case (agents, Param keywords besides PRIOR_BASED, cycles: None flies to
+# the finish)
+MODE_CASES = {
+    "bvc64": (64, dict(planner_mode=PlannerMode.BVC), None),
+    "rsfc64": (64, dict(planner_mode=PlannerMode.RECIPROCAL_RSFC), 20),
+    "exp64": (64, dict(multisim_experiment=True), 60),
+    "circle64_2d": (64, dict(world_dimension=2, world_z_2d=1.0), None),
+    "circle128_2d": (128, dict(world_dimension=2, world_z_2d=1.0), 20),
+    "rh64": (64, dict(goal_mode=GoalMode.RIGHT_HAND), 40),
+}
+# The JAX package's runs of these missions on a CPU in float32 through
+# fly_cycles, 0 QPFAILED in each (tests/test_torch_f32_missions.py bvc64
+# rsfc64 exp64 circle64_2d circle128_2d circle128_2d_f64 rh64 prints
+# them):
+# bvc64 (cycles, min safety), to the finish: 1393.2155 m
+JAX_CPU_F32_BVC64 = (217, 1.0052)
+# rsfc64 (distance over its 20 cycles, min safety, QPFAILED)
+JAX_CPU_F32_RSFC64 = (260.8952331542969, 2.9960, 0)
+# exp64: 60 cycles (not finished), 635.5281 m, min safety 1.0148 after the
+# injection cycle and overall, that cycle's max primal residual 8.54e-06,
+# flags and SFC resets of agents 0, 16, 32 and 48, cleared after it
+JAX_CPU_F32_EXP64 = ("60 cycles, 635.5281 m, min safety 1.0148 after "
+                     "the injection cycle, its max primal residual "
+                     "8.54e-06")
+# circle64_2d (cycles, min safety), to the finish: 1354.1218 m
+JAX_CPU_F32_2D64 = (197, 1.0082)
+# circle128_2d: distance over its 20 cycles in f32 (min safety 1.4215) and
+# in f64 (2.1833).  As on circle128 (phase 11), JAX's f32 run is 14.1 %
+# below its f64 run, so the phase holds the port to the f64 distance.
+JAX_CPU_2D128 = (455.5657043457031, 530.579147154177)
+# rh64 (distance over its 40 cycles, cycles): min safety 1.0027
+JAX_CPU_F32_RH64 = (611.137939453125, 40)
+# exp64's disturbance: before cycle EXP_INJECT_CYCLE the agents EXP_PUSHED
+# are observed 0.3-0.5 m off their plans (horizontal offsets, numpy seed
+# EXP_SEED)
+EXP_INJECT_CYCLE, EXP_PUSHED, EXP_SEED = 5, (0, 16, 32, 48), 15
 # H100 peaks for the bounds (NVIDIA's data sheet, SXM): f32 outside the
 # tensor cores and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
@@ -494,6 +562,195 @@ def compare_kernels(dev):
     return out
 
 
+def big_spd_system(B, n, seed, dev):
+    """ipm_like_system at a large n, built on the card in f64 (numpy's
+    three-operand einsum would take minutes): (Hs, r1, r2)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    A = torch.randn(B, 3 * n, n, generator=g, device=dev,
+                    dtype=torch.float64)
+    d = torch.exp(torch.empty(B, 3 * n, device=dev, dtype=torch.float64
+                              ).uniform_(-math.log(1e3), math.log(1e3),
+                                         generator=g))
+    H = torch.eye(n, device=dev, dtype=torch.float64) + \
+        A.mT @ (A * d[..., None])
+    dsc = torch.rsqrt(torch.diagonal(H, dim1=-2, dim2=-1))
+    r = torch.randn(2, B, n, generator=g, device=dev, dtype=torch.float64)
+    return H * dsc[:, :, None] * dsc[:, None, :], r[0], r[1]
+
+
+def backward_error(H, L, x, r):
+    """Per-kernel backward errors in f64: max over the batch of
+    ||H x - r|| / (||H|| ||x|| + ||r||) (inf norms) for a solve, and
+    ||L L' - H|| / ||H|| for the factor."""
+    Hn = H.abs().sum(-1).amax(-1)
+    if x is None:
+        return ((L @ L.mT - H).abs().sum(-1).amax(-1) / Hn).max().item()
+    res = (H @ x[..., None])[..., 0] - r
+    return (res.abs().amax(-1) / (Hn * x.abs().amax(-1) +
+                                  r.abs().amax(-1))).max().item()
+
+
+def check_large_chol(what, H64, R1d, R2d, dtype, time_it=False,
+                     backward=False):
+    """The large-n chol kernels (one block a matrix) on one system in
+    dtype, each held to the f64 solve as its plain version in dtype is
+    (f32: within 4x its error + 1e-6; f64: 1e-9 relative to the solution's
+    size), resolve(L, rhs) bit-equal to factor_solve's x, the factor
+    alone bit-equal to factor_solve's L (zeros above the diagonal), and,
+    for B > 1, a non-SPD entry NaN there only.  With backward (the
+    main path's own, ill-conditioned KKT systems, whose f32 solutions
+    are O(1) off the f64 ones for both versions) the errors are backward
+    errors (backward_error), the kernel's within 4x the plain version's
+    + n 2^-24.  Returns (the kernel's error per kernel, and with time_it
+    kernel / plain / library ms)."""
+    B, n = H64.shape[0], H64.shape[-1]
+    L64, x64 = chol.chol_factor_solve_plain(H64, R1d)
+    y64 = chol.chol_resolve_plain(L64, R2d)
+    H, R1, R2 = H64.to(dtype), R1d.to(dtype), R2d.to(dtype)
+    Lk, xk = chol.chol_factor_solve(H, R1)
+    yk = chol.chol_resolve(Lk, R2)
+    xr = chol.chol_resolve(Lk, R1)
+    Fk = chol.cholesky_batched(H)
+    torch.cuda.synchronize()
+    if not torch.equal(xr, xk):
+        raise AssertionError(f"{what}: resolve(L, rhs) differs from "
+                             f"factor_solve's x in {int((xr != xk).sum())} "
+                             "entries")
+    if not torch.equal(bits(Fk), bits(Lk)) or \
+            not torch.equal(torch.triu(Lk, 1), torch.zeros_like(Lk)):
+        raise AssertionError(f"{what}: the factor alone is not "
+                             "factor_solve's L, or L has entries above "
+                             "the diagonal")
+    Lp, xp = chol.chol_factor_solve_plain(H, R1)
+    yp = chol.chol_resolve_plain(Lp, R2)
+    errs = {}
+    for name, got, plain, ref in (("factor_solve", xk, xp, x64),
+                                  ("resolve", yk, yp, y64),
+                                  ("factor", Fk, Lp, L64)):
+        if backward:
+            r = R1d if name == "factor_solve" else R2d
+            L_k, L_p = (Lk, Lp) if name == "resolve" else (None, None)
+            if name == "factor":
+                e_k = backward_error(H64, got.double(), None, None)
+                e_p = backward_error(H64, plain.double(), None, None)
+            else:
+                e_k = backward_error(H64, L_k, got.double(), r)
+                e_p = backward_error(H64, L_p, plain.double(), r)
+            lim = 4 * e_p + n * 2.0 ** -24
+        else:
+            e_k = (got.double() - ref).abs().max().item()
+            e_p = (plain.double() - ref).abs().max().item()
+            lim = (4 * e_p + 1e-6 if dtype == torch.float32 else
+                   1e-9 * max(1.0, ref.abs().max().item()))
+        if not e_k <= lim:
+            raise AssertionError(f"{what} {name}: kernel error {e_k} > "
+                                 f"{lim} (plain {e_p})")
+        errs[name] = e_k
+    if B > 1:
+        Hb = H.clone()
+        Hb[B // 2, 7, 7] = -1.0
+        Lb, xb = chol.chol_factor_solve(Hb, R1)
+        yb = chol.chol_resolve(Lb, R2)
+        torch.cuda.synchronize()
+        for v in (xb, yb, Lb.flatten(1)):
+            bad = (~torch.isfinite(v).all(-1)).nonzero().flatten().tolist()
+            if bad != [B // 2]:
+                raise AssertionError(f"{what}: non-SPD entry {B // 2} -> "
+                                     f"non-finite entries {bad}")
+        if check_factor_alone(Hb, R1, what) != [B // 2]:
+            raise AssertionError(f"{what}: the factor alone's NaN entries")
+    times = None
+    if time_it:
+        R2c = R2[..., None]
+        times = {
+            "factor_solve": (
+                median_ms(lambda: chol.chol_factor_solve(H, R1), reps=20),
+                median_ms(lambda: chol.chol_factor_solve_plain(H, R1),
+                          reps=20),
+                median_ms(lambda: torch.cholesky_solve(
+                    R2c, torch.linalg.cholesky_ex(H)[0]), reps=20)),
+            "resolve": (
+                median_ms(lambda: chol.chol_resolve(Lk, R2), reps=20),
+                median_ms(lambda: chol.chol_resolve_plain(Lk, R2), reps=20),
+                median_ms(lambda: torch.cholesky_solve(R2c, Lk), reps=20)),
+            "factor": (
+                median_ms(lambda: chol.cholesky_batched(H), reps=20),
+                median_ms(lambda: chol.cholesky_batched_plain(H), reps=20),
+                median_ms(lambda: torch.linalg.cholesky_ex(H), reps=20)),
+        }
+    return errs, times
+
+
+def compare_large_chol(dev):
+    """Phase 4, large n: the block-a-matrix chol kernels on IPM-like
+    systems at n in LARGE_NS and B in {1, 64, 130}, f32 and f64 (n = 1024
+    at B in {1, 130})."""
+    for n in LARGE_NS:
+        for B in ((1, 130) if n == 1024 else (1, MAIN_B, 130)):
+            H64, R1d, R2d = big_spd_system(B, n, n + B, dev)
+            errs = [check_large_chol(f"large-n B={B} n={n} {dtype}", H64,
+                                     R1d, R2d, dtype)[0]
+                    for dtype in (torch.float32, torch.float64)]
+            phase("4 kernels", f"large n: B={B} n={n}: held to the f64 solve"
+                               " (factor_solve / resolve / factor alone "
+                               "errors f32 " + " / ".join(
+                                   f"{e:.2e}" for e in errs[0].values()) +
+                               ", f64 " + " / ".join(
+                                   f"{e:.2e}" for e in errs[1].values()) +
+                               "), resolve bit-equal to factor_solve's x, "
+                               "the factor alone to its L" +
+                               (f", non-SPD entry {B // 2}: NaN there only"
+                                if B > 1 else ""))
+
+
+def capture_chol_calls(sim, cycles_before):
+    """The inputs of the first factor_solve and resolve calls of one cycle
+    of sim after cycles_before cycles: ((H, rhs), (L, rhs))."""
+    state = sim.initial_state()
+    for _ in range(cycles_before):
+        state, _ = sim.cycle(state)
+    seen = {}
+    fs, rs = chol.chol_factor_solve, chol.chol_resolve
+
+    def record(name, fn):
+        def call(a, b):
+            seen.setdefault(name, (a.clone(), b.clone()))
+            return fn(a, b)
+        return call
+    chol.chol_factor_solve = record("fs", fs)
+    chol.chol_resolve = record("rs", rs)
+    try:
+        sim.cycle(state)
+    finally:
+        chol.chol_factor_solve, chol.chol_resolve = fs, rs
+    return seen["fs"], seen["rs"]
+
+
+def time_large_chol(dev):
+    """Phase 4 on the main path's own large-n systems: the chol kernels on
+    the first factor_solve and resolve inputs of rsfc64's fourth cycle
+    (B = 64, n = nv + C M = 45 + 64 x 5 = 365, f32), held to the plain
+    version by backward error, and timed; and on an IPM-like system of
+    that shape, held to the f64 solve.  Returns (the IPM-like system's
+    errors, the cycle-4 systems' kernel / plain / library ms, the
+    shape)."""
+    tm, kw, _ = mode_case("rsfc64")
+    sim = SyncSimulator(tm, Param(**kw), device=dev, dtype=torch.float32)
+    (H, R1), (_, R2) = capture_chol_calls(sim, 3)
+    B, n = H.shape[0], H.shape[-1]
+    back, times = check_large_chol(
+        "rsfc64 cycle 4", H.double(), R1.double(), R2.double(),
+        torch.float32, time_it=True, backward=True)
+    errs, _ = check_large_chol(f"IPM-like B={B} n={n}",
+                               *big_spd_system(B, n, n, dev),
+                               torch.float32)
+    phase("4 kernels", f"rsfc64 cycle 4 (B={B}, n={n}, f32): " + "; ".join(
+        f"{k} backward err {back[k]:.3e} (IPM-like system's forward err "
+        f"{errs[k]:.3e}), {t[0]:.4f} ms vs plain {t[1]:.4f} ms, library "
+        f"{t[2]:.4f} ms" for k, t in times.items()))
+    return errs, times, (B, n)
+
+
 def cycle_parity(dev):
     """Three f64 cycles of an 8-agent circle: the card (f64 kernels) must
     reproduce the CPU run (plain versions) to 1e-6 m."""
@@ -540,7 +797,7 @@ def capture_fused_call(sim, cycles_before):
 def fused_obj_primal(args, y):
     """Objective 0.5 y'Py + q'y and max row violation at y, float64."""
     P_blk, q, _, U, b_pairs, nsc, scale, b_pl, F_seg, _ = args
-    y3 = y.double().reshape(y.shape[0], 3, -1)
+    y3 = y.double().reshape(y.shape[0], U.shape[0], -1)
     obj = 0.5 * torch.einsum("nkf,nfg,nkg->n", y3, P_blk, y3) + \
         (q * y.double()).sum(-1)
     su = torch.einsum("kuf,nkf->nku", U, y3).reshape(y.shape[0], -1)
@@ -562,11 +819,12 @@ def compare_fused(calls):
     + 1e-3 of the objective scale), its mean tile iteration count no
     farther from the f64 one than the plain f32 count is (or 1), and at
     Param's tolerances a primal residual < 1e-4.
-    Returns the B = 1024 numbers at Param's tolerances."""
-    main, failed = None, []
+    Returns {(B, C, ndim): (y error, kernel ms, plain ms, bound)} at
+    Param's tolerances."""
+    main, failed = {}, []
     for a32, prod in calls:
         a64 = [a.double() for a in a32]
-        B, C = a32[5].shape[:2]
+        B, C, D = a32[5].shape[0], a32[5].shape[1], a32[5].shape[-1]
         for case, kw in (("off3", dict(prod, **OFF3)), ("param", prod)):
             ref = ipm.ipm_lsc_fused_plain(*a64, **kw)
             plain = ipm.ipm_lsc_fused_plain(*a32, **kw)
@@ -586,7 +844,8 @@ def compare_fused(calls):
             t_k = median_ms(lambda: ipm.ipm_lsc_fused(*a32, **kw), reps=20)
             t_p = median_ms(lambda: ipm.ipm_lsc_fused_plain(*a32, **kw),
                             reps=20)
-            phase("6 fused", f"B={B} C={C} {case}: y err {e_k:.3e} (plain "
+            phase("6 fused", f"B={B} C={C} ndim={D} {case}: y err "
+                             f"{e_k:.3e} (plain "
                              f"f32 {e_p:.3e}); objective err {o_k:.2e} of "
                              f"scale {obj_scale:.4g} (plain f32 {o_p:.2e}); "
                              f"primal {pr_k:.2e} (plain f32 {pr_p:.2e}, f64 "
@@ -610,9 +869,9 @@ def compare_fused(calls):
                 # the same call with the rows in the other layout
                 nf, Ru = a32[0].shape[-1], a32[3].shape[1]
                 M, n1 = a32[5].shape[2], a32[6].shape[-1]
-                plan = ipm.fused_plan(B, nf, Ru, C, M, n1)
+                plan = ipm.fused_plan(B, nf, Ru, C, M, n1, ndim=D)
                 other = "global" if plan["rows_in_smem"] else "smem"
-                alt = ipm.fused_plan(B, nf, Ru, C, M, n1, other)
+                alt = ipm.fused_plan(B, nf, Ru, C, M, n1, other, ndim=D)
                 # the captured call passes every keyword _fused_cuda takes
                 t_o = median_ms(lambda: ipm._fused_cuda(
                     *a32, **kw, rows=other), reps=20)
@@ -622,8 +881,8 @@ def compare_fused(calls):
                                  f"forced into {other} memory "
                                  f"({alt['qps_an_sm']} QPs an SM): "
                                  f"{t_o:.4f} ms")
-            if (B, case) == (BIG_N, "param"):
-                main = (e_k, t_k, t_p, fused_bound(a32, kw))
+            if case == "param":
+                main[(B, C, D)] = (e_k, t_k, t_p, fused_bound(a32, kw))
     if failed:
         raise AssertionError("fused kernel: " + "; ".join(failed))
     return main
@@ -634,20 +893,23 @@ def fused_bound(args, kw):
     written once, against the f32 operations of the iterations these QPs
     ran (each QP's own count, from the kernel).  An iteration's operations
     are those of the factored rows (a multiply-add counts 2): the plane
-    Gram through its per-segment weights W (6 dimension pairs x R rows)
-    and F_seg' W F_seg on the symmetric blocks, the static rows' symmetric
+    Gram through its per-segment weights W (D (D + 1) / 2 dimension pairs
+    x R rows, D the dimension) and F_seg' W F_seg on the symmetric
+    blocks, the static rows' symmetric
     Gram, the factor (nv^3 / 3), and for each of its 2 + correctors KKT
     solves and the exit test the two row products and (KKT only) the two
     triangular substitutions (nv^2 each).  Elementwise work is left out."""
     P_blk, U, F_seg = args[0], args[3], args[8]
     C = args[5].shape[1]
-    nf, Ru = P_blk.shape[-1], U.shape[1]
-    nv, MI = 3 * nf, F_seg.shape[0] * F_seg.shape[1]
-    R, S = C * MI, 3 * Ru
+    nf, D, Ru = P_blk.shape[-1], U.shape[0], U.shape[1]
+    nv, MI = D * nf, F_seg.shape[0] * F_seg.shape[1]
+    R, S = C * MI, D * Ru
+    pairs = D * (D + 1) // 2            # the Gram's dimension pairs
     sym, full = nf * (nf + 1) / 2, nf * nf
-    gram = 4 * 6 * R + 2 * MI * (3 * sym + 3 * full) + 2 * Ru * 3 * sym
-    rows = (2 * 3 * MI * nf + 6 * R + 2 * S * nf +      # A v
-            2 * 3 * MI * C + 2 * nv * (Ru + MI))        # A' w
+    gram = (4 * pairs * R + 2 * MI * (D * sym + (pairs - D) * full) +
+            2 * Ru * D * sym)
+    rows = (2 * D * MI * nf + 2 * D * R + 2 * S * nf +      # A v
+            2 * D * MI * C + 2 * nv * (Ru + MI))            # A' w
     kkts = 2 + kw.get("correctors", 0)
     per_iter = gram + nv ** 3 / 3 + kkts * (rows + 2 * nv * nv) + rows
     out = ipm.ipm_lsc_fused(*args, **kw, qp_counts=True)
@@ -820,7 +1082,9 @@ def compare_wavefront(dev, forest_sim):
     for shape, max_iters in (((20, 11, 41, 41), 139), ((3, 5, 21, 21), 70),
                              ((4, 7, 13, 29), 13), ((20, 11, 41, 41), 8),
                              ((4, 9, 23, 70), 200), ((4, 9, 23, 70), 13),
-                             ((20, 21, 121, 121), 394)):
+                             ((20, 21, 121, 121), 394),
+                             # a 2-D world's grids have one z layer
+                             ((20, 1, 41, 41), 139), ((4, 1, 23, 70), 13)):
         occ, goal = random_wavefront_case(dev, shape, sum(shape) + max_iters)
         cases.append((f"random {shape} cap {max_iters}", occ, goal,
                       max_iters))
@@ -1161,7 +1425,7 @@ def differing_bits(a, b):
     return sum(int(((x >> i) & 1).sum()) for i in range(nbits))
 
 
-def captured_bits(sim, what):
+def captured_bits(sim, what, name="12 captured"):
     """From the state after CAPTURE_BEFORE uncaptured cycles, CAPTURE_K
     cycles through the captured graph (the one fly_captured's run
     captured: same shapes) against CAPTURE_K uncaptured ones: raises
@@ -1178,11 +1442,10 @@ def captured_bits(sim, what):
     diffs = {f: differing_bits(a, b) for f, a, b in zip(got._fields, got,
                                                           want)
              if a is not None}
-    phase("12 captured", f"{what}: {CAPTURE_K} captured cycles after "
-                         f"{CAPTURE_BEFORE} against {CAPTURE_K} uncaptured: "
-                         f"differing bits {sum(diffs.values())} "
-                         f"({', '.join(f'{k} {v}' for k, v in diffs.items())}"
-                         ")")
+    phase(name, f"{what}: {CAPTURE_K} captured cycles after "
+                f"{CAPTURE_BEFORE} against {CAPTURE_K} uncaptured: "
+                f"differing bits {sum(diffs.values())} "
+                f"({', '.join(f'{k} {v}' for k, v in diffs.items())})")
     if any(diffs.values()):
         raise AssertionError(f"{what}: captured cycles differ from "
                              f"uncaptured ones in {diffs}")
@@ -1514,6 +1777,305 @@ def fly_forest20_castray(dev, forest_stages):
                        f"{forest_stages[label]:.2f} ms)")
 
 
+def mode_case(name, mis=None):
+    """(mission, Param keywords, cycles) of MODE_CASES[name]; the mission
+    from the missions module `mis` (the port's by default)."""
+    qn, kw, cycles = MODE_CASES[name]
+    kw = dict(dict(goal_mode=GoalMode.PRIOR_BASED), **kw)
+    radius = max(4.0, 0.45 * qn / math.pi)
+    w = radius + 2.0
+    make = make_circle_mission if mis is None else mis.make_circle_mission
+    return (make(qn, radius=radius, z=kw.get("world_z_2d", 1.0),
+                 world=(-w, -w, 0, w, w, 2.5)), kw, cycles)
+
+
+def exp_push():
+    """exp64's observed offsets of the agents EXP_PUSHED, (4, 3) metres."""
+    rng = np.random.default_rng(EXP_SEED)
+    mag = rng.uniform(0.3, 0.5, size=len(EXP_PUSHED))
+    th = rng.uniform(0.0, 2.0 * math.pi, size=len(EXP_PUSHED))
+    return np.stack([mag * np.cos(th), mag * np.sin(th),
+                     np.zeros_like(mag)], axis=1)
+
+
+def as_numpy(x):
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def fly_cycles(sim, step, cycles, inject=False):
+    """Up to `cycles` cycles of step (sim.cycle, or the JAX package's
+    sim._cycle_jit: this works with either package's simulator), to the
+    finish when the mission finishes first; with inject, exp64's
+    disturbance through sim.inject_positions before cycle
+    EXP_INJECT_CYCLE.  Returns a dict: cycles, finished, distance, the
+    min step safety (and after the injection cycle), QPFAILED, and for the
+    injection cycle its max primal residual, whether its trajectories are
+    finite, the pushed agents' slack flags and SFC-initialized flags
+    before it and every flag after it, and the final state."""
+    state = sim.initial_state()
+    out = dict(safety=math.inf, safety_after=math.inf, qp_failures=0,
+               finished=False)
+    for it in range(cycles):
+        if inject and it == EXP_INJECT_CYCLE:
+            real = np.array(as_numpy(sim.propagate(state)[0]), np.float64)
+            real[list(EXP_PUSHED)] += exp_push()
+            state = sim.inject_positions(state, real)
+            out["flags_set"] = as_numpy(state.slack_flags).nonzero()[0]
+            out["sfc_reset"] = (~as_numpy(state.sfc_initialized)
+                                ).nonzero()[0]
+        state, info = step(state)
+        safety = float(as_numpy(info.safety_step_min))
+        out["safety"] = min(out["safety"], safety)
+        if inject and it > EXP_INJECT_CYCLE:
+            out["safety_after"] = min(out["safety_after"], safety)
+        out["qp_failures"] += int(as_numpy(info.qp_failed).sum())
+        if inject and it == EXP_INJECT_CYCLE:
+            out["inject_primal"] = float(as_numpy(info.primal_res).max())
+            out["inject_finite"] = bool(np.isfinite(
+                as_numpy(state.traj)).all())
+            out["flags_after"] = int(as_numpy(state.slack_flags).sum())
+            out["sfc_after"] = bool(as_numpy(state.sfc_initialized).all())
+        if sim.is_finished(state):
+            out["finished"] = True
+            break
+    out.update(cycles=it + 1, distance=float(as_numpy(state.distance)),
+               state=state)
+    return out
+
+
+def mode_sim(dev, name):
+    """(simulator on the card in f32, Param, cycles) of MODE_CASES[name]."""
+    tm, kw, cycles = mode_case(name)
+    param = Param(**kw)
+    return (SyncSimulator(tm, param, device=dev, dtype=torch.float32), param,
+            cycles)
+
+
+def chol_launches(param, cycles, large):
+    """A dense-row mission's chol launches: 40 factor_solve and 80 resolve
+    a cycle, on the one-warp kernels or (large) the block-a-matrix ones."""
+    sfx = "_large" if large else ""
+    return {"factor_solve" + sfx: cycles * param.qp_iterations,
+            "resolve" + sfx: cycles * param.qp_iterations *
+            (1 + param.qp_correctors)}
+
+
+def in_band(cycles, ref):
+    return abs(cycles - ref) <= max(0.2 * ref, 10)
+
+
+def fly_bvc64(dev):
+    """bvc64 to the finish through the one-warp chol kernels (dense rows at
+    n = 45): held to the JAX package's CPU f32 run, which finishes."""
+    sim, param, _ = mode_sim(dev, "bvc64")
+    reset_launch_counts()
+    summary = sim.run()
+    torch.cuda.synchronize()
+    cycles = summary["iterations"]
+    launches = check_launches("bvc64", **chol_launches(param, cycles, False))
+    check_mission(summary, param, sim.N, "bvc64")
+    if not in_band(cycles, JAX_CPU_F32_BVC64[0]):
+        raise AssertionError(f"bvc64: {cycles} cycles, JAX CPU f32 "
+                             f"{JAX_CPU_F32_BVC64[0]}")
+    phase("15 modes", f"bvc64 (BVC, POSITION prediction and initial "
+                      f"trajectory) finished in {cycles} cycles (JAX CPU "
+                      f"f32: {JAX_CPU_F32_BVC64[0]} cycles, safety "
+                      f"{JAX_CPU_F32_BVC64[1]}), safety "
+                      f"{summary['safety_ratio_agent']:.4f}, 0 QPFAILED, "
+                      f"{1e3 * summary['wall_time'] / cycles:.2f} ms/cycle "
+                      f"(run wall / cycles), launches {launches}")
+    return launches
+
+
+def fly_rsfc64(dev):
+    """rsfc64, 20 cycles: every cycle the slack QP at n = 45 + 64 x 5 =
+    365 on the block-a-matrix chol kernels; distance within 10 % of the
+    JAX package's CPU f32 run, safety > 0.9 (tests/test_modes.py's bound
+    for RSFC), finite trajectories; then the same 20 cycles through
+    run(steps_per_dispatch=CAPTURE_K), bit for bit.  Returns the launches
+    of the uncaptured run."""
+    sim, param, cycles = mode_sim(dev, "rsfc64")
+    reset_launch_counts()
+    summary = sim.run(max_iterations=cycles)
+    torch.cuda.synchronize()
+    launches = check_launches("rsfc64", **chol_launches(param, cycles, True))
+    dist = summary["total_flight_distance"]
+    state = summary["final_state"]
+    if summary["iterations"] != cycles or \
+            not bool(torch.isfinite(state.traj).all()):
+        raise AssertionError(f"rsfc64: {summary['iterations']} cycles, "
+                             "finite trajectories "
+                             f"{bool(torch.isfinite(state.traj).all())}")
+    if not summary["safety_ratio_agent"] > 0.9:
+        raise AssertionError(f"rsfc64: safety {summary['safety_ratio_agent']}"
+                             " <= 0.9")
+    if not abs(dist - JAX_CPU_F32_RSFC64[0]) <= 0.1 * JAX_CPU_F32_RSFC64[0]:
+        raise AssertionError(f"rsfc64: distance {dist} m, JAX CPU f32 "
+                             f"{JAX_CPU_F32_RSFC64[0]} m")
+    ms = 1e3 * summary["wall_time"] / cycles
+    from lsc_planner_tpu_torch.ops import qp as qp_ops
+    st = stage_times(sim, [(sim.optimizer, "solve", "optimizer.solve"),
+                           (qp_ops, "solve_qp", "solve_qp"),
+                           (chol, "chol_factor_solve", "factor_solve"),
+                           (chol, "chol_resolve", "resolve")],
+                     cycles_before=5)
+    reset_launch_counts()
+    captured = sim.run(max_iterations=cycles, steps_per_dispatch=CAPTURE_K)
+    torch.cuda.synchronize()
+    got = captured["final_state"]
+    diffs = {f: differing_bits(a, b) for f, a, b in zip(got._fields, got,
+                                                          state)
+             if a is not None}
+    if any(diffs.values()):
+        raise AssertionError(f"rsfc64: run(steps_per_dispatch={CAPTURE_K}) "
+                             f"differs from run() in {diffs}")
+    n_kkt = sim.optimizer.nv + sim.N * param.M
+    phase("15 modes", f"rsfc64 (RECIPROCAL_RSFC, the slack QP at n = "
+                      f"{n_kkt}): {cycles} cycles, "
+                      f"distance {dist:.4f} m (JAX CPU f32 "
+                      f"{JAX_CPU_F32_RSFC64[0]:.4f} m), safety "
+                      f"{summary['safety_ratio_agent']:.4f} (JAX "
+                      f"{JAX_CPU_F32_RSFC64[1]}), {summary['qp_failures']} "
+                      f"QPFAILED (JAX {JAX_CPU_F32_RSFC64[2]}), {ms:.2f} "
+                      f"ms/cycle uncaptured, "
+                      f"{1e3 * captured['average_planning_time']:.2f} "
+                      f"captured (blocks after the first), launches "
+                      f"{launches}; run(steps_per_dispatch={CAPTURE_K}): "
+                      f"differing bits {sum(diffs.values())} over "
+                      f"{len(diffs)} fields")
+    n_fs = param.qp_iterations
+    n_rs = n_fs * (1 + param.qp_correctors)
+    phase("15 modes", "rsfc64 stage ms (median of 5 cycles after 5, a sync "
+                      "around each call): " + ", ".join(
+                          f"{k} {v:.3f}" for k, v in st.items()) +
+          f"; a cycle's {n_fs} factor_solve and {n_rs} resolve calls "
+          f"{n_fs * st['factor_solve'] + n_rs * st['resolve']:.2f}")
+    return launches
+
+
+def fly_exp64(dev):
+    """exp64: experiment mode through cycle() and inject_positions (run()
+    paces itself to real time): before cycle EXP_INJECT_CYCLE the agents
+    EXP_PUSHED are observed 0.3-0.5 m off; that cycle's slack QP stays
+    finite and near-feasible (max primal residual < 0.1, as
+    tests/test_disturbance.py), the pushed agents' SFCs were re-seeded and
+    every flag is cleared after it; then to the finish or 60 cycles,
+    safety > 0.8 after the injection cycle (test_disturbance.py's
+    bound)."""
+    sim, param, cycles = mode_sim(dev, "exp64")
+    reset_launch_counts()
+    out = fly_cycles(sim, sim.cycle, cycles, inject=True)
+    torch.cuda.synchronize()
+    done = out["cycles"]
+    launches = check_launches("exp64", **chol_launches(param, done, True))
+    pushed = list(EXP_PUSHED)
+    checks = {
+        "inject flags": list(out["flags_set"]) == pushed,
+        "SFC re-seeded": list(out["sfc_reset"]) == pushed,
+        "finite": out["inject_finite"],
+        "primal < 0.1": out["inject_primal"] < 0.1,
+        "flags cleared": out["flags_after"] == 0 and out["sfc_after"],
+        "safety after > 0.8": out["safety_after"] > 0.8,
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"exp64: {checks}, {out}")
+    phase("15 modes", f"exp64 (experiment mode, {len(pushed)} agents pushed "
+                      f"0.3-0.5 m before cycle {EXP_INJECT_CYCLE}): that "
+                      f"cycle's max primal residual {out['inject_primal']:.2e}"
+                      f", flags set {pushed} and cleared, SFCs re-seeded; "
+                      f"{done} cycles"
+                      f"{' (finished)' if out['finished'] else ''}"
+                      f", min safety after it {out['safety_after']:.4f} "
+                      f"(overall {out['safety']:.4f}), {out['qp_failures']} "
+                      f"QPFAILED, distance {out['distance']:.4f} m; JAX CPU "
+                      f"f32: {JAX_CPU_F32_EXP64}; launches {launches}")
+
+
+def fly_circle64_2d(dev):
+    """circle64-2d to the finish through the one-warp chol kernels (n =
+    26): z within 0.05 m of z_2d, cycles within the band of the JAX
+    package's CPU f32 run; then CAPTURE_K captured cycles after
+    CAPTURE_BEFORE against uncaptured ones, bit for bit."""
+    sim, param, _ = mode_sim(dev, "circle64_2d")
+    reset_launch_counts()
+    summary = sim.run()
+    torch.cuda.synchronize()
+    cycles = summary["iterations"]
+    launches = check_launches("circle64-2d",
+                              **chol_launches(param, cycles, False))
+    check_mission(summary, param, sim.N, "circle64-2d")
+    z_err = (summary["final_state"].traj[..., 2] -
+             param.world_z_2d).abs().max().item()
+    if not z_err <= 0.05 or not in_band(cycles, JAX_CPU_F32_2D64[0]):
+        raise AssertionError(f"circle64-2d: z off by {z_err} m, {cycles} "
+                             f"cycles (JAX CPU f32 {JAX_CPU_F32_2D64[0]})")
+    phase("15 modes", f"circle64-2d finished in {cycles} cycles (JAX CPU "
+                      f"f32: {JAX_CPU_F32_2D64[0]}), safety "
+                      f"{summary['safety_ratio_agent']:.4f} (JAX "
+                      f"{JAX_CPU_F32_2D64[1]}), 0 QPFAILED, z within "
+                      f"{z_err:.2e} m of z_2d, "
+                      f"{1e3 * summary['wall_time'] / cycles:.2f} ms/cycle, "
+                      f"launches {launches}")
+    captured_bits(sim, "circle64-2d", name="15 modes")
+    return launches
+
+
+def fly_circle128_2d(dev):
+    """circle128-2d, 20 all-pairs cycles (C = 128) through the fused IPM's
+    2-D instantiation ("auto"): one launch a cycle, safety >= 1, 0
+    QPFAILED, distance within 10 % of the JAX package's CPU run of the
+    same cycles (its f64 run: its f32 run drifts, see JAX_CPU_2D128).
+    Returns the launches."""
+    sim, param, cycles = mode_sim(dev, "circle128_2d")
+    reset_launch_counts()
+    summary = sim.run(max_iterations=cycles)
+    torch.cuda.synchronize()
+    launches = check_launches("circle128-2d", fused_ipm=cycles)
+    check_mission(summary, param, sim.N, "circle128-2d", finished=False)
+    dist = summary["total_flight_distance"]
+    if not abs(dist - JAX_CPU_2D128[1]) <= 0.1 * JAX_CPU_2D128[1]:
+        raise AssertionError(f"circle128-2d: distance {dist} m, JAX CPU f64 "
+                             f"{JAX_CPU_2D128[1]} m")
+    phase("15 modes", f"circle128-2d, {cycles} cycles through the 2-D fused "
+                      f"IPM: distance {dist:.4f} m (JAX CPU: f32 "
+                      f"{JAX_CPU_2D128[0]:.4f} m, f64 {JAX_CPU_2D128[1]:.4f}"
+                      f" m), safety {summary['safety_ratio_agent']:.4f}, 0 "
+                      f"QPFAILED, {1e3 * summary['wall_time'] / cycles:.2f} "
+                      f"ms/cycle, launches {launches}")
+    return launches
+
+
+def fly_rh64(dev):
+    """rh64: 40 cycles under GoalMode.RIGHT_HAND: safety >= 1, finite
+    trajectories, JAX's distance beside the port's."""
+    sim, param, cycles = mode_sim(dev, "rh64")
+    reset_launch_counts()
+    summary = sim.run(max_iterations=cycles)
+    torch.cuda.synchronize()
+    done = summary["iterations"]
+    launches = check_launches("rh64", **chol_launches(param, done, False))
+    check_mission(summary, param, sim.N, "rh64", finished=False)
+    phase("15 modes", f"rh64 (RIGHT_HAND), {done} cycles: distance "
+                      f"{summary['total_flight_distance']:.4f} m (JAX CPU "
+                      f"f32: {JAX_CPU_F32_RH64[0]:.4f} m in "
+                      f"{JAX_CPU_F32_RH64[1]} cycles), safety "
+                      f"{summary['safety_ratio_agent']:.4f}, 0 QPFAILED, "
+                      f"{1e3 * summary['wall_time'] / done:.2f} ms/cycle")
+
+
+def fly_modes(dev):
+    """Phase 15: the other planner modes.  Returns the launches of the
+    large-n chol kernels (rsfc64) and of the 2-D fused IPM
+    (circle128-2d)."""
+    fly_bvc64(dev)
+    large = fly_rsfc64(dev)
+    fly_exp64(dev)
+    fly_circle64_2d(dev)
+    fused2d = fly_circle128_2d(dev)
+    fly_rh64(dev)
+    return large, fused2d
+
+
 def main():
     # 1. the card
     if not torch.cuda.is_available():
@@ -1553,6 +2115,8 @@ def main():
 
     # 4. kernels vs plain versions
     results = compare_kernels(dev)
+    compare_large_chol(dev)
+    large_errs, large_times, large_shape = time_large_chol(dev)
     cycle_parity(dev)
 
     # 5. the main path below 128 agents: the chol kernels
@@ -1589,9 +2153,12 @@ def main():
     all_pairs = SyncSimulator(circle_mission(ALL_N),
                               Param(goal_mode=GoalMode.PRIOR_BASED),
                               device=dev, dtype=torch.float32)
-    fused_err, fused_ms, fused_plain_ms, fused_bound_ = compare_fused(
+    fused = compare_fused(
         [capture_fused_call(big, 3), capture_fused_call(small, 3),
-         capture_fused_call(all_pairs, 0)])
+         capture_fused_call(all_pairs, 0),
+         capture_fused_call(mode_sim(dev, "circle128_2d")[0], 0)])
+    fused_err, fused_ms, fused_plain_ms, fused_bound_ = fused[(BIG_N, BIG_K,
+                                                              3)]
 
     # 7. circle64 through the fused kernel
     fly_circle64_fused(small)
@@ -1630,6 +2197,10 @@ def main():
     fly_forest20_bt(dev)
     fly_forest20_castray(dev, forest_stages)
 
+    # 15. the other planner modes: BVC, RSFC, experiment mode, 2-D worlds,
+    # the right-hand goal rule
+    large_launches, fused2d_launches = fly_modes(dev)
+
     errs, times = results[MAIN_B]
     n, B = N_QP, MAIN_B
     chol_bounds = {
@@ -1647,6 +2218,22 @@ def main():
                 "max_abs_err": errs[key][0], "ms": times[key][0],
                 "plain_ms": times[key][1], "bound_ms": b_ms,
                 "bound_by": b_by, "library_ms": times[key][2]}
+    nl = large_shape[1]
+    large_bounds = {
+        "factor_solve": bound(4 * (2 * B * nl * nl + 2 * B * nl),
+                              B * (nl ** 3 / 3 + 2 * nl * nl)),
+        "resolve": bound(4 * (B * nl * nl + 2 * B * nl), B * 2 * nl * nl),
+        "factor": bound(4 * 2 * B * nl * nl, B * nl ** 3 / 3),
+    }
+
+    def large_entry(name, key, replaces, nlaunch):
+        b_ms, b_by = large_bounds[key]
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": nlaunch,
+                "max_abs_err": large_errs[key], "ms": large_times[key][0],
+                "plain_ms": large_times[key][1], "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": large_times[key][2]}
+    f2 = fused[(ALL_N, ALL_N, 2)]
     kernels = [
         chol_entry("chol_factor_solve", "factor_solve",
                    "lsc_planner_tpu/ops/chol_pallas.py:108",
@@ -1680,6 +2267,21 @@ def main():
          "max_abs_err": expand_err, "ms": expand_ms,
          "plain_ms": expand_plain_ms, "bound_ms": expand_bound_[0],
          "bound_by": expand_bound_[1], "library_ms": None},
+        large_entry("chol_factor_solve (n > 64, block a matrix)",
+                    "factor_solve", "lsc_planner_tpu/ops/chol_pallas.py:108",
+                    large_launches["factor_solve_large"]),
+        large_entry("chol_resolve (n > 64, block a matrix)", "resolve",
+                    "lsc_planner_tpu/ops/chol_pallas.py:123",
+                    large_launches["resolve_large"]),
+        # the factor alone has no caller, as at n <= 64
+        large_entry("cholesky_batched (n > 64, block a matrix)", "factor",
+                    "lsc_planner_tpu/ops/chol_pallas.py:26", 0),
+        {"name": "ipm_lsc_fused (ndim 2)", "route": "cuda",
+         "source": "lsc_planner_tpu_torch/csrc/ipm.cu",
+         "replaces": "lsc_planner_tpu/ops/ipm_pallas.py:122",
+         "launches": fused2d_launches["fused_ipm"], "max_abs_err": f2[0],
+         "ms": f2[1], "plain_ms": f2[2], "bound_ms": f2[3][0],
+         "bound_by": f2[3][1], "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -49,6 +49,33 @@
 // x equals factor_solve's x bit for bit.  A factor with a NaN lower
 // triangle (factor_solve on a non-SPD entry) gives an all-NaN x in that
 // entry; its block-mates never see it.
+//
+// Large n (64 < n <= 1024: the slack-relaxed QP's KKT system, n = nv +
+// C M, 359 at 64 agents): one block of 256 threads a matrix.  A
+// matrix no longer fits a warp's registers (nor, at n = 359 in f32, one
+// SM's shared memory), so L lives in device memory in the same row-major
+// (B, n, n) layout, where the L2 keeps it (B = 64 at n = 359 in f32 is
+// 33 MB).  The factor is right-looking and blocked with 32-wide panels:
+// warp 0 factors the diagonal tile in registers with warp_chol::factor
+// (no pivot floor) and keeps its reciprocals in shared memory; every
+// thread then solves a row of the panel below it against the tile; then
+// every warp updates its own 32 x 32 tiles of the trailing lower triangle
+// (the two panel blocks staged in its shared memory, a lane a column,
+// rank 32), with no barrier between warps.  Block barriers separate the
+// three steps.  The substitutions (big_solve) walk the same 32-row
+// blocks: warp 0 solves the diagonal block with shuffles, every thread
+// then updates one row (forward) or one column (backward) of the rest.
+// factor_solve and resolve run that one function on the same L with the
+// same reciprocals (resolve takes them as 1 / L[i][i], the bits
+// warp_chol::factor keeps), so resolve returns factor_solve's x bit for
+// bit; the factor alone stops before the solve (kSolve), so it returns
+// factor_solve's L bit for bit.  A pivot <= 0 or NaN turns the entry's
+// lower triangle (and x) into NaN; each entry is its own block.  Its
+// bound at B = 64, n = 365 in f32 is ~20 us (68 MB of H and L; 1.0e9
+// operations); this first design is latency-bound instead: twelve panel
+// steps of one warp's diagonal factor and three block barriers each, and
+// a trailing update that spills registers (chip_smoke.py phases 2 and 4
+// print the spills and the times; an H100 took 0.74 ms a factor_solve).
 
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -shared -Xcompiler -fPIC (lsc_planner_tpu_torch/ops/_build.py).
@@ -63,7 +90,13 @@
 namespace {
 
 constexpr int kMaxN = 64;      // two rows per lane in the one-warp solve
-constexpr int kFsWarps = 4;   // matrices a block: every kernel here
+constexpr int kFsWarps = 4;   // matrices a block: the kernels up to kMaxN
+constexpr int kBigMaxN = 1024;          // the block-a-matrix kernels' cap
+constexpr int kPanel = 32;              // their panel width
+constexpr int kBigWarps = 8;
+constexpr int kBigThreads = kBigWarps * 32;
+constexpr int kTile = kPanel * (kPanel + 1);   // a padded panel block
+constexpr size_t kBigSmemCap = 200 * 1024;     // f64 at kBigMaxN: 156 KB
 
 template <typename T> __device__ T quiet_nan();
 template <> __device__ float quiet_nan<float>() {
@@ -138,6 +171,271 @@ resolve_kernel(const T* __restrict__ L, const T* __restrict__ rhs,
   if (r1 < n) x[b * n + r1] = z1;
 }
 
+// ---------------------------------------------------------------------
+// 64 < n <= kBigMaxN: one block a matrix (see the note at the top)
+// ---------------------------------------------------------------------
+
+// Shared memory of the large-n kernels, in elements of T: the diagonal's
+// reciprocals and the solve's vector (n each), a diagonal tile, and (the
+// factor only) two padded panel blocks a warp.
+__host__ __device__ __forceinline__ size_t big_smem_elems(int n,
+                                                          bool panels) {
+  return 2 * static_cast<size_t>(n) + kPanel * kPanel +
+         (panels ? static_cast<size_t>(kBigWarps) * 2 * kTile : 0);
+}
+
+// Solves (L L^T) x = z in place: L row-major in device memory, z (n) and
+// rinv (the diagonal's reciprocals) in shared memory, Dt a kPanel^2 tile.
+// Every thread of the block calls it.
+template <typename T>
+__device__ void big_solve(const T* __restrict__ Lb, int n,
+                          const T* __restrict__ rinv, T* z, T* Dt) {
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  for (int k0 = 0; k0 < n; k0 += kPanel) {          // forward
+    const int kb = min(kPanel, n - k0), k1 = k0 + kb;
+    if (w == 0) {
+#pragma unroll
+      for (int i = 0; i < kPanel; ++i)                // loads in flight
+        if (i < kb && lane < kb) Dt[i * kPanel + lane] =
+            Lb[static_cast<size_t>(k0 + i) * n + k0 + lane];
+      __syncwarp();
+      T zr = lane < kb ? z[k0 + lane] : T(0);
+      const T ri = lane < kb ? rinv[k0 + lane] : T(0);
+      for (int k = 0; k < kb; ++k) {
+        const T zk = __shfl_sync(warp_chol::kFull, zr * ri, k);
+        if (lane == k) zr = zk;
+        if (lane > k && lane < kb) zr -= Dt[lane * kPanel + k] * zk;
+      }
+      if (lane < kb) z[k0 + lane] = zr;
+    }
+    __syncthreads();
+    for (int i = k1 + tid; i < n; i += kBigThreads) {   // kb == kPanel
+      const T* row = Lb + static_cast<size_t>(i) * n + k0;
+      T acc = T(0);
+#pragma unroll
+      for (int t = 0; t < kPanel; ++t) acc += row[t] * z[k0 + t];
+      z[i] -= acc;
+    }
+    __syncthreads();
+  }
+  for (int k0 = ((n - 1) / kPanel) * kPanel; k0 >= 0; k0 -= kPanel) {
+    const int kb = min(kPanel, n - k0);              // backward
+    if (w == 0) {
+#pragma unroll
+      for (int i = 0; i < kPanel; ++i)                // loads in flight
+        if (i < kb && lane < kb) Dt[i * kPanel + lane] =
+            Lb[static_cast<size_t>(k0 + i) * n + k0 + lane];
+      __syncwarp();
+      T zr = lane < kb ? z[k0 + lane] : T(0);
+      const T ri = lane < kb ? rinv[k0 + lane] : T(0);
+      for (int k = kb - 1; k >= 0; --k) {
+        const T xk = __shfl_sync(warp_chol::kFull, zr * ri, k);
+        if (lane == k) zr = xk;
+        if (lane < k) zr -= Dt[k * kPanel + lane] * xk;
+      }
+      if (lane < kb) z[k0 + lane] = zr;
+    }
+    __syncthreads();
+    for (int i = tid; i < k0; i += kBigThreads) {       // column i
+      T acc = T(0);
+#pragma unroll 8
+      for (int t = 0; t < kb; ++t)
+        acc += Lb[static_cast<size_t>(k0 + t) * n + i] * z[k0 + t];
+      z[i] -= acc;
+    }
+    __syncthreads();
+  }
+}
+
+// factor_solve (kSolve) and the factor alone, one block a matrix.
+template <typename T, bool kSolve>
+__global__ void __launch_bounds__(kBigThreads, 1)
+big_factor_solve_kernel(const T* __restrict__ H, const T* __restrict__ rhs,
+                        T* __restrict__ L_out, T* __restrict__ x, int n) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int failed;
+  T* rinv = reinterpret_cast<T*>(smem);
+  T* z = rinv + n;
+  T* Dt = z + n;
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  T* Pi = Dt + kPanel * kPanel + w * 2 * kTile;       // this warp's blocks
+  T* Pj = Pi + kTile;
+  const size_t b = blockIdx.x;
+  const size_t nn = static_cast<size_t>(n) * n;
+  const T* Hb = H + b * nn;
+  T* Lb = L_out + b * nn;
+  if (tid == 0) failed = 0;
+  // H's lower triangle into L, zeros above: a warp a row
+  for (int i = w; i < n; i += kBigWarps)
+#pragma unroll 4
+    for (int j = lane; j < n; j += 32)
+      Lb[static_cast<size_t>(i) * n + j] =
+          j <= i ? Hb[static_cast<size_t>(i) * n + j] : T(0);
+  __syncthreads();
+
+  for (int k0 = 0; k0 < n; k0 += kPanel) {
+    const int kb = min(kPanel, n - k0), k1 = k0 + kb;
+    if (w == 0) {             // the diagonal tile, in warp 0's registers
+#pragma unroll
+      for (int i = 0; i < kPanel; ++i)                // loads in flight
+        if (i < kb && lane < kb) Dt[i * kb + lane] =
+            Lb[static_cast<size_t>(k0 + i) * n + k0 + lane];
+      __syncwarp();
+      warp_chol::Rows<T, kPanel> R;
+      warp_chol::load_rows(R, kb, [&](int i, int j) { return Dt[i * kb + j]; });
+      T r0, r1;
+      const bool bad = warp_chol::factor(R, kb, -static_cast<T>(INFINITY),
+                                         r0, r1, Dt);
+      if (lane < kb) rinv[k0 + lane] = r0;
+      for (int i = 0; i < kb; ++i)
+        if (lane < kb)
+          Lb[static_cast<size_t>(k0 + i) * n + k0 + lane] = Dt[i * kb + lane];
+      if (bad && lane == 0) failed = 1;
+    }
+    __syncthreads();
+    if (k1 >= n) break;
+    // the panel below the tile (kb == kPanel): a thread a row,
+    // v = a L_tile^-T by forward substitution
+    for (int i = k1 + tid; i < n; i += kBigThreads) {
+      T* row = Lb + static_cast<size_t>(i) * n + k0;
+      T v[kPanel];
+#pragma unroll
+      for (int j = 0; j < kPanel; ++j) v[j] = row[j];
+#pragma unroll
+      for (int j = 0; j < kPanel; ++j) {
+        T a = v[j];
+#pragma unroll
+        for (int t = 0; t < j; ++t) a -= v[t] * Dt[j * kPanel + t];
+        v[j] = a * rinv[k0 + j];
+      }
+#pragma unroll
+      for (int j = 0; j < kPanel; ++j) row[j] = v[j];
+    }
+    __syncthreads();
+    // the trailing lower triangle, tile (a, c), a >= c, warp by warp:
+    // L[I + i][J + lane] -= panel row I + i . panel row J + lane
+    const int tiles = (n - k1 + kPanel - 1) / kPanel;
+    for (int t = w; t < tiles * (tiles + 1) / 2; t += kBigWarps) {
+      int a = 0;
+      while ((a + 1) * (a + 2) / 2 <= t) ++a;
+      const int c = t - a * (a + 1) / 2;
+      const int I = k1 + a * kPanel, J = k1 + c * kPanel;
+#pragma unroll
+      for (int i = 0; i < kPanel; ++i) {              // loads in flight
+        Pi[i * (kPanel + 1) + lane] =
+            I + i < n ? Lb[static_cast<size_t>(I + i) * n + k0 + lane] : T(0);
+        Pj[i * (kPanel + 1) + lane] =
+            J + i < n ? Lb[static_cast<size_t>(J + i) * n + k0 + lane] : T(0);
+      }
+      __syncwarp();
+      T pj[kPanel];
+#pragma unroll
+      for (int u = 0; u < kPanel; ++u) pj[u] = Pj[lane * (kPanel + 1) + u];
+      const int col = J + lane;
+      // eight rows at a time: their entries of L read together, then
+      // updated
+      for (int i0 = 0; i0 < kPanel; i0 += 8) {
+        T cur[8];
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const int row = I + i0 + r;
+          cur[r] = row < n && col < n && col <= row
+                       ? Lb[static_cast<size_t>(row) * n + col] : T(0);
+        }
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          const T* pi = Pi + (i0 + r) * (kPanel + 1);
+          T acc = T(0);
+#pragma unroll
+          for (int u = 0; u < kPanel; ++u) acc += pi[u] * pj[u];
+          const int row = I + i0 + r;
+          if (row < n && col < n && col <= row)
+            Lb[static_cast<size_t>(row) * n + col] = cur[r] - acc;
+        }
+      }
+      __syncwarp();           // before the next tile overwrites Pi, Pj
+    }
+    __syncthreads();
+  }
+
+  const T nan = quiet_nan<T>();
+  if (failed) {               // the lower triangle all NaN
+    for (int i = w; i < n; i += kBigWarps)
+      for (int j = lane; j <= i; j += 32)
+        Lb[static_cast<size_t>(i) * n + j] = nan;
+    __syncthreads();
+  }
+  if constexpr (kSolve) {
+    for (int i = tid; i < n; i += kBigThreads) z[i] = rhs[b * n + i];
+    __syncthreads();
+    big_solve(Lb, n, rinv, z, Dt);
+    for (int i = tid; i < n; i += kBigThreads)
+      x[b * n + i] = failed ? nan : z[i];
+  }
+}
+
+// resolve, one block a matrix: factor_solve's solve on a kept L.
+template <typename T>
+__global__ void __launch_bounds__(kBigThreads, 1)
+big_resolve_kernel(const T* __restrict__ L, const T* __restrict__ rhs,
+                   T* __restrict__ x, int n) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* rinv = reinterpret_cast<T*>(smem);
+  T* z = rinv + n;
+  T* Dt = z + n;
+  const size_t b = blockIdx.x;
+  const T* Lb = L + b * static_cast<size_t>(n) * n;
+  for (int i = threadIdx.x; i < n; i += kBigThreads) {
+    rinv[i] = T(1) / Lb[static_cast<size_t>(i) * n + i];   // as factor()
+    z[i] = rhs[b * n + i];
+  }
+  __syncthreads();
+  big_solve(Lb, n, rinv, z, Dt);
+  for (int i = threadIdx.x; i < n; i += kBigThreads) x[b * n + i] = z[i];
+}
+
+// Lets kernel take `bytes` of dynamic shared memory on the current device,
+// once a device: no attribute call inside a captured CUDA graph after the
+// first, uncaptured, launch.
+template <class K>
+int allow_smem(K kernel, size_t bytes, bool* done) {
+  if (bytes <= 48 * 1024) return 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (done[dev]) return 0;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(kBigSmemCap));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  done[dev] = true;
+  return 0;
+}
+
+template <typename T, bool kSolve>
+int launch_big_factor(const T* H, const T* rhs, T* L, T* x, int B, int n,
+                      cudaStream_t stream) {
+  static bool done[64];
+  const size_t smem = big_smem_elems(n, true) * sizeof(T);
+  const int err = allow_smem(big_factor_solve_kernel<T, kSolve>, smem, done);
+  if (err) return err;
+  big_factor_solve_kernel<T, kSolve><<<B, kBigThreads, smem, stream>>>(
+      H, rhs, L, x, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_big_resolve(const T* L, const T* rhs, T* x, int B, int n,
+                       cudaStream_t stream) {
+  static bool done[64];
+  const size_t smem = big_smem_elems(n, false) * sizeof(T);
+  const int err = allow_smem(big_resolve_kernel<T>, smem, done);
+  if (err) return err;
+  big_resolve_kernel<T><<<B, kBigThreads, smem, stream>>>(L, rhs, x, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int NC, bool kSolve>
 int launch_factor_solve_nc(const T* H, const T* rhs, T* L, T* x, int B, int n,
                            cudaStream_t stream) {
@@ -159,13 +457,15 @@ int launch_factor_solve_nc(const T* H, const T* rhs, T* L, T* x, int B, int n,
 template <typename T, bool kSolve>
 int launch_factor_solve(const void* H, const void* rhs, void* L, void* x,
                         int B, int n, void* stream) {
-  if (n < 1 || n > kMaxN || B < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (n < 1 || n > kBigMaxN || B < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return static_cast<int>(cudaGetLastError());
   const T* h = static_cast<const T*>(H);
   const T* r = static_cast<const T*>(rhs);
   T* l = static_cast<T*>(L);
   T* xx = static_cast<T*>(x);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n > kMaxN) return launch_big_factor<T, kSolve>(h, r, l, xx, B, n, st);
   // NC = 40 holds the QP's n = 39; NC = 64 every other n up to kMaxN
   if (n <= 40)
     return launch_factor_solve_nc<T, 40, kSolve>(h, r, l, xx, B, n, st);
@@ -175,8 +475,14 @@ int launch_factor_solve(const void* H, const void* rhs, void* L, void* x,
 template <typename T>
 int launch_resolve(const void* L, const void* rhs, void* x, int B, int n,
                    void* stream) {
-  if (n < 1 || n > kMaxN || B < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (n < 1 || n > kBigMaxN || B < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return static_cast<int>(cudaGetLastError());
+  if (n > kMaxN)
+    return launch_big_resolve<T>(static_cast<const T*>(L),
+                                 static_cast<const T*>(rhs),
+                                 static_cast<T*>(x), B, n,
+                                 static_cast<cudaStream_t>(stream));
   const size_t smem = static_cast<size_t>(kFsWarps) * n * n * sizeof(T);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(

@@ -63,6 +63,11 @@
 //   Gram's entries through tables built once a block; the kernel is
 //   templated on (nf, M, n + 1) = (13, 5, 6), the main path's shape, with
 //   a generic instantiation (template arguments 0) for every other shape.
+// * The world's dimension D (the TPU kernel's static ndim) is a template
+//   argument too: D = 3, and D = 2 for a 2-D world, whose QP drops the z
+//   block (nv = 2 nf, D normal components, D (D + 1) / 2 Gram weights a
+//   basis point).  Every size above is for D = 3; the D = 3 code is the
+//   same arithmetic, in the same order, as before D was a parameter.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -shared -Xcompiler -fPIC (lsc_planner_tpu_torch/ops/_build.py).
@@ -126,28 +131,30 @@ __host__ __device__ __forceinline__ size_t r4(size_t n) {
 
 // Block-wide tables, in this order: U, F_seg, and the Gram's entry lists
 // (the lower triangle of H as i << 8 | j, the static blocks' lower
-// triangles as k << 16 | f << 8 | g).  Sizes in floats.
-__host__ __device__ __forceinline__ size_t shared_floats(int nf, int Ru,
-                                                         int MI) {
-  const int nv = 3 * nf;
-  return r4(3 * Ru * nf) + r4(MI * nf) + r4(nv * (nv + 1) / 2) +
-         r4(3 * nf * (nf + 1) / 2);
+// triangles as k << 16 | f << 8 | g).  Sizes in floats; D the dimension.
+__host__ __device__ __forceinline__ size_t shared_floats(int D, int nf,
+                                                         int Ru, int MI) {
+  const int nv = D * nf;
+  return r4(D * Ru * nf) + r4(MI * nf) + r4(nv * (nv + 1) / 2) +
+         r4(D * nf * (nf + 1) / 2);
 }
 
 // Per-QP vectors, always in shared memory, in this order: Pb, q, y, rd,
-// dsc, tmp, xby (3 MI), W (6 MI), vk (3 MI), H (nv^2), then dy and xbd of
-// direction set 0, then of set 1.
-__host__ __device__ __forceinline__ size_t vec_off(int nf, int MI, int f) {
-  const size_t nv4 = r4(3 * nf), mi3 = r4(3 * MI);
+// dsc, tmp, xby (D MI), W (D (D + 1) / 2 MI), vk (D MI), H (nv^2), then dy
+// and xbd of direction set 0, then of set 1.
+__host__ __device__ __forceinline__ size_t vec_off(int D, int nf, int MI,
+                                                   int f) {
+  const size_t nv4 = r4(D * nf), mi3 = r4(D * MI);
+  const size_t w4 = r4(D * (D + 1) / 2 * MI);
   const size_t head = r4(nf * nf) + 5 * nv4;          // Pb .. tmp
-  const size_t body = head + mi3 + r4(6 * MI) + mi3 + r4(9 * nf * nf);
+  const size_t body = head + mi3 + w4 + mi3 + r4(D * D * nf * nf);
   switch (f) {
     case 0: return 0;                                  // Pb
     case 1: return r4(nf * nf);                        // q, y, rd, dsc, tmp
     case 6: return head;                               // xby
     case 7: return head + mi3;                         // W
-    case 8: return head + mi3 + r4(6 * MI);            // vk
-    case 9: return head + 2 * mi3 + r4(6 * MI);        // H
+    case 8: return head + mi3 + w4;                    // vk
+    case 9: return head + 2 * mi3 + w4;                // H
     case 10: return body;                              // dy0
     case 11: return body + nv4;                        // xbd0
     case 12: return body + nv4 + mi3;                  // dy1
@@ -155,27 +162,30 @@ __host__ __device__ __forceinline__ size_t vec_off(int nf, int MI, int f) {
     default: return body + 2 * (nv4 + mi3);            // total
   }
 }
-__host__ __device__ __forceinline__ size_t vec_floats(int nf, int MI) {
-  return vec_off(nf, MI, 14);
+__host__ __device__ __forceinline__ size_t vec_floats(int D, int nf,
+                                                      int MI) {
+  return vec_off(D, nf, MI, 14);
 }
 
 // Per-QP row state, in shared memory or in a device-memory slab: six
 // plane fields of R floats (slack, dual, primal residual, right-hand side
-// of sets 0 and 1, and a copy of the row scale), the normals (3 floats a
-// (c, m)), then fourteen static fields of S = 3 Ru floats.
+// of sets 0 and 1, and a copy of the row scale), the normals (D floats a
+// (c, m)), then fourteen static fields of S = D Ru floats.
 enum PlaneField { kSpl, kLpl, kRp, kRcPl, kScale = 5 };   // kRcPl + d
 enum StaticField { kSsp, kSsm, kLsp, kLsm, kRpSp, kRpSm, kDpair, kWsu, kRcSp,
                    kRcSm = 10, kDsu = 12 };               // kRcSp + d, ...
-__host__ __device__ __forceinline__ size_t row_floats(int R, int CM, int S) {
-  return 6 * r4(R) + r4(3 * CM) + 14 * r4(S);
+__host__ __device__ __forceinline__ size_t row_floats(int D, int R, int CM,
+                                                      int S) {
+  return 6 * r4(R) + r4(D * CM) + 14 * r4(S);
 }
 
 // How the right-hand side of a KKT solve is formed, row by row.
 enum Rule { kPredictor, kCorrector, kGondzio };
 
-template <int NF, int MT, int NT>
+template <int D, int NF, int MT, int NT>
 struct Qp {
-  static constexpr int NVC = NF ? 3 * NF : kMaxNv;   // factor capacity
+  static constexpr int NVC = NF ? D * NF : kMaxNv;   // factor capacity
+  static constexpr int NW = D * (D + 1) / 2;         // Gram weights a point
 
   int nf_, M_, n1_, Ru, S, C, R, lane, Rp, Sp;
   float* sb;                 // the block's tables
@@ -187,9 +197,9 @@ struct Qp {
   __device__ __forceinline__ int M() const { return MT ? MT : M_; }
   __device__ __forceinline__ int n1() const { return NT ? NT : n1_; }
   __device__ __forceinline__ int MI() const { return M() * n1(); }
-  __device__ __forceinline__ int nv() const { return 3 * nf(); }
-  __device__ __forceinline__ int kof(int t, int n) const {   // t / n, t < 3n
-    return (t >= n) + (t >= 2 * n);
+  __device__ __forceinline__ int nv() const { return D * nf(); }
+  __device__ __forceinline__ int kof(int t, int n) const {   // t / n, t < Dn
+    return D == 3 ? (t >= n) + (t >= 2 * n) : (t >= n);
   }
 
   // the block's tables
@@ -205,7 +215,7 @@ struct Qp {
   }
   // this QP's vectors
   __device__ __forceinline__ float* vec(int f) const {
-    return vb + vec_off(nf(), MI(), f);
+    return vb + vec_off(D, nf(), MI(), f);
   }
   __device__ __forceinline__ float* Pb() const { return vec(0); }
   __device__ __forceinline__ float* q() const { return vec(1); }
@@ -231,7 +241,7 @@ struct Qp {
   __device__ __forceinline__ float* pf(int f) const { return rb + f * Rp; }
   __device__ __forceinline__ float* nrm() const { return rb + 6 * Rp; }
   __device__ __forceinline__ float* sf(int f) const {
-    return rb + 6 * Rp + r4(3 * C * M()) + f * Sp;
+    return rb + 6 * Rp + r4(D * C * M()) + f * Sp;
   }
   __device__ __forceinline__ float* s_pl() const { return pf(kSpl); }
   __device__ __forceinline__ float* l_pl() const { return pf(kLpl); }
@@ -277,10 +287,10 @@ struct Qp {
                                         int j) const {
     const int MIv = MI();
     const float sc = scl()[r];
-    const float* n = nrm() + 3 * cm;
+    const float* n = nrm() + D * cm;
     float val = (n[0] * sc) * x[j];
-    val = val + (n[1] * sc) * x[MIv + j];
-    val = val + (n[2] * sc) * x[2 * MIv + j];
+#pragma unroll
+    for (int k = 1; k < D; ++k) val = val + (n[k] * sc) * x[k * MIv + j];
     return val;
   }
   // U row r . vec[k, :]
@@ -295,7 +305,7 @@ struct Qp {
   // xb[k, j] = F_seg[j, :] . vec[k, :]
   __device__ void basis(const float* vec, float* xb) const {
     const int nfv = nf(), MIv = MI();
-    for (int k = 0; k < 3; ++k)
+    for (int k = 0; k < D; ++k)
       for (int j = lane; j < MIv; j += 32) {
         float acc = 0.f;
         for (int f = 0; f < nfv; ++f)
@@ -313,20 +323,20 @@ struct Qp {
     const int n1v = n1(), Mv = M();
     for (int j = lane; j < MIv; j += 32) {
       const int m = j / n1v;
-      float a0 = 0.f, a1 = 0.f, a2 = 0.f;
+      float a[D];
+#pragma unroll
+      for (int k = 0; k < D; ++k) a[k] = 0.f;
 #pragma unroll 4
       for (int c = 0; c < C; ++c) {
         const int r = c * MIv + j, cm = c * Mv + m;
         const float wr = wpl(r, cm, j);
         const float sc = scl()[r];
-        const float* n = nrm() + 3 * cm;
-        a0 += (n[0] * sc) * wr;
-        a1 += (n[1] * sc) * wr;
-        a2 += (n[2] * sc) * wr;
+        const float* n = nrm() + D * cm;
+#pragma unroll
+        for (int k = 0; k < D; ++k) a[k] += (n[k] * sc) * wr;
       }
-      vk()[j] = a0;
-      vk()[MIv + j] = a1;
-      vk()[2 * MIv + j] = a2;
+#pragma unroll
+      for (int k = 0; k < D; ++k) vk()[k * MIv + j] = a[k];
     }
     __syncwarp();
     for (int t = lane; t < nvv; t += 32) {
@@ -365,30 +375,32 @@ struct Qp {
       const int n1v = n1(), Mv = M();
       for (int j = lane; j < MIv; j += 32) {
         const int m = j / n1v;
-        float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+        float acc[NW];
+#pragma unroll
+        for (int p = 0; p < NW; ++p) acc[p] = 0.f;
 #pragma unroll 4
         for (int c = 0; c < C; ++c) {
           const int r = c * MIv + j, cm = c * Mv + m;
           const float d = l_pl()[r] / s_pl()[r];
           const float sc = scl()[r];
-          const float* n = nrm() + 3 * cm;
-          const float n0 = n[0] * sc;
-          const float n1_ = n[1] * sc;
-          const float n2 = n[2] * sc;
-          acc[0] += n0 * n0 * d;
-          acc[1] += n0 * n1_ * d;
-          acc[2] += n0 * n2 * d;
-          acc[3] += n1_ * n1_ * d;
-          acc[4] += n1_ * n2 * d;
-          acc[5] += n2 * n2 * d;
+          const float* n = nrm() + D * cm;
+          float ns[D];
+#pragma unroll
+          for (int k = 0; k < D; ++k) ns[k] = n[k] * sc;
+          // the pairs (l, k), l <= k, row by row: 00 01 02 11 12 22
+          int p = 0;
+#pragma unroll
+          for (int l = 0; l < D; ++l)
+#pragma unroll
+            for (int k = l; k < D; ++k) acc[p++] += ns[l] * ns[k] * d;
         }
 #pragma unroll
-        for (int p = 0; p < 6; ++p) W()[p * MIv + j] = acc[p];
+        for (int p = 0; p < NW; ++p) W()[p * MIv + j] = acc[p];
       }
     }
     __syncwarp();
     // the static rows' Gram on the diagonal blocks' lower triangles
-    const int ns = 3 * nfv * (nfv + 1) / 2;
+    const int ns = D * nfv * (nfv + 1) / 2;
     for (int e = lane; e < ns; e += 32) {
       const int code = sent()[e];
       const int k = code >> 16, f = (code >> 8) & 255, g = code & 255;
@@ -409,7 +421,7 @@ struct Qp {
       const int k = kof(i, nfv), f = i - k * nfv;
       const int l = kof(jj, nfv), g = jj - l * nfv;
       // W block of the dimension pair (l, k), l <= k: 0 1 2 / 3 4 / 5
-      const float* Wp = W() + (3 * l - ((l * (l - 1)) >> 1) + k - l) * MIv;
+      const float* Wp = W() + (D * l - ((l * (l - 1)) >> 1) + k - l) * MIv;
       float acc = 0.f;
       for (int j = 0; j < MIv; ++j)
         acc += F()[j * nfv + f] * F()[j * nfv + g] * Wp[j];
@@ -627,7 +639,7 @@ struct Qp {
     }
     // the row scales and normals, into this QP's rows
     plane_rows([&](int r, int, int) { scl()[r] = __ldg(scale + r); });
-    for (int e = lane; e < 3 * C * M(); e += 32) nrm()[e] = __ldg(nsc + e);
+    for (int e = lane; e < D * C * M(); e += 32) nrm()[e] = __ldg(nsc + e);
     __syncwarp();
     const float sig = p.sig[b];
 
@@ -730,16 +742,16 @@ struct Qp {
   }
 };
 
-template <int NF, int MT, int NT>
+template <int D, int NF, int MT, int NT>
 __global__ void __launch_bounds__(kMaxQpb * 32) ipm_kernel(Params p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Qp<NF, MT, NT> Q;
+  Qp<D, NF, MT, NT> Q;
   Q.nf_ = p.nf;
   Q.M_ = p.M;
   Q.n1_ = p.n1;
   const int nf = Q.nf(), MI = Q.MI(), nv = Q.nv();
   Q.Ru = p.Ru;
-  Q.S = 3 * p.Ru;
+  Q.S = D * p.Ru;
   Q.C = p.C;
   Q.R = p.C * MI;
   Q.lane = threadIdx.x & 31;
@@ -755,7 +767,7 @@ __global__ void __launch_bounds__(kMaxQpb * 32) ipm_kernel(Params p) {
   for (int e = threadIdx.x; e < MI * nf; e += blockDim.x) F[e] = p.F[e];
   for (int i = threadIdx.x; i < nv; i += blockDim.x)
     for (int j = 0; j <= i; ++j) hent[i * (i + 1) / 2 + j] = i << 8 | j;
-  for (int t = threadIdx.x; t < 3 * nf; t += blockDim.x) {
+  for (int t = threadIdx.x; t < D * nf; t += blockDim.x) {
     const int k = t / nf, f = t - k * nf;
     for (int g = 0; g <= f; ++g)
       sent[k * (nf * (nf + 1) / 2) + f * (f + 1) / 2 + g] =
@@ -767,14 +779,14 @@ __global__ void __launch_bounds__(kMaxQpb * 32) ipm_kernel(Params p) {
   if (b >= static_cast<size_t>(p.N)) return;
   // this warp's slice of the block's shared memory: vectors, then (with
   // rows in shared memory) rows
-  const size_t vec = vec_floats(nf, MI);
-  const size_t rows = row_floats(Q.R, p.C * Q.M(), Q.S);
+  const size_t vec = vec_floats(D, nf, MI);
+  const size_t rows = row_floats(D, Q.R, p.C * Q.M(), Q.S);
   const size_t per_qp = vec + (p.rows_smem ? rows : 0);
-  Q.vb = Q.sb + shared_floats(nf, p.Ru, MI) + warp * per_qp;
+  Q.vb = Q.sb + shared_floats(D, nf, p.Ru, MI) + warp * per_qp;
   Q.rb = p.rows_smem ? Q.vb + vec : p.scratch + b * p.slab;
   Q.Rp = static_cast<int>(r4(Q.R));
   Q.Sp = static_cast<int>(r4(Q.S));
-  Q.nsc = p.nsc + b * p.C * p.M * 3;
+  Q.nsc = p.nsc + b * p.C * p.M * D;
   Q.scale = p.scale + b * Q.R;
   Q.bpl = p.bpl + b * Q.R;
   Q.bs0 = p.bs + b * 2 * Q.S;
@@ -794,13 +806,13 @@ struct Plan {
 // The layout of qpb QPs a block with the rows in shared memory
 // (smem_rows) or in device memory; qpb 0 takes as many as fit, at most
 // kMaxQpb with rows in shared memory and kGlobalQpb in device memory.
-Plan layout(int nf, int Ru, int C, int M, int n1, bool smem_rows,
+Plan layout(int D, int nf, int Ru, int C, int M, int n1, bool smem_rows,
             int qpb = 0) {
-  const int MI = M * n1, R = C * MI, S = 3 * Ru;
-  const size_t shared = shared_floats(nf, Ru, MI) * sizeof(float);
-  const size_t rows = row_floats(R, C * M, S);
+  const int MI = M * n1, R = C * MI, S = D * Ru;
+  const size_t shared = shared_floats(D, nf, Ru, MI) * sizeof(float);
+  const size_t rows = row_floats(D, R, C * M, S);
   const size_t per_qp =
-      (vec_floats(nf, MI) + (smem_rows ? rows : 0)) * sizeof(float);
+      (vec_floats(D, nf, MI) + (smem_rows ? rows : 0)) * sizeof(float);
   if (qpb == 0) {
     const int fit =
         kMaxSmem > shared ? static_cast<int>((kMaxSmem - shared) / per_qp)
@@ -818,26 +830,26 @@ bool specialised(int nf, int M, int n1) {
 
 // The kernel may take kMaxSmem of dynamic shared memory on the current
 // device from the plan's resident() on (lsc_ipm_fused_plan).
-template <int NF, int MT, int NT>
+template <int D, int NF, int MT, int NT>
 int launch(Params& p, const Plan& pl, cudaStream_t stream) {
   const int blocks = (p.N + pl.qpb - 1) / pl.qpb;
-  ipm_kernel<NF, MT, NT><<<blocks, pl.qpb * 32, pl.smem, stream>>>(p);
+  ipm_kernel<D, NF, MT, NT><<<blocks, pl.qpb * 32, pl.smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 // QPs of layout pl resident an SM (the CUDA occupancy calculator), or a
 // negative CUDA error.  Lets the kernel take kMaxSmem of dynamic shared
 // memory on the current device, as every launch needs.
-template <int NF, int MT, int NT>
+template <int D, int NF, int MT, int NT>
 int resident(const Plan& pl) {
   if (pl.qpb < 1) return 0;
   cudaError_t err = cudaFuncSetAttribute(
-      ipm_kernel<NF, MT, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ipm_kernel<D, NF, MT, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(kMaxSmem));
   if (err != cudaSuccess) return -static_cast<int>(err);
   int blocks = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, ipm_kernel<NF, MT, NT>, pl.qpb * 32, pl.smem);
+      &blocks, ipm_kernel<D, NF, MT, NT>, pl.qpb * 32, pl.smem);
   if (err != cudaSuccess) return -static_cast<int>(err);
   return blocks * pl.qpb;
 }
@@ -846,12 +858,12 @@ int resident(const Plan& pl) {
 // them in shared memory unless that takes more waves of blocks over the
 // card's SMs for N QPs than device memory does.  qpb 0: no layout;
 // resident < 0: a CUDA error.
-template <int NF, int MT, int NT>
+template <int D, int NF, int MT, int NT>
 Plan make_plan(int N, int nf, int Ru, int C, int M, int n1, int rows_mode) {
-  Plan s = layout(nf, Ru, C, M, n1, true);
-  Plan g = layout(nf, Ru, C, M, n1, false);
-  s.resident = resident<NF, MT, NT>(s);
-  g.resident = resident<NF, MT, NT>(g);
+  Plan s = layout(D, nf, Ru, C, M, n1, true);
+  Plan g = layout(D, nf, Ru, C, M, n1, false);
+  s.resident = resident<D, NF, MT, NT>(s);
+  g.resident = resident<D, NF, MT, NT>(g);
   if (s.resident < 0) return s;
   if (g.resident < 0) return g;
   if (rows_mode == 1) return s;
@@ -867,22 +879,36 @@ Plan make_plan(int N, int nf, int Ru, int C, int M, int n1, int rows_mode) {
   return ws <= wg ? s : g;
 }
 
-Plan plan_for(int N, int nf, int Ru, int C, int M, int n1, int rows_mode) {
+template <int D>
+Plan plan_d(int N, int nf, int Ru, int C, int M, int n1, int rows_mode) {
   return specialised(nf, M, n1)
-             ? make_plan<13, 5, 6>(N, nf, Ru, C, M, n1, rows_mode)
-             : make_plan<0, 0, 0>(N, nf, Ru, C, M, n1, rows_mode);
+             ? make_plan<D, 13, 5, 6>(N, nf, Ru, C, M, n1, rows_mode)
+             : make_plan<D, 0, 0, 0>(N, nf, Ru, C, M, n1, rows_mode);
 }
 
-bool valid(int N, int nf, int Ru, int C, int M, int n1) {
-  return N >= 0 && nf >= 1 && 3 * nf <= kMaxNv && Ru >= 1 && C >= 1 &&
-         M >= 1 && n1 >= 1;
+Plan plan_for(int D, int N, int nf, int Ru, int C, int M, int n1,
+              int rows_mode) {
+  return D == 2 ? plan_d<2>(N, nf, Ru, C, M, n1, rows_mode)
+                : plan_d<3>(N, nf, Ru, C, M, n1, rows_mode);
+}
+
+template <int D>
+int launch_d(Params& p, const Plan& pl, cudaStream_t stream) {
+  return specialised(p.nf, p.M, p.n1) ? launch<D, 13, 5, 6>(p, pl, stream)
+                                      : launch<D, 0, 0, 0>(p, pl, stream);
+}
+
+bool valid(int D, int N, int nf, int Ru, int C, int M, int n1) {
+  return (D == 2 || D == 3) && N >= 0 && nf >= 1 && D * nf <= kMaxNv &&
+         Ru >= 1 && C >= 1 && M >= 1 && n1 >= 1;
 }
 
 }  // namespace
 
 extern "C" {
 
-// The layout a launch of N QPs at these shapes uses: out[0] rows in
+// The layout a launch of N QPs of dimension D (2 or 3) at these shapes
+// uses: out[0] rows in
 // shared memory (1) or device memory (0), out[1] QPs a block, out[2]
 // shared-memory bytes a block, out[3] floats of device-memory scratch a
 // QP (0 with rows in shared memory), out[4] QPs resident an SM (blocks an
@@ -890,11 +916,11 @@ extern "C" {
 // kernel specialised to (nf, M, n + 1) = (13, 5, 6).  Returns 0, or a
 // CUDA error.  Call it on a device before the first launch there, and
 // pass out[0] and out[1] to lsc_ipm_fused_f32.
-int lsc_ipm_fused_plan(int N, int nf, int Ru, int C, int M, int n1,
+int lsc_ipm_fused_plan(int D, int N, int nf, int Ru, int C, int M, int n1,
                        int rows_mode, long long* out) {
-  if (!valid(N, nf, Ru, C, M, n1) || rows_mode < 0 || rows_mode > 2)
+  if (!valid(D, N, nf, Ru, C, M, n1) || rows_mode < 0 || rows_mode > 2)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Plan pl = plan_for(N, nf, Ru, C, M, n1, rows_mode);
+  const Plan pl = plan_for(D, N, nf, Ru, C, M, n1, rows_mode);
   if (pl.resident < 0) return -pl.resident;
   if (pl.qpb < 1) return static_cast<int>(cudaErrorInvalidValue);
   out[0] = pl.rows_smem;
@@ -911,17 +937,17 @@ int lsc_ipm_fused_f32(const void* Pb, const void* q, const void* y0,
                       const void* scale, const void* b_pl, const void* F_seg,
                       const void* sigma, void* y, void* lam_s, void* lam_p,
                       void* gap, void* iters_used, void* scratch,
-                      long long scratch_floats, int rows_smem, int qpb,
+                      long long scratch_floats, int rows_smem, int qpb, int D,
                       int N, int nf, int Ru, int C, int M, int n1, int iters,
                       int correctors, float reg, float s_min, float tol_gap,
                       float tol_rp, float tol_rd, float tol_step,
                       void* stream) {
-  if (!valid(N, nf, Ru, C, M, n1) || iters < 0 || correctors < 0 ||
+  if (!valid(D, N, nf, Ru, C, M, n1) || iters < 0 || correctors < 0 ||
       rows_smem < 0 || rows_smem > 1 || qpb < 1 ||
       qpb > (rows_smem ? kMaxQpb : kGlobalQpb))
     return static_cast<int>(cudaErrorInvalidValue);
   if (N == 0) return static_cast<int>(cudaGetLastError());
-  const Plan pl = layout(nf, Ru, C, M, n1, rows_smem == 1, qpb);
+  const Plan pl = layout(D, nf, Ru, C, M, n1, rows_smem == 1, qpb);
   if (pl.smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   if (!pl.rows_smem &&
       (scratch == nullptr ||
@@ -962,8 +988,7 @@ int lsc_ipm_fused_f32(const void* Pb, const void* q, const void* y0,
   p.tol_rd = tol_rd;
   p.tol_step = tol_step;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return specialised(nf, M, n1) ? launch<13, 5, 6>(p, pl, st)
-                                : launch<0, 0, 0>(p, pl, st);
+  return D == 2 ? launch_d<2>(p, pl, st) : launch_d<3>(p, pl, st);
 }
 
 }  // extern "C"

@@ -49,12 +49,12 @@ _SIGNATURES = {
     "lsc_chol_resolve_f64": [_PTR, _PTR, _PTR, ctypes.c_int, ctypes.c_int,
                              _PTR],
     # 10 inputs, 5 outputs, scratch; scratch floats; rows_smem, qpb (from
-    # the plan), N, nf, Ru, C, M, n1, iters, correctors; reg, s_min,
+    # the plan), D, N, nf, Ru, C, M, n1, iters, correctors; reg, s_min,
     # tol_gap, tol_rp, tol_rd, tol_step; stream
     "lsc_ipm_fused_f32": [_PTR] * 16 + [ctypes.c_longlong] +
-                         [ctypes.c_int] * 10 + [ctypes.c_float] * 6 + [_PTR],
-    # N, nf, Ru, C, M, n1, rows_mode; out (6 x long long)
-    "lsc_ipm_fused_plan": [ctypes.c_int] * 7 + [_PTR],
+                         [ctypes.c_int] * 11 + [ctypes.c_float] * 6 + [_PTR],
+    # D, N, nf, Ru, C, M, n1, rows_mode; out (6 x long long)
+    "lsc_ipm_fused_plan": [ctypes.c_int] * 8 + [_PTR],
     # occ, goal, out, steps; N, Z, Y, X, max_iters; stream
     "lsc_wavefront_f32": [_PTR] * 4 + [ctypes.c_int] * 5 + [_PTR],
     # lo0, hi0, cand, seed_ok, sat; S0, S1, S2; k0 (3); wmin32, wmin, wmax;

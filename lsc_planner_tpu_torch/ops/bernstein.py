@@ -44,6 +44,12 @@ def bernstein_matrix(n: int) -> np.ndarray:
 
 
 @lru_cache(maxsize=None)
+def bernstein_matrix_inv(n: int) -> np.ndarray:
+    """B^-1: monomial coefficients back to control points."""
+    return np.linalg.inv(bernstein_matrix(n))
+
+
+@lru_cache(maxsize=None)
 def q_base(n: int, phi: int, phi_n: int, dt: float) -> np.ndarray:
     """Per-segment derivative-energy Gram in control-point space
     (buildQBase, traj_optimizer.cpp:169-184)."""

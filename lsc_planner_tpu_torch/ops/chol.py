@@ -14,6 +14,10 @@ be handed to either version of ``chol_resolve``.  ``cholesky_batched``
 returns the factor alone (zeros above the diagonal, a non-SPD entry's
 lower triangle all NaN); as in the JAX package, nothing on the main path
 calls it.
+
+Up to ``WARP_MAX_N`` = 64 each kernel runs one warp a matrix (the IPM's
+n = 39); above it, up to ``MAX_N``, one block a matrix with the factor in
+device memory (the slack-relaxed QP's n = nv + C M: 359 at 64 agents).
 """
 from __future__ import annotations
 
@@ -21,20 +25,30 @@ import torch
 
 from . import _build
 
-MAX_N = 64
+WARP_MAX_N = 64        # the one-warp kernels' range
+MAX_N = 1024           # the block-a-matrix kernels' cap
 
 # launches of each kernel since the last reset (CUDA only; the plain
-# versions never count)
+# versions never count): the one-warp kernels (n <= WARP_MAX_N) and the
+# block-a-matrix ones (*_large)
 factor_solve_launches = 0
 resolve_launches = 0
 factor_launches = 0
+factor_solve_large_launches = 0
+resolve_large_launches = 0
+factor_large_launches = 0
 
 
 def reset_counts() -> None:
     global factor_solve_launches, resolve_launches, factor_launches
+    global factor_solve_large_launches, resolve_large_launches
+    global factor_large_launches
     factor_solve_launches = 0
     resolve_launches = 0
     factor_launches = 0
+    factor_solve_large_launches = 0
+    resolve_large_launches = 0
+    factor_large_launches = 0
 
 
 # ----------------------------------------------------------------------
@@ -89,8 +103,8 @@ def _check(mat, rhs, what):
                          f"{rhs.device} does not match {tuple(mat.shape)} "
                          f"{mat.dtype} {mat.device}")
     if not 1 <= n <= MAX_N:
-        raise ValueError(f"{what}: n = {n} outside the kernel's range "
-                         f"1..{MAX_N}")
+        raise ValueError(f"{what}: n = {n} outside the kernels' range "
+                         f"1..{MAX_N} (MAX_N)")
     if mat.dim() == 3 and mat.is_contiguous() and \
             (rhs is None or rhs.is_contiguous()):
         # the IPM's call, 120 times a cycle: no reshapes (batch None)
@@ -110,7 +124,7 @@ def _suffix(dtype):
 
 
 def _factor_solve_cuda(H, rhs):
-    global factor_solve_launches
+    global factor_solve_launches, factor_solve_large_launches
     lib = _build.load_library()
     H3, r2, batch, n = _check(H, rhs, "chol_factor_solve")
     B = H3.shape[0]
@@ -122,12 +136,15 @@ def _factor_solve_cuda(H, rhs):
     if err:
         raise RuntimeError(f"chol_factor_solve kernel launch failed: CUDA "
                            f"error {err}")
-    factor_solve_launches += 1
+    if n > WARP_MAX_N:
+        factor_solve_large_launches += 1
+    else:
+        factor_solve_launches += 1
     return _unbatch(L, batch, n, n), _unbatch(x, batch, n)
 
 
 def _factor_cuda(H):
-    global factor_launches
+    global factor_launches, factor_large_launches
     lib = _build.load_library()
     H3, _, batch, n = _check(H, None, "cholesky_batched")
     B = H3.shape[0]
@@ -137,12 +154,15 @@ def _factor_cuda(H):
     if err:
         raise RuntimeError(f"cholesky_batched kernel launch failed: CUDA "
                            f"error {err}")
-    factor_launches += 1
+    if n > WARP_MAX_N:
+        factor_large_launches += 1
+    else:
+        factor_launches += 1
     return _unbatch(L, batch, n, n)
 
 
 def _resolve_cuda(L, rhs):
-    global resolve_launches
+    global resolve_launches, resolve_large_launches
     lib = _build.load_library()
     L3, r2, batch, n = _check(L, rhs, "chol_resolve")
     B = L3.shape[0]
@@ -153,7 +173,10 @@ def _resolve_cuda(L, rhs):
     if err:
         raise RuntimeError(f"chol_resolve kernel launch failed: CUDA "
                            f"error {err}")
-    resolve_launches += 1
+    if n > WARP_MAX_N:
+        resolve_large_launches += 1
+    else:
+        resolve_launches += 1
     return _unbatch(x, batch, n)
 
 

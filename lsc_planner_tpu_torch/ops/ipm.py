@@ -21,12 +21,13 @@ The per-QP latch freezes a finished QP, so exiting per QP (the CUDA
 kernel) or per tile (the TPU) gives the same y, duals and gap; only the
 count needs the tile maximum, which ``tile_counts`` takes.
 
-Shapes at the public surface are the JAX wrapper's, batch first:
-P_blk (N, nf, nf); q, y0 (N, 3 nf); U (3, Ru, nf) pre-scaled unique static
-+rows; b_pairs (N, 2, 3 Ru) [+rows, -rows] scaled bounds; nsc (N, C, M, 3)
+Shapes at the public surface are the JAX wrapper's, batch first, with D
+the world's dimension (3, or 2 in a 2-D world):
+P_blk (N, nf, nf); q, y0 (N, D nf); U (D, Ru, nf) pre-scaled unique static
++rows; b_pairs (N, 2, D Ru) [+rows, -rows] scaled bounds; nsc (N, C, M, D)
 plane normals; scale, b_pl (N, C, M, n+1) row scales (0 = masked) and
 scaled bounds (-1 = masked); F_seg (M, n+1, nf); sigma (N,).
-Returns (y (N, nv), lam_s (N, 2, 3 Ru), lam_p (N, C M (n+1)) c-major,
+Returns (y (N, nv), lam_s (N, 2, D Ru), lam_p (N, C M (n+1)) c-major,
 gap (N,), iters_used (N,) int32 tile counts, or each QP's own count with
 ``qp_counts=True``).
 """
@@ -309,9 +310,9 @@ def _check(P_blk, q, y0, U, b_pairs, nsc, scale, b_pl, F_seg, sigma):
             raise ValueError(f"ipm_lsc_fused: {name} on {t.device}, q on "
                              f"{q.device}")
     ndim, Ru = U.shape[0], U.shape[1]
-    if ndim != 3 or nsc.shape[-1] != 3:
-        raise NotImplementedError("ipm_lsc_fused: the 2-D layout is not "
-                                  "ported (ROADMAP queue 1, item 12)")
+    if ndim not in (2, 3):
+        raise ValueError(f"ipm_lsc_fused: U {tuple(U.shape)} is of "
+                         f"dimension {ndim}, not 2 or 3")
     N, nf = P_blk.shape[0], P_blk.shape[-1]
     C, M, n1 = nsc.shape[1], nsc.shape[2], scale.shape[-1]
     nv = ndim * nf
@@ -320,7 +321,7 @@ def _check(P_blk, q, y0, U, b_pairs, nsc, scale, b_pl, F_seg, sigma):
     if nv > MAX_NV:
         raise ValueError(f"ipm_lsc_fused: nv = {nv} > {MAX_NV}")
     want = dict(P_blk=(N, nf, nf), q=(N, nv), y0=(N, nv), U=(ndim, Ru, nf),
-                b_pairs=(N, 2, ndim * Ru), nsc=(N, C, M, 3),
+                b_pairs=(N, 2, ndim * Ru), nsc=(N, C, M, ndim),
                 scale=(N, C, M, n1), b_pl=(N, C, M, n1), F_seg=(M, n1, nf),
                 sigma=(N,))
     for name, shape in want.items():
@@ -328,14 +329,15 @@ def _check(P_blk, q, y0, U, b_pairs, nsc, scale, b_pl, F_seg, sigma):
             raise ValueError(f"ipm_lsc_fused: {name} "
                              f"{tuple(tensors[name].shape)}, expected "
                              f"{shape}")
-    return N, nf, Ru, C, M, n1
+    return ndim, N, nf, Ru, C, M, n1
 
 
 _plans = {}
 
 
-def fused_plan(N, nf, Ru, C, M, n1, rows="auto", device=None):
-    """How the kernel lays out a launch of N QPs at these shapes on
+def fused_plan(N, nf, Ru, C, M, n1, rows="auto", device=None, ndim=3):
+    """How the kernel lays out a launch of N QPs of dimension ndim at
+    these shapes on
     ``device`` (default: the current CUDA device; "auto" keeps the rows in
     shared memory unless that takes more waves of blocks over the SMs than
     device memory does): a dict of rows_in_smem, qps_a_block, smem_bytes (a
@@ -345,15 +347,16 @@ def fused_plan(N, nf, Ru, C, M, n1, rows="auto", device=None):
     once a device and shape; every launch takes its layout from here."""
     index = (torch.cuda.current_device() if device is None or
              device.index is None else device.index)
-    key = (index, N, nf, Ru, C, M, n1, rows)
+    key = (index, ndim, N, nf, Ru, C, M, n1, rows)
     if key not in _plans:
         lib = _build.load_library()
         out = (ctypes.c_longlong * 6)()
         with torch.cuda.device(index):
-            err = lib.lsc_ipm_fused_plan(N, nf, Ru, C, M, n1,
+            err = lib.lsc_ipm_fused_plan(ndim, N, nf, Ru, C, M, n1,
                                          ROWS_MODES[rows], out)
         if err:
-            raise RuntimeError(f"ipm_lsc_fused: no layout for N={N} nf={nf} "
+            raise RuntimeError(f"ipm_lsc_fused: no layout for ndim={ndim} "
+                               f"N={N} nf={nf} "
                                f"Ru={Ru} C={C} M={M} n+1={n1} rows={rows}: "
                                f"CUDA error {err}")
         _plans[key] = dict(zip(("rows_in_smem", "qps_a_block", "smem_bytes",
@@ -367,15 +370,15 @@ def _fused_cuda(P_blk, q, y0, U, b_pairs, nsc, scale, b_pl, F_seg, sigma,
                 correctors, qp_counts=False, rows="auto"):
     global fused_launches
     lib = _build.load_library()
-    N, nf, Ru, C, M, n1 = _check(P_blk, q, y0, U, b_pairs, nsc, scale, b_pl,
-                                 F_seg, sigma)
-    nv, R = 3 * nf, C * M * n1
-    plan = fused_plan(N, nf, Ru, C, M, n1, rows, q.device)
+    D, N, nf, Ru, C, M, n1 = _check(P_blk, q, y0, U, b_pairs, nsc, scale,
+                                    b_pl, F_seg, sigma)
+    nv, R = D * nf, C * M * n1
+    plan = fused_plan(N, nf, Ru, C, M, n1, rows, q.device, ndim=D)
     ins = [t.contiguous() for t in (P_blk, q, y0, U, b_pairs, nsc, scale,
                                     b_pl, F_seg, sigma)]
     dev = q.device
     y = torch.empty((N, nv), dtype=torch.float32, device=dev)
-    lam_s = torch.empty((N, 2, 3 * Ru), dtype=torch.float32, device=dev)
+    lam_s = torch.empty((N, 2, D * Ru), dtype=torch.float32, device=dev)
     lam_p = torch.empty((N, R), dtype=torch.float32, device=dev)
     gap = torch.empty((N,), dtype=torch.float32, device=dev)
     it_qp = torch.empty((N,), dtype=torch.int32, device=dev)
@@ -385,7 +388,7 @@ def _fused_cuda(P_blk, q, y0, U, b_pairs, nsc, scale, b_pl, F_seg, sigma,
         lib.lsc_ipm_fused_f32, dev, *[t.data_ptr() for t in ins],
         y.data_ptr(), lam_s.data_ptr(), lam_p.data_ptr(), gap.data_ptr(),
         it_qp.data_ptr(), scratch.data_ptr(), scratch.numel(),
-        plan["rows_in_smem"], plan["qps_a_block"], N, nf, Ru, C, M, n1,
+        plan["rows_in_smem"], plan["qps_a_block"], D, N, nf, Ru, C, M, n1,
         iters, correctors,
         reg, s_min, tol_gap, tol_rp, tol_rd, tol_step)
     if err:
@@ -405,7 +408,7 @@ def ipm_lsc_fused(P_blk, q, y0, U, b_pairs, nsc, scale, b_pl, F_seg,
                   tol_step: float = 0.0, correctors: int = 0,
                   qp_counts: bool = False):
     """Solve a batch of factored-row LSC QPs in one fused launch (float32,
-    3-D, any number C of obstacle row groups).  ``iters`` is a cap: a QP
+    3-D or 2-D, any number C of obstacle row groups).  ``iters`` is a cap: a QP
     stops once its gap < tol_gap * sigma, primal residual < tol_rp and
     (dual residual < tol_rd or applied step < tol_step) hold on the new
     iterate; a tolerance of 0 runs every iteration.  ``qp_counts`` returns

@@ -1,8 +1,9 @@
-"""LSC and SFC collision constraints (port of pair_downwash, lsc_planes,
-sfc_planes and concat_planes from lsc_planner_tpu/planner/constraints.py).
+"""Collision constraints: LSC, BVC, reciprocal RSFC and SFC planes (port
+of lsc_planner_tpu/planner/constraints.py but box_pair_planes).
 
-One batched tensor program over every (agent, obstacle, segment) triple
-(generateLSC, traj_planner.cpp:1310-1407).  Contractions over the 3-D
+Each generator is one batched tensor program over every (agent, obstacle,
+segment) triple (generateLSC / generateBVC / generateReciprocalRSFC,
+traj_planner.cpp:1254-1440).  Contractions over the 3-D
 coordinate are written as products and sums, never as matmuls, so world
 coordinates stay exact f32 on every device.
 """
@@ -10,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from ..ops import geometry as geo
 from ..ops import hull as hull_ops
 from .optimizer import PlaneConstraints
 
@@ -35,11 +37,10 @@ def lsc_planes(init_traj, obs_pred, agent_radius, agent_downwash,
     agent_radius/downwash: (N,); obs_radius/downwash, obs_is_agent,
     obs_mask: (N, O).  guard_margin inflates each row's margin by
     min(guard, s0/2), s0 its slack at the initial trajectory, which keeps
-    the shifted previous solution feasible (see the JAX package)."""
-    if slack_flags is not None or obs_pred_sizes is not None:
-        raise NotImplementedError("slack-marked LSC rows (disturbance "
-                                  "path) are not ported (ROADMAP queue 1, "
-                                  "item 12)")
+    the shifted previous solution feasible (see the JAX package).  With
+    slack_flags (N, O) and obs_pred_sizes (N, O, M, n+1) (the disturbance
+    path, traj_planner.cpp:1395-1400) a slack-flagged non-agent obstacle
+    takes the RSFC margin, its inflated size plus the agent's radius."""
     N, O, M = obs_pred.shape[:3]
 
     dw = pair_downwash(agent_radius[:, None], agent_downwash[:, None],
@@ -58,11 +59,70 @@ def lsc_planes(init_traj, obs_pred, agent_radius, agent_downwash,
     if guard_margin > 0.0:
         s0 = 0.5 * (e - collision_dist[..., None, None])
         d = d + torch.clamp(0.5 * s0, 0.0, guard_margin)
+    if slack_flags is not None and obs_pred_sizes is not None:
+        use_rsfc = slack_flags & ~obs_is_agent
+        d_rsfc = obs_pred_sizes + agent_radius[:, None, None, None]
+        d = torch.where(use_rsfc[..., None, None], d_rsfc, d)
 
     # untransform the normal (z divided by downwash, traj_planner.cpp:1403)
     normal = torch.cat([normal_t[..., :2],
                         normal_t[..., 2:3] / dw[..., None, None]], dim=-1)
     rhs = d + (obs_pred * normal[..., None, :]).sum(-1)
+    mask = obs_mask[..., None].expand(N, O, M)
+    return PlaneConstraints(normal=normal, rhs=rhs, mask=mask)
+
+
+def bvc_planes(init_traj, obs_pred, agent_radius, agent_downwash,
+               obs_radius, obs_downwash, obs_is_agent,
+               obs_mask) -> PlaneConstraints:
+    """Buffered Voronoi Cell planes (generateBVC, traj_planner.cpp:
+    1409-1440): one normal an obstacle from the current relative position,
+    the same on every segment.  The downwash mixes both coefficients for
+    every obstacle, as the JAX package does."""
+    N, O, M = obs_pred.shape[:3]
+    dw = ((agent_downwash[:, None] * agent_radius[:, None] +
+           obs_downwash * obs_radius) / (agent_radius[:, None] + obs_radius))
+    scale = torch.stack([torch.ones_like(dw), torch.ones_like(dw),
+                         1.0 / dw], dim=-1)                       # (N, O, 3)
+    p_agent = init_traj[:, 0, 0, :]
+    p_obs = obs_pred[:, :, 0, 0, :]
+    rel = (p_agent[:, None] - p_obs) * scale
+    nrm = torch.linalg.vector_norm(rel, dim=-1, keepdim=True)
+    normal_t = rel / torch.clamp(nrm, min=1e-10)
+    collision_dist = agent_radius[:, None] + obs_radius
+    d = 0.5 * (collision_dist + (rel * normal_t).sum(-1))
+    normal = torch.cat([normal_t[..., :2],
+                        normal_t[..., 2:3] / dw[..., None]], dim=-1)
+    normal_m = normal[:, :, None, :].expand(N, O, M, 3)
+    rhs = d[:, :, None, None] + (obs_pred * normal_m[..., None, :]).sum(-1)
+    mask = obs_mask[..., None].expand(N, O, M)
+    return PlaneConstraints(normal=normal_m, rhs=rhs, mask=mask)
+
+
+def rsfc_planes(init_traj, obs_pred, obs_pred_sizes, agent_radius,
+                agent_downwash, obs_radius, obs_downwash, obs_is_agent,
+                obs_mask) -> PlaneConstraints:
+    """Reciprocal RSFC planes (generateReciprocalRSFC, traj_planner.cpp:
+    1254-1307): the normal from the closest points of the linear relative
+    paths between segment endpoints, the margin from the inflated obstacle
+    sizes (half the gap for a near agent), z divided by downwash^2."""
+    obs_start = obs_pred[..., 0, :]                      # (N, O, M, 3)
+    obs_goal = obs_pred[..., -1, :]
+    a_start = init_traj[:, None, :, 0, :].expand(obs_start.shape)
+    a_goal = init_traj[:, None, :, -1, :].expand(obs_goal.shape)
+    normal, closest_dist = geo.normal_vector_between_paths(
+        obs_start, obs_goal, a_start, a_goal)
+    r_sum = obs_pred_sizes + agent_radius[:, None, None, None]
+    near = (obs_is_agent[..., None, None] &
+            (closest_dist[..., None] < r_sum))
+    d = torch.where(near, 0.5 * (r_sum + closest_dist[..., None]), r_sum)
+    dw = pair_downwash(agent_radius[:, None], agent_downwash[:, None],
+                       obs_radius, obs_downwash, obs_is_agent)
+    normal = torch.cat([normal[..., :2],
+                        normal[..., 2:3] / (dw ** 2)[..., None, None]],
+                       dim=-1)
+    rhs = d + (obs_pred * normal[..., None, :]).sum(-1)
+    N, O, M = obs_pred.shape[:3]
     mask = obs_mask[..., None].expand(N, O, M)
     return PlaneConstraints(normal=normal, rhs=rhs, mask=mask)
 

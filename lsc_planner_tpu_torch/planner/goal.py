@@ -1,6 +1,7 @@
 """Goal planning stage (port of lsc_planner_tpu/planner/goal.py for the
-STATIC and PRIOR_BASED modes; with a static world (esdf) the PRIOR_BASED
-sub-goal comes from the grid planner, ops/grid_search.py)."""
+STATIC, RIGHT_HAND and PRIOR_BASED modes; with a static world (esdf) the
+PRIOR_BASED sub-goal comes from the grid planner, ops/grid_search.py.
+The ORCA goal mode comes with ORCA, ROADMAP queue 1, item 13)."""
 from __future__ import annotations
 
 import dataclasses
@@ -29,11 +30,11 @@ class GoalPlanner:
             from ..ops.grid_search import GridPlanner
             self.grid_planner = GridPlanner(self.mission, self.param,
                                             self.esdf, dtype=self.dtype)
-        if self.param.goal_mode not in (GoalMode.STATIC,
+        if self.param.goal_mode not in (GoalMode.STATIC, GoalMode.RIGHT_HAND,
                                         GoalMode.PRIOR_BASED):
             raise NotImplementedError(
                 f"goal mode {self.param.goal_mode.value} is not ported "
-                "(ROADMAP queue 1, items 12-13)")
+                "(ROADMAP queue 1, item 13)")
 
     def plan(self, pos, vel, init_traj, desired_goal, seq, radius,
              downwash, prev_traj=None, obs_pos=None, obs_goal=None,
@@ -51,9 +52,26 @@ class GoalPlanner:
                                   device=pos.device)
         if self.param.goal_mode == GoalMode.STATIC:
             return desired_goal, pos
+        if self.param.goal_mode == GoalMode.RIGHT_HAND:
+            return self._right_hand(pos, vel, desired_goal, seq), pos
         return self._prior_based(pos, init_traj, desired_goal, radius,
                                  downwash, obs_pos, obs_goal, obs_prev_traj,
                                  self_mask, obs_radius, obs_downwash)
+
+    def _right_hand(self, pos, vel, desired_goal, seq):
+        """A deadlocked agent's goal moves to the right of its goal
+        direction, (goal - pos) x z_hat (goalPlanningWithRightHandRule,
+        traj_planner.cpp:528-538; deadlock test isDeadlock :1733-1748)."""
+        p = self.param
+        dist_to_goal = torch.linalg.vector_norm(pos - desired_goal, dim=-1)
+        deadlock = ((seq > p.deadlock_seq_threshold) &
+                    (torch.linalg.vector_norm(vel, dim=-1) <
+                     p.deadlock_velocity_threshold) &
+                    (dist_to_goal > p.goal_threshold))
+        z_axis = torch.zeros_like(pos)
+        z_axis[:, 2].fill_(1.0)
+        right = torch.linalg.cross(desired_goal - pos, z_axis, dim=-1)
+        return torch.where(deadlock[:, None], pos + right, desired_goal)
 
     def _prior_based(self, pos, init_traj, desired_goal, radius, downwash,
                      obs_pos, obs_goal, obs_prev_traj, self_mask,

@@ -1,12 +1,15 @@
 """Trajectory-QP assembly: batched min-jerk Bernstein optimization (port
-of lsc_planner_tpu/planner/optimizer.py without the slack modes).
+of lsc_planner_tpu/planner/optimizer.py).
 
 The equality constraints (initial-state pin, C^{phi-1} continuity, the
 LSC stop-at-horizon rows) are eliminated at setup, x = F y + G s0, and the
 cost and every inequality row are assembled as fixed-shape batched tensors
-for the interior-point solver in ``ops/qp.py``.  The static tables are the
-JAX package's float64 numpy code, copied (the JAX module imports jax);
-a test holds them equal to the JAX tables.
+for the interior-point solver in ``ops/qp.py``.  A 2-D world drops the z
+block (nv = 2 nf; z is the held particular solution), and a slack-relaxed
+QP (``SlackSpec``) goes through dense rows with one slack column an
+(obstacle, segment) or two a segment for the dynamical limits.  The
+static tables are the JAX package's float64 numpy code, copied (the JAX
+module imports jax); a test holds them equal to the JAX tables.
 """
 from __future__ import annotations
 
@@ -28,6 +31,18 @@ class PlaneConstraints(NamedTuple):
     normal: torch.Tensor
     rhs: torch.Tensor
     mask: torch.Tensor
+
+
+class SlackSpec(NamedTuple):
+    """Slack-variable relaxation (traj_optimizer.cpp:306-326, :374-390).
+    mode "collision": one slack a (constraint entry c < n_slack_c, segment
+    m) on that obstacle's LSC rows, where enable (N, C) marks it;
+    "dynamical": 2 M slacks on every agent's velocity (m) and acceleration
+    (M + m) rows."""
+    mode: str
+    enable: Optional[torch.Tensor] = None
+    n_slack_c: int = 0
+    weight: float = 100000.0
 
 
 class QPResult(NamedTuple):
@@ -117,9 +132,6 @@ class TrajOptimizer:
         if self.param.qp_fused_mode not in qp_ops.FUSED_MODES:
             raise ValueError(f"qp_fused_mode {self.param.qp_fused_mode!r} "
                              f"not in {qp_ops.FUSED_MODES}")
-        if self.param.world_dimension != 3:
-            raise NotImplementedError("the 2-D QP layout is not ported "
-                                      "(ROADMAP queue 1, item 12)")
         self._cache = {}
 
     def _t(self, name: str, dtype, device, index=None) -> torch.Tensor:
@@ -143,7 +155,10 @@ class TrajOptimizer:
 
     @cached_property
     def dim(self):
-        return 3
+        """QP dimensions: a 2-D world drops the z block (every `dim == 3`
+        of traj_optimizer.cpp:261-539); its z trajectory is the equality
+        particular solution held at z0."""
+        return 2 if self.param.world_dimension == 2 else 3
 
     @cached_property
     def _FG(self):
@@ -339,10 +354,8 @@ class TrajOptimizer:
               world_max, y_warm: Optional[torch.Tensor] = None,
               slack=None, dtype=torch.float32) -> QPResult:
         """Assemble and solve the swarm QP; pos/vel/acc/current_goal,
-        max_vel/max_acc (N, 3).  Returns batched trajectories."""
-        if slack is not None:
-            raise NotImplementedError("slack-relaxed QPs are not ported "
-                                      "(ROADMAP queue 1, item 12)")
+        max_vel/max_acc (N, 3); slack a SlackSpec or None.  Returns batched
+        trajectories."""
         p = self.param
         N = pos.shape[0]
         dev = pos.device
@@ -387,11 +400,13 @@ class TrajOptimizer:
         for k in range(dim):
             P[:, k * nf:(k + 1) * nf, k * nf:(k + 1) * nf] = P_blk
 
-        # plane (LSC) rows
-        normal, rhs, cmask = planes.normal.to(dtype), planes.rhs, planes.mask
-        C = normal.shape[1]
-        b_pl4 = rhs.to(dtype) - torch.einsum("ncmk,nkmi->ncmi", normal,
+        # plane (LSC) rows: the rhs takes the full 3-D particular solution
+        # (in 2-D the held z folds n_z z into b), the rows the QP dims only
+        normal3, rhs, cmask = planes.normal.to(dtype), planes.rhs, planes.mask
+        C = normal3.shape[1]
+        b_pl4 = rhs.to(dtype) - torch.einsum("ncmk,nkmi->ncmi", normal3,
                                              g_seg3)
+        normal = normal3[..., :dim]
         i_idx = torch.arange(n + 1, device=dev)
         iskip = (m_idx[:, None] > 0) | (i_idx[None, :] >= phi)   # (M, n+1)
         ncs_mask = m_idx < p.n_constraint_segments
@@ -415,7 +430,7 @@ class TrajOptimizer:
                     (p.qp_fused_mode == "on" or
                      (p.qp_fused_mode == "auto" and
                       N >= p.qp_fused_min_agents)))
-        if dense_bytes > 48 * 2 ** 20 or fused_ok:
+        if slack is None and (dense_bytes > 48 * 2 ** 20 or fused_ok):
             sol = qp_ops.solve_qp_lsc(
                 P, q, self._t("A_static_y", dtype, dev), b_st, normal,
                 b_pl4, mask_pl4, F_seg, y0=y_warm, iters=p.qp_iterations,
@@ -427,7 +442,7 @@ class TrajOptimizer:
                 fused_mode=(p.qp_fused_mode if fused_ok else "off"))
             return self._recover(sol, N, dtype, tmask, current_goal, gx3)
 
-        # dense rows
+        # dense rows (always for a slack-relaxed QP)
         A_pl = torch.einsum("ncmk,mif->ncmikf", normal, F_seg).reshape(
             N, C * M * (n + 1), nv)
         A_st = self._t("A_static_y", dtype, dev)
@@ -436,10 +451,89 @@ class TrajOptimizer:
         mask = torch.cat([torch.ones(b_st.shape, dtype=torch.bool,
                                      device=dev),
                           mask_pl4.reshape(N, -1)], dim=1)
+        slack_w = None
+        if slack is not None:
+            # one column a slack, -1 on its rows, and the bound rows
+            # -s >= 0 (optimizer.py:594-637)
+            S, onehot, c_of_row, slack_w = self._slack_layout(
+                slack, b_st.shape[1], C, dtype, dev)
+            R = A.shape[1]
+            if slack.mode == "collision":
+                en = slack.enable.to(dtype)
+                en = torch.where(c_of_row[None, :] >= 0,
+                                 en[:, c_of_row.clamp(min=0)], 0.0)
+                A_sl = -onehot[None] * en[..., None]
+            else:
+                A_sl = -onehot[None].expand(N, R, S)
+            eyeS = torch.eye(S, dtype=dtype, device=dev)
+            bound_rows = torch.cat(
+                [torch.zeros((N, S, nv), dtype=dtype, device=dev),
+                 -eyeS[None].expand(N, S, S)], dim=2)
+            A = torch.cat([torch.cat([A, A_sl], dim=2), bound_rows], dim=1)
+            b = torch.cat([b, torch.zeros((N, S), dtype=dtype, device=dev)],
+                          dim=1)
+            mask = torch.cat([mask, torch.ones((N, S), dtype=torch.bool,
+                                               device=dev)], dim=1)
+            P_ext = torch.zeros((N, nv + S, nv + S), dtype=dtype, device=dev)
+            P_ext[:, :nv, :nv] = P
+            P_ext[:, nv:, nv:] = torch.diag(slack_w)
+            P = P_ext
+            q = torch.cat([q, torch.zeros((N, S), dtype=dtype, device=dev)],
+                          dim=1)
+            if y_warm is not None:
+                y_warm = torch.cat(
+                    [y_warm, torch.zeros((N, S), dtype=dtype, device=dev)],
+                    dim=1)
         sol = qp_ops.solve_qp(P, q, A, b, mask=mask, y0=y_warm,
                               iters=p.qp_iterations, s_min=p.qp_s_min,
                               correctors=p.qp_correctors)
-        return self._recover(sol, N, dtype, tmask, current_goal, gx3)
+        return self._recover(sol, N, dtype, tmask, current_goal, gx3,
+                             slack_w)
+
+    def _slack_layout(self, slack: SlackSpec, n_rows_static: int, C: int,
+                      dtype, device):
+        """(S, one-hot (R, S) of each row's slack column (a zero row for
+        none), each row's constraint entry (R,) int64 (-1 for static rows
+        and for entries past n_slack_c; "collision" only, else None), the
+        slack weights (S,)), made once a layout, dtype and device
+        (optimizer.py:437-460)."""
+        key = ("slack", slack.mode, slack.n_slack_c, slack.weight,
+               n_rows_static, C, dtype, device)
+        if key not in self._cache:
+            M, n = self.M, self.n
+            if slack.mode == "collision":
+                S = slack.n_slack_c * M
+                col_static = np.full(n_rows_static, -1)
+                cmi = np.full((C, M, n + 1), -1)
+                for c in range(min(slack.n_slack_c, C)):
+                    for m in range(M):
+                        cmi[c, m, :] = c * M + m
+                col_planes = cmi.reshape(-1)
+                m_of = np.tile(np.arange(M), slack.n_slack_c)
+                c_rows = np.repeat(np.arange(C), M * (n + 1))
+                c_rows[c_rows >= slack.n_slack_c] = -1
+                c_of_row = torch.as_tensor(np.concatenate(
+                    [np.full(n_rows_static, -1), c_rows]), device=device)
+            elif slack.mode == "dynamical":
+                S = 2 * M
+                _, kinds = self.static_rows
+                col_static = np.asarray(
+                    [m if kind == "vel" else (M + m if kind == "acc" else -1)
+                     for kind, _k, m in kinds])
+                col_planes = np.full(C * M * (n + 1), -1)
+                m_of = np.concatenate([np.arange(M), np.arange(M)])
+                c_of_row = None
+            else:
+                raise ValueError(f"slack mode {slack.mode!r} not in "
+                                 "('collision', 'dynamical')")
+            col = np.concatenate([col_static, col_planes])
+            onehot = (col[:, None] == np.arange(S)[None, :])
+            weights = 2.0 * slack.weight * (M - m_of) / M
+            self._cache[key] = (
+                S, torch.as_tensor(onehot, dtype=dtype, device=device),
+                c_of_row, torch.as_tensor(weights, dtype=dtype,
+                                          device=device))
+        return self._cache[key]
 
     def _terminal_weight(self, dist_to_goal, dtype):
         """Per-agent terminal weight: "distance" mode clamps w / dist into
@@ -453,8 +547,12 @@ class TrajOptimizer:
         return torch.full(dist_to_goal.shape, p.terminal_weight,
                           dtype=dtype, device=dist_to_goal.device)
 
-    def _recover(self, sol, N, dtype, tmask, current_goal, gx3):
-        """QP solution -> control points and the CPLEX-parity objective."""
+    def _recover(self, sol, N, dtype, tmask, current_goal, gx3,
+                 slack_w=None):
+        """QP solution -> control points and the CPLEX-parity objective
+        (plus 0.5 w s^2 of the slacks, slack_w their weights).  In 2-D the
+        z trajectory is the hold at z0: gx3's z row with the free part
+        pinned at z0 (optimizer.py:680-690)."""
         M, n, dim = self.M, self.n, self.dim
         nf, nv = self.nf, self.nv
         dev = gx3.device
@@ -462,18 +560,30 @@ class TrajOptimizer:
         y_sol = sol.y[:, :nv]
         x = torch.einsum("pf,nkf->nkp", F, y_sol.reshape(N, dim, nf)) + \
             gx3[:, :dim]
-        traj = x.reshape(N, 3, M, n + 1).permute(0, 2, 3, 1).contiguous()
+        if dim < 3:
+            z0 = gx3[:, 2, 0]
+            z_row = z0[:, None] * F.sum(1)[None, :] + gx3[:, 2]
+            x3 = torch.cat([x, z_row[:, None, :]], dim=1)
+        else:
+            x3 = x
+        traj = x3.reshape(N, 3, M, n + 1).permute(0, 2, 3, 1).contiguous()
 
         Qf = self._t("Q_full", dtype, dev)
         cost_ci = self.param.control_input_weight * torch.einsum(
             "nkp,pq,nkq->n", x, Qf, x)
-        endpoints = traj[:, :, n, :]
+        endpoints = traj[:, :, n, :dim]
         pos0 = traj[:, 0, 0, :]
         w_t = self._terminal_weight(
             torch.linalg.vector_norm(current_goal - pos0, dim=-1), dtype)
         cost_term = w_t * torch.einsum(
-            "nm,nmk->n", tmask, (endpoints - current_goal[:, None, :]) ** 2)
-        return QPResult(traj=traj, cost=cost_ci + cost_term,
-                        primal_res=sol.primal_res, gap=sol.gap, y=y_sol,
+            "nm,nmk->n", tmask,
+            (endpoints - current_goal[:, None, :dim]) ** 2)
+        cost = cost_ci + cost_term
+        slack_vals = None
+        if slack_w is not None:
+            slack_vals = sol.y[:, nv:]
+            cost = cost + 0.5 * (slack_w * slack_vals ** 2).sum(-1)
+        return QPResult(traj=traj, cost=cost, primal_res=sol.primal_res,
+                        gap=sol.gap, y=y_sol, slack=slack_vals,
                         warm_res=sol.warm_res, warm_row=sol.warm_row,
                         lam=sol.lam, iters=sol.iters)

@@ -1,11 +1,14 @@
 """Obstacle prediction / initial trajectory (port of
 lsc_planner_tpu/planner/prediction.py: the previous-solution shift, the
-constant-velocity and constant-position trajectories, and the slow-down of
-the linear prediction modes)."""
+constant-velocity and constant-position trajectories, the slow-down of
+the linear prediction modes, the uncertainty-inflated obstacle sizes and
+the disturbance gates of experiment mode)."""
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..ops import bernstein as bz
 
 
 def shift_previous_solution(traj: torch.Tensor) -> torch.Tensor:
@@ -31,6 +34,71 @@ def constant_position_traj(pos, M: int, n: int):
     (obstaclePredictionWithCurrPos traj_planner.cpp:796-807);
     (..., 3) -> (..., M, n+1, 3)."""
     return pos[..., None, None, :].expand(*pos.shape[:-1], M, n + 1, 3)
+
+
+_size_tables = {}
+
+
+def _size_inflation(M, n, dt, uncertainty_horizon, dtype, device):
+    """(M, n+1) inflation a unit of max_acc, made once a (shape, dtype,
+    device): the constant-acceleration growth 0.5 a t^2 in Bernstein form
+    (through B^-1) below the uncertainty horizon, saturated beyond
+    (obstacleSizePredictionWithConstAcc, traj_planner.cpp:880-919)."""
+    key = (M, n, dt, uncertainty_horizon, dtype, device)
+    if key not in _size_tables:
+        M_unc = int((uncertainty_horizon + 1e-9) / dt)
+        B_inv = bz.bernstein_matrix_inv(n)
+        rows = []
+        for m in range(M):
+            if m < M_unc:
+                coef = np.zeros(n + 1)
+                coef[0] = 0.5 * (m * dt) ** 2
+                coef[1] = m * dt ** 2
+                coef[2] = 0.5 * dt ** 2
+                rows.append(coef @ B_inv)
+            else:
+                rows.append(np.full(n + 1, 0.5 * (M_unc * dt) ** 2))
+        _size_tables[key] = torch.as_tensor(np.stack(rows), dtype=dtype,
+                                            device=device)
+    return _size_tables[key]
+
+
+def obstacle_size_prediction(radius, max_acc, M: int, n: int, dt: float,
+                             uncertainty_horizon: float,
+                             size_prediction: bool = True):
+    """Uncertainty-inflated obstacle radii per (segment, control point):
+    radius, max_acc (...,) -> sizes (..., M, n+1); without size_prediction
+    the radius itself."""
+    if not size_prediction:
+        return radius[..., None, None].expand(*radius.shape, M, n + 1)
+    infl = _size_inflation(M, n, dt, uncertainty_horizon, radius.dtype,
+                           radius.device)
+    return radius[..., None, None] + max_acc[..., None, None] * infl
+
+
+def prediction_check(pred, obs_pos, reset_threshold: float):
+    """Disturbance gate (obstaclePredictionCheck, traj_planner.cpp:866-878):
+    a prediction whose start is farther than the reset threshold from the
+    observed position is frozen there and flagged for slack.
+    pred (..., O, M, n+1, 3), obs_pos (..., O, 3) -> (pred',
+    flags (..., O))."""
+    start = pred[..., 0, 0, :]
+    deviated = torch.linalg.vector_norm(start - obs_pos, dim=-1) > \
+        reset_threshold
+    frozen = obs_pos[..., None, None, :].expand(pred.shape)
+    return torch.where(deviated[..., None, None, None], frozen, pred), \
+        deviated
+
+
+def initial_traj_check(init, pos, reset_threshold: float):
+    """The same gate on the agent's own initial trajectory
+    (initialTrajPlanningCheck, traj_planner.cpp:1047-1061): deviated agents
+    restart from their position and re-seed their SFC.
+    init (N, M, n+1, 3), pos (N, 3) -> (init', reset flags (N,))."""
+    deviated = torch.linalg.vector_norm(init[:, 0, 0, :] - pos, dim=-1) > \
+        reset_threshold
+    frozen = pos[:, None, None, :].expand(init.shape)
+    return torch.where(deviated[:, None, None, None], frozen, init), deviated
 
 
 def linear_prediction_slowdown(init, obs_pred, agent_radius, obs_radius,

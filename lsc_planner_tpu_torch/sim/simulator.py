@@ -1,20 +1,24 @@
-"""Synchronous multi-agent replanning simulator (port of the LSC main path
-of lsc_planner_tpu/sim/simulator.py).
+"""Synchronous multi-agent replanning simulator (port of
+lsc_planner_tpu/sim/simulator.py but the ORCA planner).
 
 One cycle for the whole swarm: propagate the previous solutions one time
-step, stall/rescue bookkeeping, previous-solution prediction, the priority
-goal rule, LSC planes, the batched trajectory QP, the QPFAILED fallback and
-the sampled safety audit.  In a static world (an ``esdf``, or mission
-``static`` boxes folded into one) the goal rule plans on the wavefront
-grid, each agent's SFC box corridor is updated and its faces join the LSC
-rows, deadlock-rescue waypoints are ray-checked against the ESDF, and the
-static boxes are audited exactly.  The tables live as tensors on the
-simulator's device (the CUDA device unless the caller names another) and
-are made once; on the card a cycle syncs with the host only for the QP's
-factored-path exit read, and ``run`` reads one small stats tensor back per
-cycle.  ``run(steps_per_dispatch=k)`` runs k cycles a dispatch
-(``make_scan_cycle``, the JAX package's ``lax.scan``): on the card one
-CUDA graph of k cycles, with one host read a block.
+step, stall/rescue bookkeeping, prediction, the goal rule, the planner
+mode's planes (LSC, BVC or reciprocal RSFC), the batched trajectory QP,
+the QPFAILED fallback and the sampled safety audit. RSFC, and LSC in
+experiment mode, solve the slack-relaxed QP; experiment mode also takes
+external poses (``inject_positions``): a deviated agent restarts from its
+observed position, re-seeds its SFC and slacks its rows in the next cycle,
+whose other agents slack the rows of the deviated one. In a static world
+(an ``esdf``, or mission ``static`` boxes folded into one) the goal rule
+plans on the wavefront grid, each agent's SFC box corridor is updated and
+its faces join the LSC rows, deadlock-rescue waypoints are ray-checked
+against the ESDF, and the static boxes are audited exactly. The tables
+live as tensors on the simulator's device (the CUDA device unless the
+caller names another) and are made once; on the card a cycle syncs with
+the host only for the QP's factored-path exit read, and ``run`` reads one
+small stats tensor back per cycle. ``run(steps_per_dispatch=k)`` runs k
+cycles a dispatch (``make_scan_cycle``, the JAX package's ``lax.scan``):
+on the card one CUDA graph of k cycles, with one host read a block.
 
 With ``max_neighbors = K`` (0 < K < N) each agent keeps LSC rows only for
 its K nearest neighbours, and the cycle reports the density-overflow audit
@@ -28,10 +32,9 @@ Bernstein fit of the prediction mode, and hands the cycle their positions,
 velocities and predictions, which join each agent's LSC rows after its
 agent columns.  Several cycles a dispatch refuse them with ValueError.
 
-Off the ported slice (planner modes other than LSC, the ORCA prediction
-mode, experiment-mode pose injection, cycle logs and stage profiles) the
-constructor or the call raises NotImplementedError naming its ROADMAP
-item.
+Off the ported slice (the ORCA planner, goal and prediction modes, cycle
+logs and stage profiles) the constructor or the call raises
+NotImplementedError naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -53,7 +56,7 @@ from ..ops import corridor as corridor_ops
 from ..planner import constraints as cons
 from ..planner import goal as goal_mod
 from ..planner import prediction as pred
-from ..planner.optimizer import TrajOptimizer
+from ..planner.optimizer import SlackSpec, TrajOptimizer
 from ..world.corridor import CorridorBuilder, update_sfc
 from ..world.esdf import ESDF
 from . import audit
@@ -63,8 +66,9 @@ from .obstacles import ChasingObstacle, ObstacleGenerator
 
 class SwarmState(NamedTuple):
     """Swarm state carried across planning cycles (fields as in the JAX
-    package; sfc is carried unchanged, and slack_flags always cleared, by
-    the empty-world cycle)."""
+    package; sfc is carried unchanged by the empty-world cycle;
+    slack_flags, set by inject_positions, are one-shot: the next cycle
+    reads and clears them)."""
     traj: torch.Tensor          # (N, M, n+1, 3) current solutions
     pos: torch.Tensor           # (N, 3)
     vel: torch.Tensor           # (N, 3)
@@ -246,6 +250,9 @@ def launch_counts() -> dict:
     return {"factor_solve": chol.factor_solve_launches,
             "resolve": chol.resolve_launches,
             "cholesky_batched": chol.factor_launches,
+            "factor_solve_large": chol.factor_solve_large_launches,
+            "resolve_large": chol.resolve_large_launches,
+            "cholesky_batched_large": chol.factor_large_launches,
             "fused_ipm": ipm.fused_launches,
             "wavefront": wavefront.wavefront_launches,
             "expand_boxes": corridor_ops.expand_launches}
@@ -365,18 +372,13 @@ class SyncSimulator:
         self.M, self.n = p.M, p.n
         # make_scan_cycle's CUDA graphs by (k, the state's shapes and dtypes)
         self._graphs = {}
-        if p.planner_mode != PlannerMode.LSC:
-            raise NotImplementedError(
-                f"planner mode {p.planner_mode.value} is not ported "
-                "(ROADMAP queue 1, items 12-13)")
+        if p.planner_mode == PlannerMode.ORCA:
+            raise NotImplementedError("the ORCA planner mode is not ported "
+                                      "(ROADMAP queue 1, item 13)")
         static_specs = [o for o in self.mission.obstacles
                         if o.kind == "static"]
         dyn_specs = [o for o in self.mission.obstacles
                      if o.kind != "static"]
-        if p.multisim_experiment:
-            raise NotImplementedError("experiment-mode pose injection and "
-                                      "slack rows are not ported (ROADMAP "
-                                      "queue 1, item 12)")
         self.optimizer = TrajOptimizer(p)
 
         arrs = self.mission.agent_arrays()
@@ -460,8 +462,7 @@ class SyncSimulator:
             radii, dw, acc = np.zeros(0), np.ones(0), np.zeros(0)
         self.obs_radius_dyn = t(radii)
         self.obs_downwash_dyn = t(dw)
-        # the obstacles' acceleration bounds size their slack and RSFC
-        # rows (JAX simulator.py:735-737), which come with item 12's rest
+        # the obstacles' acceleration bounds size their slack and RSFC rows
         self.obs_max_acc_dyn = t(acc)
         self.goal_planner = goal_mod.GoalPlanner(self.mission, p, self.esdf,
                                                  dtype=self.dtype)
@@ -580,7 +581,8 @@ class SyncSimulator:
                    self_mask, radius, downwash, nominal_velocity, max_vel,
                    max_acc, desired_goal, sfc_prev=None, sfc_initialize=None,
                    sfc_seed=None, rescue_goal=None, rescue_active=None,
-                   dyn_pos=None, dyn_vel=None, dyn_pred=None):
+                   dyn_pos=None, dyn_vel=None, dyn_pred=None,
+                   obs_slack_global=None, self_slack=None):
         """Plan one block of agents (L, ...) against the global obstacle
         view (N_total, ...): goals, K-NN pruning, the dynamic obstacles'
         columns after the agents', LSC planes, the SFC corridor in a static
@@ -590,7 +592,9 @@ class SyncSimulator:
         current_goal, sfc, knn_overflow, path_floor); knn_overflow (L,)
         flags agents whose K-th nearest neighbour is still inside the
         interaction ball (None without pruning); sfc is sfc_prev without a
-        static world."""
+        static world.  obs_slack_global (N_total,) flags the obstacles whose
+        rows take slack and self_slack (L,) the agents that slack all their
+        rows (experiment mode; both None otherwise)."""
         p = self.param
         L = pos.shape[0]
         O = pred_global.shape[0]
@@ -616,13 +620,19 @@ class SyncSimulator:
             knn_overflow = sel_d2[:, -1] < r2
             obs_pred = pred_global[nbr]                     # (L, K, M, n1, 3)
             obs_radius, obs_downwash = self.radius[nbr], self.downwash[nbr]
+            obs_max_acc = self.max_acc[nbr, 0]
             obs_mask = sel_d2 <= r2
+            obs_slack = (obs_slack_global[nbr]
+                         if obs_slack_global is not None else None)
             O = K
         else:
             obs_pred = pred_global[None].expand(L, O, M, n + 1, 3)
             obs_radius = self.radius[None, :].expand(L, O)
             obs_downwash = self.downwash[None, :].expand(L, O)
+            obs_max_acc = self.max_acc[None, :, 0].expand(L, O)
             obs_mask = ~self_mask
+            obs_slack = (obs_slack_global[None, :].expand(L, O)
+                         if obs_slack_global is not None else None)
         dev = pos.device
         obs_is_agent = torch.ones((L, O), dtype=torch.bool, device=dev)
 
@@ -646,6 +656,15 @@ class SyncSimulator:
             obs_downwash = torch.cat(
                 [obs_downwash, self.obs_downwash_dyn[None].expand(L, Od)],
                 dim=1)
+            obs_max_acc = torch.cat(
+                [obs_max_acc, self.obs_max_acc_dyn[None].expand(L, Od)],
+                dim=1)
+            if obs_slack is not None:
+                # host-built predictions start at the observed positions:
+                # the deviation gate never fires for them (JAX
+                # simulator.py:704-709)
+                obs_slack = torch.cat([obs_slack, torch.zeros(
+                    (L, Od), dtype=torch.bool, device=dev)], dim=1)
 
         if p.prediction_mode == PredictionMode.VELOCITY:
             # linear-prediction slow-down (generateLSC preamble,
@@ -658,9 +677,38 @@ class SyncSimulator:
             init = pred.contract_trajectories(init, alpha)
             obs_pred = pred.contract_trajectories(obs_pred, alpha[:, None])
 
-        planes = cons.lsc_planes(
-            init, obs_pred, radius, downwash, obs_radius, obs_downwash,
-            obs_is_agent, obs_mask, guard_margin=p.lsc_guard_margin)
+        slack_spec = None
+        if p.planner_mode == PlannerMode.LSC:
+            slack_flags = sizes = None
+            if obs_slack is not None and self_slack is not None:
+                # the disturbance path (simulator.py:727-747): a deviated
+                # agent slacks all its rows, everyone the deviated
+                # obstacle's; slacked non-agents take the RSFC margin
+                slack_flags = (obs_slack | self_slack[:, None]) & obs_mask
+                sizes = pred.obstacle_size_prediction(
+                    obs_radius, obs_max_acc, M, n, p.dt,
+                    p.obs_uncertainty_horizon, p.obs_size_prediction)
+                slack_spec = SlackSpec(mode="collision", enable=slack_flags,
+                                       n_slack_c=obs_pred.shape[1],
+                                       weight=p.slack_collision_weight)
+            planes = cons.lsc_planes(
+                init, obs_pred, radius, downwash, obs_radius, obs_downwash,
+                obs_is_agent, obs_mask, slack_flags=slack_flags,
+                obs_pred_sizes=sizes, guard_margin=p.lsc_guard_margin)
+        elif p.planner_mode == PlannerMode.BVC:
+            planes = cons.bvc_planes(init, obs_pred, radius, downwash,
+                                     obs_radius, obs_downwash, obs_is_agent,
+                                     obs_mask)
+        else:       # RECIPROCAL_RSFC (simulator.py:753-765)
+            sizes = pred.obstacle_size_prediction(
+                obs_radius, obs_max_acc, M, n, p.dt,
+                p.obs_uncertainty_horizon, p.obs_size_prediction)
+            planes = cons.rsfc_planes(init, obs_pred, sizes, radius,
+                                      downwash, obs_radius, obs_downwash,
+                                      obs_is_agent, obs_mask)
+            slack_spec = SlackSpec(mode="collision", enable=obs_mask,
+                                   n_slack_c=obs_pred.shape[1],
+                                   weight=p.slack_collision_weight)
 
         # SFC corridors against the static world (generateFeasibleSFC,
         # traj_planner.cpp:1451-1491), their faces after the LSC rows
@@ -680,7 +728,7 @@ class SyncSimulator:
             pos, vel, acc, current_goal, nominal_velocity=nominal_velocity,
             max_vel=max_vel, max_acc=max_acc, planes=planes,
             world_min=self.world_min, world_max=self.world_max,
-            y_warm=y_warm, dtype=self.dtype)
+            y_warm=y_warm, slack=slack_spec, dtype=self.dtype)
         return res, current_goal, sfc, knn_overflow, path_floor
 
     def _patrol_swap(self, state: SwarmState, pos):
@@ -732,6 +780,17 @@ class SyncSimulator:
         # SFC seed: the previous solution's endpoint, or the current
         # position on (re-)initialization (traj_planner.cpp:1454-1473)
         sfc_initialize = ~state.sfc_initialized
+        obs_slack_global = self_slack = None
+        if p.multisim_experiment and state.slack_flags is not None:
+            # the disturbance-reset slack path (simulator.py:856-871): a
+            # deviated agent's initial trajectory collapses to its position,
+            # its SFC is re-seeded and it slacks all its rows; the agents
+            # inject_positions flagged are slacked by everyone
+            init, self_reset = pred.initial_traj_check(
+                init, pos, p.multisim_reset_threshold)
+            sfc_initialize = sfc_initialize | self_reset
+            self_slack = state.slack_flags | self_reset
+            obs_slack_global = state.slack_flags
         sfc_seed = torch.where(sfc_initialize[:, None], pos,
                                state.traj[:, -1, -1, :])
         res, current_goal, sfc, knn_overflow, path_floor = self.plan_block(
@@ -744,7 +803,8 @@ class SyncSimulator:
             sfc_prev=state.sfc, sfc_initialize=sfc_initialize,
             sfc_seed=sfc_seed, rescue_goal=rescue_goal,
             rescue_active=rescue_active, dyn_pos=dyn_pos, dyn_vel=dyn_vel,
-            dyn_pred=dyn_pred)
+            dyn_pred=dyn_pred, obs_slack_global=obs_slack_global,
+            self_slack=self_slack)
 
         # QPFAILED report + feasible fallback (simulator.py:890-898): a
         # failing agent keeps its shifted previous solution
@@ -908,6 +968,27 @@ class SyncSimulator:
                 out[oi, m] = basis_inv @ targets
         return out
 
+    def inject_positions(self, state: SwarmState, real_pos) -> SwarmState:
+        """Experiment-mode external poses (update(),
+        multi_sync_simulator.cpp:210-246, simulator.py:1211-1231): an agent
+        whose observed position (N, 3) is farther than the reset threshold
+        from its plan one time step on restarts there (its trajectory
+        frozen at the observation, its SFC re-seeded) and is flagged for
+        the next cycle's slack-relaxed QP."""
+        p = self.param
+        real_pos = torch.as_tensor(real_pos, dtype=self.dtype,
+                                   device=self.device)
+        rolled = bz.traj_state_batch(state.traj, p.multisim_time_step, p.dt)
+        dev = _norm(rolled["pos"] - real_pos) > p.multisim_reset_threshold
+        frozen = real_pos[:, None, None, :].expand(state.traj.shape)
+        slack = state.slack_flags
+        if slack is not None:
+            slack = slack | dev
+        return state._replace(
+            traj=torch.where(dev[:, None, None, None], frozen, state.traj),
+            sfc_initialized=state.sfc_initialized & ~dev,
+            slack_flags=slack)
+
     def make_scan_cycle(self, k: int):
         """k planning cycles in one dispatch (simulator.py:1001-1031, the
         JAX package's lax.scan).  Returns multi(state) -> (state_k,
@@ -1009,7 +1090,16 @@ class SyncSimulator:
             if not p.multisim_patrol and goal_dist < p.goal_threshold:
                 flight_time = iters_done * p.multisim_time_step
                 break
-            if p.multisim_planning_rate > 0:
+            if p.multisim_experiment:
+                # real-time pacing: the cycle's budget is one time step
+                # (multi_sync_simulator.cpp:136-142)
+                margin = p.multisim_time_step - plan_times[-1]
+                if margin < 0:
+                    print(f"[SyncSimulator] planning too slow: "
+                          f"{-margin * 1e3:.1f} ms over budget")
+                else:
+                    time.sleep(margin)
+            elif p.multisim_planning_rate > 0:
                 time.sleep(1.0 / p.multisim_planning_rate)
         synchronize(self.device)
         wall = time.perf_counter() - t_wall0

@@ -207,27 +207,27 @@ def test_resolve_nan_factor_stays_in_its_entry(cuda, dtype):
     ok = torch.arange(64, device=cuda) != 5
     assert torch.equal(y[ok], clean[ok])
 
-def fused_problem(B, C, seed=0):
+def fused_problem(B, C, seed=0, dim=3):
     """Inputs of ``ipm.ipm_lsc_fused`` on the production row structure
     (the optimizer's unit-norm U and F_seg), built as tests/test_qp.py:
     169-181 builds its QPs: P_blk = L L' + 2 I, about 70 % of the plane
     rows live.  Every bound is negative, so the start d = 0 is strictly
     feasible and each QP has a solution however many rows it has.  float64
-    numpy arrays in the wrapper's argument order."""
+    numpy arrays in the wrapper's argument order; dim 2: a 2-D world's."""
     from lsc_planner_tpu_torch import Param
     from lsc_planner_tpu_torch.planner.optimizer import TrajOptimizer
 
     rng = np.random.default_rng(seed)
-    opt = TrajOptimizer(Param())
+    opt = TrajOptimizer(Param(world_dimension=dim))
     nf, M, n1 = opt.nf, opt.M, opt.n + 1
     U = opt.static_blocked[0]
     U = U / np.maximum(np.linalg.norm(U, axis=-1, keepdims=True), 1e-3)
     Lb = rng.normal(size=(B, nf, nf)) * 0.3
     P_blk = Lb @ np.swapaxes(Lb, -1, -2) + 2.0 * np.eye(nf)
-    q = rng.normal(size=(B, 3 * nf))
-    y0 = rng.normal(size=(B, 3 * nf)) * 0.1
+    q = rng.normal(size=(B, dim * nf))
+    y0 = rng.normal(size=(B, dim * nf)) * 0.1
     b_pairs = -rng.uniform(0.5, 5.0, size=(B, 2, U.shape[0] * U.shape[1]))
-    nsc = rng.normal(size=(B, C, M, 3))
+    nsc = rng.normal(size=(B, C, M, dim))
     F_seg = opt.F_seg
     row = np.linalg.norm(nsc, axis=-1)[..., None] * \
         np.linalg.norm(F_seg, axis=-1)
@@ -898,3 +898,141 @@ def test_dynamic_obstacle_cycles_on_the_card_match_the_cpu(cuda, mode,
         trajs.append(torch.stack(out))
     assert trajs[0].shape == trajs[1].shape == (10, 2, 5, 6, 3)
     assert (trajs[0] - trajs[1]).abs().max().item() <= 1e-6
+
+
+def big_spd_system(B, n, seed, dev):
+    """ipm_like_system at a large n, built on the card in f64 (numpy's
+    three-operand einsum takes minutes there): (Hs, r1, r2)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    A = torch.randn(B, 3 * n, n, generator=g, device=dev,
+                    dtype=torch.float64)
+    d = torch.exp(torch.empty(B, 3 * n, device=dev, dtype=torch.float64
+                              ).uniform_(-np.log(1e3), np.log(1e3),
+                                         generator=g))
+    H = torch.eye(n, device=dev, dtype=torch.float64) + \
+        A.mT @ (A * d[..., None])
+    dsc = torch.rsqrt(torch.diagonal(H, dim1=-2, dim2=-1))
+    Hs = H * dsc[:, :, None] * dsc[:, None, :]
+    r = torch.randn(2, B, n, generator=g, device=dev, dtype=torch.float64)
+    return Hs, r[0], r[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B, n", [(1, 65), (7, 96), (64, 354), (3, 399),
+                                  (2, 1024)])
+def test_large_n_chol_kernels(cuda, B, n, dtype):
+    """Past 64 the chol kernels run one block a matrix: factor_solve,
+    resolve and the factor alone against the f64 solve (f32: within 4x the
+    plain f32 version's error + 1e-6; f64: rtol 1e-9), resolve(L, rhs) is
+    factor_solve's x bit for bit, the factor alone is factor_solve's L bit
+    for bit with zeros above the diagonal, and a non-SPD entry (B > 1)
+    gives NaN in that entry only."""
+    H64, R1d, R2d = big_spd_system(B, n, seed=n + B, dev=cuda)
+    L64, x64 = chol.chol_factor_solve_plain(H64, R1d)
+    y64 = chol.chol_resolve_plain(L64, R2d)
+    H, R1, R2 = H64.to(dtype), R1d.to(dtype), R2d.to(dtype)
+    chol.reset_counts()
+    Lk, xk = chol.chol_factor_solve(H, R1)
+    yk = chol.chol_resolve(Lk, R2)
+    xr = chol.chol_resolve(Lk, R1)
+    Fk = chol.cholesky_batched(H)
+    torch.cuda.synchronize()
+    assert (chol.factor_solve_large_launches, chol.resolve_large_launches,
+            chol.factor_large_launches) == (1, 2, 1)
+    assert (chol.factor_solve_launches, chol.resolve_launches,
+            chol.factor_launches) == (0, 0, 0)
+    assert torch.equal(xr, xk)
+    assert torch.equal(Fk, Lk)
+    assert torch.equal(torch.triu(Lk, 1), torch.zeros_like(Lk))
+    for got, ref, plain in ((xk, x64, lambda: chol.chol_factor_solve_plain(
+                                H, R1)[1]),
+                            (yk, y64, lambda: chol.chol_resolve_plain(
+                                chol.chol_factor_solve_plain(H, R1)[0], R2))):
+        if dtype == torch.float64:
+            torch.testing.assert_close(got, ref, rtol=1e-9, atol=1e-9)
+        else:
+            e_k = (got.double() - ref).abs().max().item()
+            e_p = (plain().double() - ref).abs().max().item()
+            assert e_k <= 4 * e_p + 1e-6, (e_k, e_p)
+    if B > 1:
+        bad = B // 2
+        Hb = H.clone()
+        Hb[bad, 7, 7] = -1.0
+        Lb, xb = chol.chol_factor_solve(Hb, R1)
+        yb = chol.chol_resolve(Lb, R2)
+        Fb = chol.cholesky_batched(Hb)
+        torch.cuda.synchronize()
+        for v in (xb, yb):
+            assert (~torch.isfinite(v).all(-1)).nonzero().flatten(
+                ).tolist() == [bad]
+        low = torch.tril(torch.ones_like(Lb[bad], dtype=torch.bool))
+        assert torch.isnan(Lb[bad][low]).all()
+        assert torch.equal(Fb.view(-1).isnan(), Lb.view(-1).isnan())
+        ok = torch.arange(B, device=cuda) != bad
+        assert torch.equal(Lb[ok], Lk[ok]) and torch.equal(xb[ok], xk[ok])
+
+
+@pytest.mark.cuda
+def test_chol_kernels_refuse_past_the_cap(cuda):
+    H = torch.eye(chol.MAX_N + 1, device=cuda)[None]
+    with pytest.raises(ValueError, match="MAX_N"):
+        chol.chol_factor_solve(H, torch.zeros(1, chol.MAX_N + 1,
+                                              device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,C", [(1, 5), (128, 128), (130, 32)])
+def test_fused_kernel_2d_matches_plain(cuda, B, C):
+    """The 2-D instantiation (nv = 26) against the plain version as in
+    test_fused_kernel_matches_plain."""
+    arr = fused_problem(B, C, seed=B + C, dim=2)
+    a64 = [torch.as_tensor(a, device=cuda) for a in arr]
+    a32 = [a.float() for a in a64]
+    for kw in (dict(iters=3, tol_gap=0.0, tol_rp=0.0, correctors=1),
+               PROD_TOL):
+        ref = ipm.ipm_lsc_fused_plain(*a64, **kw)
+        plain = ipm.ipm_lsc_fused_plain(*a32, **kw)
+        ipm.reset_counts()
+        got = ipm.ipm_lsc_fused(*a32, **kw)
+        torch.cuda.synchronize()
+        assert ipm.fused_launches == 1
+        assert got[0].shape == (B, 26) and got[1].shape == ref[1].shape
+        e_k = (got[0].double() - ref[0]).abs().max().item()
+        e_p = (plain[0].double() - ref[0]).abs().max().item()
+        assert e_k <= 4 * e_p + 1e-4, (kw["iters"], e_k, e_p)
+        assert (got[4] - plain[4]).abs().max().item() <= 1
+        for t in got[:4]:
+            assert torch.isfinite(t).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["rsfc", "2d"])
+def test_captured_mode_cycles_are_bit_equal(cuda, mode):
+    """4 captured cycles equal 4 uncaptured ones bit for bit: an 8-agent
+    circle under RECIPROCAL_RSFC (the slack QP at n = 45 + 7 x 5 = 80 on
+    the large-n chol kernels) and a 130-agent 2-D circle (the fused IPM at
+    ndim 2)."""
+    from lsc_planner_tpu_torch import (GoalMode, Param, PlannerMode,
+                                       make_circle_mission)
+    from lsc_planner_tpu_torch.sim.simulator import SyncSimulator
+
+    if mode == "rsfc":
+        qn, p = 8, Param(planner_mode=PlannerMode.RECIPROCAL_RSFC,
+                         goal_mode=GoalMode.PRIOR_BASED)
+    else:
+        qn, p = 130, Param(world_dimension=2, world_z_2d=1.0,
+                           goal_mode=GoalMode.PRIOR_BASED)
+    r = max(4.0, 0.45 * qn / np.pi)
+    m = make_circle_mission(qn, radius=r, z=1.0,
+                            world=(-r - 2, -r - 2, 0, r + 2, r + 2, 2.5))
+    sim = SyncSimulator(m, p, device=cuda)
+    diffs, launches, moved = captured_against_uncaptured(sim, 3, k=4)
+    for d in diffs:
+        assert not any(d.values()), d
+    assert not any(moved.values()), moved
+    if mode == "rsfc":
+        assert launches["factor_solve_large"] == 4 * p.qp_iterations
+        assert launches["factor_solve"] == 0
+    else:
+        assert launches["fused_ipm"] == 4

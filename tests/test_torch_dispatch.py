@@ -41,6 +41,7 @@ from lsc_planner_tpu.world.esdf import ESDF as JESDF
 from lsc_planner_tpu_torch import missions as tmis
 from lsc_planner_tpu_torch.config import GoalMode as TGoalMode
 from lsc_planner_tpu_torch.config import Param
+from lsc_planner_tpu_torch.config import PlannerMode as TPlannerMode
 from lsc_planner_tpu_torch.config import PredictionMode as TPredictionMode
 from lsc_planner_tpu_torch.ops import corridor as corridor_ops
 from lsc_planner_tpu_torch.ops import qp
@@ -292,15 +293,17 @@ class HostTraffic(TorchDispatchMode):
 
 @pytest.mark.parametrize("case", ["circle_dense", "knn_factored_fused",
                                   "forest", "forest_castray",
-                                  "forest_velocity"])
+                                  "forest_velocity", "bvc", "rsfc",
+                                  "right_hand", "circle_2d_fused"])
 def test_a_cycle_makes_no_host_traffic(case, monkeypatch):
     """After one warm-up cycle (which makes every cached constant), a cycle
     creates no tensor from host data and reads nothing back, outside the
     plain versions that stand in for the kernels on the CPU: the dense and
     the factored (fused) QP rows, K-NN pruning, the grid planner (with the
     exact castRay too), the corridor, and the VELOCITY prediction's
-    slow-down against the ESDF.  The IPM's exit read is skipped as under
-    graph capture."""
+    slow-down against the ESDF; and the BVC, reciprocal RSFC (the slack
+    QP) and right-hand modes, and a 2-D world through the fused IPM.  The
+    IPM's exit read is skipped as under graph capture."""
     circle = tmis.make_circle_mission(8, radius=3.0,
                                       world=(-5, -5, 0, 5, 5, 2.5))
     m, p = {
@@ -316,6 +319,14 @@ def test_a_cycle_makes_no_host_traffic(case, monkeypatch):
         "forest_velocity": (forest_mission(tmis, 3, 4, 12, WORLD),
                             Param(goal_mode=TGoalMode.PRIOR_BASED,
                                   world_use_octomap=True)),
+        "bvc": (circle, Param(goal_mode=TGoalMode.PRIOR_BASED,
+                              planner_mode=TPlannerMode.BVC)),
+        "rsfc": (circle, Param(goal_mode=TGoalMode.PRIOR_BASED,
+                               planner_mode=TPlannerMode.RECIPROCAL_RSFC)),
+        "right_hand": (circle, Param(goal_mode=TGoalMode.RIGHT_HAND)),
+        "circle_2d_fused": (circle, Param(
+            goal_mode=TGoalMode.PRIOR_BASED, world_dimension=2,
+            world_z_2d=1.0, qp_fused_mode="on")),
     }[case]
     monkeypatch.setattr(qp, "_capturing", lambda device: True)
     sim = TSim(m, p, dtype=torch.float32)

@@ -19,7 +19,11 @@ and "dyn64_lkf_f64" are phase 13's 40-cycle runs of dyn64 under the ORACLE
 prediction and the per-agent Kalman filters (0.02 m of noise): each
 package's min safety, QPFAILED and obstacle safety, and, a line a cycle,
 the max trajectory difference between the packages and each one's step
-safety.
+safety.  The cases of chip_smoke.py's MODE_CASES (phase 15: "bvc64",
+"rsfc64", "exp64", "circle64_2d", "circle128_2d", "rh64") fly that
+mission with the JAX package in f32 (a suffix "_f64": in f64; "_port":
+the port's CPU run in f32) through chip_smoke.fly_cycles, exp64 with its
+injected disturbance, and print cycles, distance, safety and QPFAILED.
 """
 import dataclasses
 import math
@@ -215,6 +219,35 @@ def dyn64_mode_runs(name, cycles=40):
     return per_cycle, runs
 
 
+def mode_run(name):
+    """chip_smoke.py's phase-15 case `name` (a MODE_CASES key, with an
+    optional suffix "_f64" or "_port"): chip_smoke.fly_cycles' dict."""
+    import enum
+
+    import chip_smoke
+    from lsc_planner_tpu import config as jcfg
+
+    base = name.split("_f64")[0].split("_port")[0]
+    tm, kw, cycles = chip_smoke.mode_case(base)
+    cycles = cycles or 1000
+    if name.endswith("_port"):
+        sim = TSim(tm, chip_smoke.Param(**kw), device="cpu",
+                   dtype=torch.float32)
+        step = sim.cycle
+    else:
+        jkw = {k: getattr(jcfg, type(v).__name__)[v.name]
+               if isinstance(v, enum.Enum) else v for k, v in kw.items()}
+        sim = JSim(chip_smoke.mode_case(base, jmis)[0], jcfg.Param(**jkw),
+                   dtype=jnp.float64 if name.endswith("_f64")
+                   else jnp.float32)
+        step = sim._cycle_jit
+    out = chip_smoke.fly_cycles(sim, step, cycles,
+                                inject=base == "exp64")
+    out.pop("state")
+    return {k: (v.tolist() if isinstance(v, np.ndarray) else v)
+            for k, v in out.items()}
+
+
 def main(names):
     """Print, a JSON line a case, the cycles, safety and distance of the
     JAX package's and the port's CPU runs in f32 and f64."""
@@ -222,7 +255,11 @@ def main(names):
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
     torch.set_num_threads(1)
+    import chip_smoke
     for name in names:
+        if name.split("_f64")[0].split("_port")[0] in chip_smoke.MODE_CASES:
+            print(json.dumps({"case": name, **mode_run(name)}), flush=True)
+            continue
         if name == "circle128":
             print(json.dumps({"case": name, **{
                 key: dict(zip(("distance", "safety", "qp_failures"), v))

@@ -228,11 +228,20 @@ def test_fused_wrapper_guards():
            for a in fused_problem(3, 5)]
     with pytest.raises(TypeError, match="float32"):
         ipm.ipm_lsc_fused(*[a.double() for a in arr])
+    # the 2-D layout (U (2, Ru, nf), nsc (.., 2), q and y0 (N, 2 nf),
+    # b_pairs (N, 2, 2 Ru)) solves
+    nf, Ru = arr[0].shape[-1], arr[3].shape[1]
     two_d = list(arr)
-    two_d[3] = arr[3][:2]                                  # U (2, Ru, nf)
-    two_d[5] = arr[5][..., :2]                             # nsc (.., 2)
-    with pytest.raises(NotImplementedError, match="2-D"):
-        ipm.ipm_lsc_fused(*two_d)
+    two_d[1], two_d[2] = arr[1][:, :2 * nf], arr[2][:, :2 * nf]
+    two_d[3] = arr[3][:2]
+    two_d[4] = arr[4][..., :2 * Ru]
+    two_d[5] = arr[5][..., :2]
+    out = ipm.ipm_lsc_fused(*two_d, iters=3, tol_gap=0.0, tol_rp=0.0)
+    assert out[0].shape == (3, 2 * nf) and out[1].shape == (3, 2, 2 * Ru)
+    for t in out[:4]:
+        assert torch.isfinite(t).all()
+    with pytest.raises(ValueError, match="dimension"):
+        ipm.ipm_lsc_fused(*two_d[:3], arr[3][:1], *two_d[4:])
     # any number of row groups: C = 65 (once refused) solves
     wide = [torch.as_tensor(a, dtype=torch.float32)
             for a in fused_problem(2, 65)]

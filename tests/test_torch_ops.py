@@ -222,7 +222,8 @@ def test_chol_check_of_the_factor_alone():
     H3, r, batch, n = chol._check(torch.zeros(3, 2, 5, 5), None, "f")
     assert H3.shape == (6, 5, 5) and r is None and batch == (3, 2)
     for bad, err in ((torch.zeros(2, 3, 4), ValueError),
-                     (torch.zeros(2, 65, 65), ValueError),
+                     (torch.zeros(2, chol.MAX_N + 1, chol.MAX_N + 1),
+                      ValueError),
                      (torch.zeros(2, 3, 3, dtype=torch.int32), TypeError)):
         with pytest.raises(err, match="cholesky_batched"):
             chol._check(bad, None, "cholesky_batched")

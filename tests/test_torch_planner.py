@@ -108,15 +108,16 @@ def test_goal_planner_matches(rng, mode):
 
 
 def test_goal_planner_off_slice_raises():
-    """Goal modes off the slice raise; with an ESDF the planner builds the
-    grid planner on the JAX package's grid, with the exact castRay option
-    too, at the JAX package's recursion depth."""
+    """The ORCA goal mode, off the slice (ROADMAP queue 1, item 13),
+    raises; with an ESDF the planner builds the grid planner on the JAX
+    package's grid, with the exact castRay option too, at the JAX
+    package's recursion depth."""
     from lsc_planner_tpu.world.esdf import ESDF as JESDF
     from lsc_planner_tpu_torch.convert import esdf_from_numpy, esdf_to_numpy
 
     jm, tm = missions("make_circle_mission", 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgoal.GoalPlanner(tm, params(goal_mode=GoalMode.RIGHT_HAND)[1])
+    with pytest.raises(NotImplementedError, match="item 13"):
+        tgoal.GoalPlanner(tm, params(goal_mode=GoalMode.ORCA)[1])
     jesdf = JESDF.from_boxes(np.array([[0.5, 0.5, 0.0, 1.0, 1.0, 2.5]]),
                              jm.world_min, jm.world_max)
     tesdf = esdf_from_numpy(esdf_to_numpy(jesdf), device="cpu")

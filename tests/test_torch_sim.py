@@ -172,15 +172,28 @@ def test_knn_overflow_audit_matches_jax(ring):
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(planner_mode=PlannerMode.BVC), "items 12-13"),
-    (dict(planner_mode=PlannerMode.RECIPROCAL_RSFC), "items 12-13"),
-    (dict(multisim_experiment=True), "item 12"),
-    (dict(goal_mode=GoalMode.ORCA), "items 12-13"),
-    (dict(world_dimension=2), "item 12"),
+    (dict(planner_mode=PlannerMode.BVC), None),
+    (dict(planner_mode=PlannerMode.RECIPROCAL_RSFC), None),
+    (dict(multisim_experiment=True), None),
+    (dict(goal_mode=GoalMode.ORCA), "item 13"),
+    (dict(world_dimension=2), None),
 ])
 def test_off_slice_raises(change, item):
-    with pytest.raises(NotImplementedError, match=item):
-        TSim(_missions()[1], params(**change)[1])
+    """The ORCA goal mode (ROADMAP queue 1, item 13) is still off the
+    ported slice and raises; BVC, RSFC, experiment mode and the 2-D world
+    build, and their first f64 cycle of the 8-agent circle equals JAX's
+    within 1e-6 m."""
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            TSim(_missions()[1], params(**change)[1])
+        return
+    jp, tp = params(**change)
+    jm, tm = _missions()
+    jsim = JSim(jm, jp, dtype=jnp.float64)
+    tsim = TSim(tm, tp, dtype=torch.float64)
+    j1, _ = jsim._cycle_jit(jsim.initial_state())
+    t1, _ = tsim.cycle(tsim.initial_state())
+    assert np.abs(t1.traj.numpy() - np.asarray(j1.traj)).max() <= 1e-6
 
 
 def test_obstacles_and_fused_dispatch_raise():
