@@ -6,7 +6,8 @@
 Phases, one line each; any failure raises and exits non-zero:
   1. a CUDA device is required; prints the card's name and power limit
   2. builds the kernels from lsc_planner_tpu_torch/csrc with nvcc; prints
-     ptxas's registers, stack and spills a kernel, and the fused IPM's
+     ptxas's registers, stack and spills a kernel (the cluster chol
+     kernels must spill nothing), and the fused IPM's
      layout (rows in shared or device memory, QPs a block, QPs resident an
      SM) at the main path's (B, C) = (1024, 32), (64, 64) and (128, 128)
   3. audit.precision_self_check on the card (the TF32 guard)
@@ -18,11 +19,19 @@ Phases, one line each; any failure raises and exits non-zero:
      L bit for bit, also with a non-SPD entry (NaN in its lower triangle,
      in that entry only); NaN stays in a non-SPD entry; kernel, plain and
      library times (CUDA events, median of 50); the large-n kernels (one
-     block a matrix) the same way at n in {65, 199, 359, 399, 1024} and B
-     in {1, 64, 130} (n = 1024: B in {1, 130}), f32 and f64, and on the
-     systems of rsfc64's fourth cycle (B = 64, n = 365, f32; held to the
-     plain version by backward error, these KKT systems being
-     ill-conditioned) with kernel, plain and library times (median of 20);
+     thread-block cluster a matrix where chol.large_plan finds one, else
+     one block a matrix) the same way at n in {65, 199, 256, 359, 384, 399,
+     1024} and B in {1, 64, 130} (n = 1024: B in {1, 130}), f32 and f64
+     (the design of each printed), and on the systems of rsfc64's fourth
+     cycle (B = 64, n = 365, f32; held to the plain version by backward
+     error, these KKT systems being ill-conditioned) with kernel, plain
+     and library times (median of 20) and the one-block kernels' times on
+     the same systems (a build of chol.cu with -DLSC_CHOL_MAX_G=0, made
+     beside the package's in phase 2); the package's design, the one-block
+     kernels and clusters of up to 8 blocks (-DLSC_CHOL_MAX_G=8) timed at
+     B = 64 in f64 at n in {199, 365, 384} and in f32 at n = 399; the
+     one-block kernels at B = 64, n = 1024 (f32, IPM-like, the shape they
+     still serve) held and timed the same way;
      plus one f64 cycle of an 8-agent circle on the card against the CPU
   5. flies the 64-agent circle swap (PRIOR_BASED, float32, all-pairs LSC)
      through SyncSimulator.run() on the card and checks it finished safely
@@ -108,7 +117,10 @@ Phases, one line each; any failure raises and exits non-zero:
      10) of JAX's; rsfc64 (RECIPROCAL_RSFC), 20 cycles of the slack QP at
      n = 365 on the large-n chol kernels, distance within 10 % of JAX's,
      safety > 0.9, then the same 20 cycles through
-     run(steps_per_dispatch=10) with 0 differing bits; exp64 (experiment
+     run(steps_per_dispatch=10) with 0 differing bits, and each cycle
+     with a QPFAILED agent run again from the same state on the plain
+     chol versions (on the card), their QPFAILED agents printed beside
+     the kernels'; exp64 (experiment
      mode) through cycle() and inject_positions: 4 agents pushed 0.3-0.5
      m before cycle 5, that cycle finite with max primal residual < 0.1,
      the flags set and cleared and the SFCs re-seeded, then 60 cycles
@@ -118,7 +130,8 @@ Phases, one line each; any failure raises and exits non-zero:
      all-pairs cycles through the fused IPM's 2-D instantiation, one
      launch a cycle, distance within 10 % of JAX's f64 run; rh64
      (RIGHT_HAND), 40 cycles, safety >= 1; the launch counts of each
-     (40 factor_solve and 80 resolve a cycle on the kernels of its n)
+     (40 factor_solve and 80 resolve a cycle on the kernels of its n: the
+     cluster kernels at rsfc64's and exp64's)
 Then the kernels' JSON line (every kernel: launches on its main path,
 error against its plain version, kernel / plain / library ms, and the
 bound for the same work computed from this run's inputs), and last
@@ -132,6 +145,7 @@ import statistics
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -186,8 +200,15 @@ ALL_N, ALL_CYCLES = 128, 20
 # with a slack entry for each of C = 64 agent columns (an agent's own
 # column is masked but keeps its entries, as in the JAX package): 359 for
 # exp64 (nv 39), 365 for rsfc64 (nv 45, no stop-at-horizon rows), 399
-# = 39 + 72 x 5 for dyn64's 64 agents and 8 obstacles in experiment mode
-LARGE_NS = (65, 199, 359, 399, 1024)
+# = 39 + 72 x 5 for dyn64's 64 agents and 8 obstacles in experiment mode;
+# 256 and 384 the largest n a cluster of 2 blocks holds in f64 and f32
+# (chol.large_plan), 1024 the one-block kernels' cap
+LARGE_NS = (65, 199, 256, 359, 384, 399, 1024)
+# and where phase 4 times the large-n designs side by side: f64 at a
+# cluster of 2 (199) and at n where only clusters of 8 hold the factor
+# (365, 384), f32 where only clusters of 4 do (399)
+DESIGN_CASES = ((torch.float64, 199), (torch.float64, 365),
+                (torch.float64, 384), (torch.float32, 399))
 JAX_CPU_F64_DIST_128 = 530.7035639320115
 JAX_CPU_F32_DIST_128 = 454.4812316894531
 OFF3 = dict(iters=3, tol_gap=0.0, tol_rp=0.0, correctors=1)
@@ -277,6 +298,21 @@ def bound(nbytes, ops):
     """(least ms the H100 could take, "bytes" or "operations")."""
     t_b, t_o = nbytes / PEAK_BYTES, ops / PEAK_F32_FLOPS
     return (1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations")
+
+
+def chol_bound(kind, B, n, elem=4):
+    """bound() of one chol call on B systems of size n: what the function
+    must move (H's lower triangle in, all of L out with its zeros, or L's
+    lower triangle in for resolve; the right-hand side in and x out) and
+    its f32 operations (the factor n^3 / 3, the two substitutions 2 n^2
+    a system)."""
+    tri, full = n * (n + 1) // 2, n * n
+    nbytes, ops = {
+        "factor_solve": (tri + full + 2 * n, n ** 3 / 3 + 2 * n * n),
+        "resolve": (tri + 2 * n, 2 * n * n),
+        "factor": (tri + full, n ** 3 / 3),
+    }[kind]
+    return bound(elem * B * nbytes, B * ops)
 
 
 def tensor_bytes(*ts):
@@ -401,6 +437,18 @@ def ptxas_summary(log):
         if m and out:
             out[-1] += f", {m.group(1)} registers"
     return "; ".join(out)
+
+
+def check_no_spills(summary, prefix="cluster_"):
+    """Raises unless every kernel of ptxas_summary named prefix... spills
+    0 bytes; returns how many such kernels there are."""
+    found = re.findall(rf"({prefix}\w+(?:<[^>]*>)?): \d+ B stack, (\d+) B "
+                       r"spilled", summary)
+    spilled = {name: int(b) for name, b in found if int(b)}
+    if not found or spilled:
+        raise AssertionError(f"ptxas: {prefix}* kernels {found}, spills "
+                             f"{spilled}")
+    return len(found)
 
 
 def circle_mission(qn):
@@ -592,8 +640,9 @@ def backward_error(H, L, x, r):
 
 def check_large_chol(what, H64, R1d, R2d, dtype, time_it=False,
                      backward=False):
-    """The large-n chol kernels (one block a matrix) on one system in
-    dtype, each held to the f64 solve as its plain version in dtype is
+    """The large-n chol kernels (the design chol.large_design picks) on one
+    system in dtype, each held to the f64 solve as its plain version in
+    dtype is
     (f32: within 4x its error + 1e-6; f64: 1e-9 relative to the solution's
     size), resolve(L, rhs) bit-equal to factor_solve's x, the factor
     alone bit-equal to factor_solve's L (zeros above the diagonal), and,
@@ -604,6 +653,7 @@ def check_large_chol(what, H64, R1d, R2d, dtype, time_it=False,
     + n 2^-24.  Returns (the kernel's error per kernel, and with time_it
     kernel / plain / library ms)."""
     B, n = H64.shape[0], H64.shape[-1]
+    before = launch_counts()
     L64, x64 = chol.chol_factor_solve_plain(H64, R1d)
     y64 = chol.chol_resolve_plain(L64, R2d)
     H, R1, R2 = H64.to(dtype), R1d.to(dtype), R2d.to(dtype)
@@ -612,6 +662,13 @@ def check_large_chol(what, H64, R1d, R2d, dtype, time_it=False,
     xr = chol.chol_resolve(Lk, R1)
     Fk = chol.cholesky_batched(H)
     torch.cuda.synchronize()
+    sfx = {"cluster": "_cluster", "block": "_large"}[
+        chol.large_design(n, dtype)]
+    moved = {k: v - before[k] for k, v in launch_counts().items()
+             if v != before[k]}
+    if moved != {"factor_solve" + sfx: 1, "resolve" + sfx: 2,
+                 "cholesky_batched" + sfx: 1}:
+        raise AssertionError(f"{what}: launches {moved}")
     if not torch.equal(xr, xk):
         raise AssertionError(f"{what}: resolve(L, rhs) differs from "
                              f"factor_solve's x in {int((xr != xk).sum())} "
@@ -681,17 +738,26 @@ def check_large_chol(what, H64, R1d, R2d, dtype, time_it=False,
     return errs, times
 
 
+def design_name(n, dtype):
+    """The large-n design at n in dtype, with its cluster size."""
+    plan = chol.large_plan(n, dtype)
+    return f"cluster of {plan[0]}" if plan else "one block"
+
+
 def compare_large_chol(dev):
-    """Phase 4, large n: the block-a-matrix chol kernels on IPM-like
-    systems at n in LARGE_NS and B in {1, 64, 130}, f32 and f64 (n = 1024
-    at B in {1, 130})."""
+    """Phase 4, large n: the large-n chol kernels on IPM-like systems at n
+    in LARGE_NS and B in {1, 64, 130}, f32 and f64 (n = 1024 at B in {1,
+    130})."""
     for n in LARGE_NS:
         for B in ((1, 130) if n == 1024 else (1, MAIN_B, 130)):
             H64, R1d, R2d = big_spd_system(B, n, n + B, dev)
             errs = [check_large_chol(f"large-n B={B} n={n} {dtype}", H64,
                                      R1d, R2d, dtype)[0]
                     for dtype in (torch.float32, torch.float64)]
-            phase("4 kernels", f"large n: B={B} n={n}: held to the f64 solve"
+            phase("4 kernels", f"large n: B={B} n={n} (f32 "
+                               f"{design_name(n, torch.float32)}, f64 "
+                               f"{design_name(n, torch.float64)}): held to "
+                               "the f64 solve"
                                " (factor_solve / resolve / factor alone "
                                "errors f32 " + " / ".join(
                                    f"{e:.2e}" for e in errs[0].values()) +
@@ -726,17 +792,65 @@ def capture_chol_calls(sim, cycles_before):
     return seen["fs"], seen["rs"]
 
 
-def time_large_chol(dev):
+# measurement builds of csrc/chol.cu, apart from the package's library:
+# the one-block large-n kernels at every large n, and clusters of up to 8
+# blocks where they hold the factor (the package's plan takes 1 or 2)
+CHOL_BUILDS = {"one block": "LSC_CHOL_MAX_G=0",
+               "clusters up to 8": "LSC_CHOL_MAX_G=8"}
+
+
+def chol_builds_start():
+    """Starts the CHOL_BUILDS in threads beside the package's own build
+    (phase 4 times them beside the plan's design).  Returns {name: future
+    of (library, nvcc's output)}."""
+    pool = ThreadPoolExecutor(len(CHOL_BUILDS))
+    futures = {name: pool.submit(_build.load_variant, ["chol.cu"], [d])
+               for name, d in CHOL_BUILDS.items()}
+    pool.shutdown(wait=False)
+    return futures
+
+
+def build_chol_ms(lib, H, R1, R2):
+    """{kind: ms} (CUDA events, median of 20) of the large-n kernels of
+    lib (a CHOL_BUILDS library) on H, R1 and R2: factor_solve, resolve of
+    its L, and the factor alone; raises on a failed launch or a
+    non-finite x."""
+    B, n = R1.shape
+    sfx = "f32" if H.dtype == torch.float32 else "f64"
+    L, x = torch.empty_like(H), torch.empty_like(R1)
+    args = {"factor_solve": (H, R1, L, x), "resolve": (L, R2, x),
+            "factor": (H, L)}
+    out = {}
+    for kind, ts in args.items():
+        entry = getattr(lib, f"lsc_chol_{kind}_{sfx}")
+
+        def call(entry=entry, ts=ts):
+            return _build.launch(entry, H.device,
+                                 *(t.data_ptr() for t in ts), B, n)
+        if call():
+            raise RuntimeError(f"chol build: {kind} launch failed")
+        out[kind] = median_ms(call, reps=20)
+        if kind != "factor" and not torch.isfinite(x).all():
+            raise AssertionError(f"chol build: {kind} non-finite x")
+    return out
+
+
+def time_large_chol(dev, libs):
     """Phase 4 on the main path's own large-n systems: the chol kernels on
     the first factor_solve and resolve inputs of rsfc64's fourth cycle
-    (B = 64, n = nv + C M = 45 + 64 x 5 = 365, f32), held to the plain
-    version by backward error, and timed; and on an IPM-like system of
-    that shape, held to the f64 solve.  Returns (the IPM-like system's
-    errors, the cycle-4 systems' kernel / plain / library ms, the
-    shape)."""
+    (B = 64, n = nv + C M = 45 + 64 x 5 = 365, f32: the cluster kernels),
+    held to the plain version by backward error, and timed, with the
+    one-block kernels' times (libs["one block"], chol_builds_start) on
+    the same systems beside them; on an IPM-like system of that shape,
+    held to the f64 solve; the designs timed side by side (time_designs);
+    and the
+    one-block kernels where they still run by the plan (B = 64, n = 1024,
+    f32, IPM-like), held and timed.  Returns (the IPM-like system's
+    errors, the cycle-4 systems' kernel / plain / library ms, the shape,
+    and the n = 1024 errors and times)."""
     tm, kw, _ = mode_case("rsfc64")
     sim = SyncSimulator(tm, Param(**kw), device=dev, dtype=torch.float32)
-    (H, R1), (_, R2) = capture_chol_calls(sim, 3)
+    (H, R1), (L, R2) = capture_chol_calls(sim, 3)
     B, n = H.shape[0], H.shape[-1]
     back, times = check_large_chol(
         "rsfc64 cycle 4", H.double(), R1.double(), R2.double(),
@@ -744,11 +858,47 @@ def time_large_chol(dev):
     errs, _ = check_large_chol(f"IPM-like B={B} n={n}",
                                *big_spd_system(B, n, n, dev),
                                torch.float32)
-    phase("4 kernels", f"rsfc64 cycle 4 (B={B}, n={n}, f32): " + "; ".join(
+    block = build_chol_ms(libs["one block"], H, R1, R2)
+    phase("4 kernels", f"rsfc64 cycle 4 (B={B}, n={n}, f32, "
+                       f"{design_name(n, torch.float32)}): " + "; ".join(
         f"{k} backward err {back[k]:.3e} (IPM-like system's forward err "
         f"{errs[k]:.3e}), {t[0]:.4f} ms vs plain {t[1]:.4f} ms, library "
-        f"{t[2]:.4f} ms" for k, t in times.items()))
-    return errs, times, (B, n)
+        f"{t[2]:.4f} ms, one-block kernel {block[k]:.4f} ms"
+        for k, t in times.items()))
+    time_designs(dev, libs)
+    nb = chol.MAX_N
+    big_errs, big_times = check_large_chol(
+        f"IPM-like B={MAIN_B} n={nb}", *big_spd_system(MAIN_B, nb, nb, dev),
+        torch.float32, time_it=True)
+    phase("4 kernels", f"B={MAIN_B} n={nb} (f32, "
+                       f"{design_name(nb, torch.float32)}): " + "; ".join(
+        f"{k} err {big_errs[k]:.3e}, {t[0]:.4f} ms vs plain {t[1]:.4f} ms,"
+        f" library {t[2]:.4f} ms" for k, t in big_times.items()))
+    return errs, times, (B, n), (big_errs, big_times)
+
+
+def time_designs(dev, libs):
+    """Phase 4: the plan's large-n design, the one-block kernels and
+    clusters of up to 8 blocks (libs, chol_builds_start) at B = 64 on
+    IPM-like systems at DESIGN_CASES, each ms a median of 20 (the
+    measurement behind the plan's cluster sizes)."""
+    for dtype, n in DESIGN_CASES:
+        H, R1, R2 = (t.to(dtype)
+                     for t in big_spd_system(MAIN_B, n, n, dev))
+        L = chol.chol_factor_solve(H, R1)[0]
+        plan = {"factor_solve": median_ms(
+                    lambda: chol.chol_factor_solve(H, R1), reps=20),
+                "resolve": median_ms(lambda: chol.chol_resolve(L, R2),
+                                     reps=20),
+                "factor": median_ms(lambda: chol.cholesky_batched(H),
+                                    reps=20)}
+        other = {name: build_chol_ms(lib, H, R1, R2)
+                 for name, lib in libs.items()}
+        phase("4 kernels", f"{str(dtype)[6:]} B={MAIN_B} n={n}: the plan's "
+                           f"design ({design_name(n, dtype)}) / one block "
+                           "/ clusters up to 8: " + "; ".join(
+            f"{k} {plan[k]:.4f} / {other['one block'][k]:.4f} / "
+            f"{other['clusters up to 8'][k]:.4f} ms" for k in plan))
 
 
 def cycle_parity(dev):
@@ -1851,13 +2001,22 @@ def mode_sim(dev, name):
             cycles)
 
 
-def chol_launches(param, cycles, large):
-    """A dense-row mission's chol launches: 40 factor_solve and 80 resolve
-    a cycle, on the one-warp kernels or (large) the block-a-matrix ones."""
-    sfx = "_large" if large else ""
+def chol_launches(param, cycles, n):
+    """A dense-row mission's chol launches at its KKT size n: 40
+    factor_solve and 80 resolve a cycle, on the kernels chol.large_design
+    picks for n in f32."""
+    sfx = {None: "", "cluster": "_cluster", "block": "_large"}[
+        chol.large_design(n, torch.float32)]
     return {"factor_solve" + sfx: cycles * param.qp_iterations,
             "resolve" + sfx: cycles * param.qp_iterations *
             (1 + param.qp_correctors)}
+
+
+def kkt_n(sim, param):
+    """The QP's KKT size: nv, plus C M slack entries in the slack QP."""
+    slack = param.planner_mode == PlannerMode.RECIPROCAL_RSFC or \
+        param.multisim_experiment
+    return sim.optimizer.nv + (sim.N * param.M if slack else 0)
 
 
 def in_band(cycles, ref):
@@ -1872,7 +2031,8 @@ def fly_bvc64(dev):
     summary = sim.run()
     torch.cuda.synchronize()
     cycles = summary["iterations"]
-    launches = check_launches("bvc64", **chol_launches(param, cycles, False))
+    launches = check_launches(
+        "bvc64", **chol_launches(param, cycles, kkt_n(sim, param)))
     check_mission(summary, param, sim.N, "bvc64")
     if not in_band(cycles, JAX_CPU_F32_BVC64[0]):
         raise AssertionError(f"bvc64: {cycles} cycles, JAX CPU f32 "
@@ -1887,9 +2047,34 @@ def fly_bvc64(dev):
     return launches
 
 
+def qp_failures_on_plain(sim, cycles):
+    """Steps sim's cycles from its initial state (the kernels' run, bit for
+    bit) and runs each cycle that has a QPFAILED agent once more from the
+    same state with the plain chol versions on the card: [(cycle, the
+    kernels' QPFAILED agents, the plain versions')]."""
+    state, out = sim.initial_state(), []
+    fs, rs = chol.chol_factor_solve, chol.chol_resolve
+    for it in range(cycles):
+        prev = state
+        state, info = sim.cycle(state)
+        failed = info.qp_failed.nonzero().flatten().tolist()
+        if failed:
+            chol.chol_factor_solve = chol.chol_factor_solve_plain
+            chol.chol_resolve = chol.chol_resolve_plain
+            try:
+                _, plain = sim.cycle(prev)
+            finally:
+                chol.chol_factor_solve, chol.chol_resolve = fs, rs
+            out.append((it, failed,
+                        plain.qp_failed.nonzero().flatten().tolist()))
+    return out
+
+
 def fly_rsfc64(dev):
     """rsfc64, 20 cycles: every cycle the slack QP at n = 45 + 64 x 5 =
-    365 on the block-a-matrix chol kernels; distance within 10 % of the
+    365 on the large-n chol kernels (a cluster of 2 blocks a matrix);
+    its QPFAILED cycles again on the plain chol versions
+    (qp_failures_on_plain); distance within 10 % of the
     JAX package's CPU f32 run, safety > 0.9 (tests/test_modes.py's bound
     for RSFC), finite trajectories; then the same 20 cycles through
     run(steps_per_dispatch=CAPTURE_K), bit for bit.  Returns the launches
@@ -1898,7 +2083,9 @@ def fly_rsfc64(dev):
     reset_launch_counts()
     summary = sim.run(max_iterations=cycles)
     torch.cuda.synchronize()
-    launches = check_launches("rsfc64", **chol_launches(param, cycles, True))
+    launches = check_launches(
+        "rsfc64", **chol_launches(param, cycles, kkt_n(sim, param)))
+    failures = qp_failures_on_plain(sim, cycles)
     dist = summary["total_flight_distance"]
     state = summary["final_state"]
     if summary["iterations"] != cycles or \
@@ -1945,6 +2132,9 @@ def fly_rsfc64(dev):
                       f"{len(diffs)} fields")
     n_fs = param.qp_iterations
     n_rs = n_fs * (1 + param.qp_correctors)
+    phase("15 modes", f"rsfc64 QPFAILED (cycle, the kernels' agents, the "
+                      f"plain chol versions' agents on the same cycle's "
+                      f"state, on the card): {failures}")
     phase("15 modes", "rsfc64 stage ms (median of 5 cycles after 5, a sync "
                       "around each call): " + ", ".join(
                           f"{k} {v:.3f}" for k, v in st.items()) +
@@ -1964,10 +2154,13 @@ def fly_exp64(dev):
     bound)."""
     sim, param, cycles = mode_sim(dev, "exp64")
     reset_launch_counts()
+    t0 = time.perf_counter()
     out = fly_cycles(sim, sim.cycle, cycles, inject=True)
     torch.cuda.synchronize()
     done = out["cycles"]
-    launches = check_launches("exp64", **chol_launches(param, done, True))
+    ms = 1e3 * (time.perf_counter() - t0) / done
+    launches = check_launches(
+        "exp64", **chol_launches(param, done, kkt_n(sim, param)))
     pushed = list(EXP_PUSHED)
     checks = {
         "inject flags": list(out["flags_set"]) == pushed,
@@ -1988,7 +2181,9 @@ def fly_exp64(dev):
                       f", min safety after it {out['safety_after']:.4f} "
                       f"(overall {out['safety']:.4f}), {out['qp_failures']} "
                       f"QPFAILED, distance {out['distance']:.4f} m; JAX CPU "
-                      f"f32: {JAX_CPU_F32_EXP64}; launches {launches}")
+                      f"f32: {JAX_CPU_F32_EXP64}; {ms:.2f} ms/cycle "
+                      f"(cycle() with a host read a cycle, the injection "
+                      f"included); launches {launches}")
 
 
 def fly_circle64_2d(dev):
@@ -2002,7 +2197,8 @@ def fly_circle64_2d(dev):
     torch.cuda.synchronize()
     cycles = summary["iterations"]
     launches = check_launches("circle64-2d",
-                              **chol_launches(param, cycles, False))
+                              **chol_launches(param, cycles,
+                                              kkt_n(sim, param)))
     check_mission(summary, param, sim.N, "circle64-2d")
     z_err = (summary["final_state"].traj[..., 2] -
              param.world_z_2d).abs().max().item()
@@ -2053,7 +2249,8 @@ def fly_rh64(dev):
     summary = sim.run(max_iterations=cycles)
     torch.cuda.synchronize()
     done = summary["iterations"]
-    launches = check_launches("rh64", **chol_launches(param, done, False))
+    launches = check_launches(
+        "rh64", **chol_launches(param, done, kkt_n(sim, param)))
     check_mission(summary, param, sim.N, "rh64", finished=False)
     phase("15 modes", f"rh64 (RIGHT_HAND), {done} cycles: distance "
                       f"{summary['total_flight_distance']:.4f} m (JAX CPU "
@@ -2090,15 +2287,19 @@ def main():
     phase("1 device", f"{torch.cuda.get_device_name(0)}, torch "
                       f"{torch.__version__}, CUDA {torch.version.cuda}")
 
-    # 2. build
+    # 2. build (the one-block measurement build of chol.cu beside it)
     t0 = time.perf_counter()
+    chol_builds = chol_builds_start()
     _build.load_library()
     built = _build.build_seconds
     phase("2 build", f"{_build.library_path().name}: nvcc "
                      f"{'%.2f s' % built if built is not None else 'cached'}"
                      f", load {time.perf_counter() - t0:.2f} s")
     if _build.build_log:
-        phase("2 build", ptxas_summary(_build.build_log))
+        summary = ptxas_summary(_build.build_log)
+        phase("2 build", summary)
+        phase("2 build", f"{check_no_spills(summary)} cluster chol kernel "
+                         "instantiations, 0 B spilled each")
     nf, Ru, M, n1 = 13, 69, 5, 6        # the main path's QP shape
     for B, C in ((BIG_N, BIG_K), (MAIN_B, MAIN_B), (ALL_N, ALL_N)):
         pl = ipm.fused_plan(B, nf, Ru, C, M, n1)
@@ -2116,7 +2317,9 @@ def main():
     # 4. kernels vs plain versions
     results = compare_kernels(dev)
     compare_large_chol(dev)
-    large_errs, large_times, large_shape = time_large_chol(dev)
+    large_errs, large_times, large_shape, (block_errs, block_times) = \
+        time_large_chol(dev, {name: f.result()[0]
+                              for name, f in chol_builds.items()})
     cycle_parity(dev)
 
     # 5. the main path below 128 agents: the chol kernels
@@ -2202,37 +2405,25 @@ def main():
     large_launches, fused2d_launches = fly_modes(dev)
 
     errs, times = results[MAIN_B]
-    n, B = N_QP, MAIN_B
-    chol_bounds = {
-        "factor_solve": bound(4 * (2 * B * n * n + 2 * B * n),
-                              B * (n ** 3 / 3 + 2 * n * n)),
-        "resolve": bound(4 * (B * n * n + 2 * B * n), B * 2 * n * n),
-        "factor": bound(4 * 2 * B * n * n, B * n ** 3 / 3),
-    }
     source = "lsc_planner_tpu_torch/csrc/chol.cu"
 
     def chol_entry(name, key, replaces, nlaunch):
-        b_ms, b_by = chol_bounds[key]
+        b_ms, b_by = chol_bound(key, MAIN_B, N_QP)
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": nlaunch,
                 "max_abs_err": errs[key][0], "ms": times[key][0],
                 "plain_ms": times[key][1], "bound_ms": b_ms,
                 "bound_by": b_by, "library_ms": times[key][2]}
-    nl = large_shape[1]
-    large_bounds = {
-        "factor_solve": bound(4 * (2 * B * nl * nl + 2 * B * nl),
-                              B * (nl ** 3 / 3 + 2 * nl * nl)),
-        "resolve": bound(4 * (B * nl * nl + 2 * B * nl), B * 2 * nl * nl),
-        "factor": bound(4 * 2 * B * nl * nl, B * nl ** 3 / 3),
-    }
 
-    def large_entry(name, key, replaces, nlaunch):
-        b_ms, b_by = large_bounds[key]
+    def large_entry(name, key, replaces, nlaunch, shape, errs_, times_):
+        b_ms, b_by = chol_bound(key, *shape)
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": nlaunch,
-                "max_abs_err": large_errs[key], "ms": large_times[key][0],
-                "plain_ms": large_times[key][1], "bound_ms": b_ms,
-                "bound_by": b_by, "library_ms": large_times[key][2]}
+                "max_abs_err": errs_[key], "ms": times_[key][0],
+                "plain_ms": times_[key][1], "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": times_[key][2]}
+    cluster = (large_shape, large_errs, large_times)
+    block = ((MAIN_B, chol.MAX_N), block_errs, block_times)
     f2 = fused[(ALL_N, ALL_N, 2)]
     kernels = [
         chol_entry("chol_factor_solve", "factor_solve",
@@ -2267,15 +2458,28 @@ def main():
          "max_abs_err": expand_err, "ms": expand_ms,
          "plain_ms": expand_plain_ms, "bound_ms": expand_bound_[0],
          "bound_by": expand_bound_[1], "library_ms": None},
+        # n > 64 where a cluster of 1 or 2 blocks holds the factor
+        # (the slack QP's n = 359-384), timed on rsfc64's systems
+        large_entry("chol_factor_solve (n > 64, cluster)", "factor_solve",
+                    "lsc_planner_tpu/ops/chol_pallas.py:108",
+                    large_launches["factor_solve_cluster"], *cluster),
+        large_entry("chol_resolve (n > 64, cluster)", "resolve",
+                    "lsc_planner_tpu/ops/chol_pallas.py:123",
+                    large_launches["resolve_cluster"], *cluster),
+        # the factor alone has no caller, as at n <= 64
+        large_entry("cholesky_batched (n > 64, cluster)", "factor",
+                    "lsc_planner_tpu/ops/chol_pallas.py:26", 0, *cluster),
+        # past what a cluster holds (f32 n > 384), up to n = 1024: no
+        # mission flown here has a system that large, so no launches on
+        # the main path
         large_entry("chol_factor_solve (n > 64, block a matrix)",
                     "factor_solve", "lsc_planner_tpu/ops/chol_pallas.py:108",
-                    large_launches["factor_solve_large"]),
+                    large_launches["factor_solve_large"], *block),
         large_entry("chol_resolve (n > 64, block a matrix)", "resolve",
                     "lsc_planner_tpu/ops/chol_pallas.py:123",
-                    large_launches["resolve_large"]),
-        # the factor alone has no caller, as at n <= 64
+                    large_launches["resolve_large"], *block),
         large_entry("cholesky_batched (n > 64, block a matrix)", "factor",
-                    "lsc_planner_tpu/ops/chol_pallas.py:26", 0),
+                    "lsc_planner_tpu/ops/chol_pallas.py:26", 0, *block),
         {"name": "ipm_lsc_fused (ndim 2)", "route": "cuda",
          "source": "lsc_planner_tpu_torch/csrc/ipm.cu",
          "replaces": "lsc_planner_tpu/ops/ipm_pallas.py:122",

@@ -51,31 +51,35 @@
 // entry; its block-mates never see it.
 //
 // Large n (64 < n <= 1024: the slack-relaxed QP's KKT system, n = nv +
-// C M, 359 at 64 agents): one block of 256 threads a matrix.  A
-// matrix no longer fits a warp's registers (nor, at n = 359 in f32, one
-// SM's shared memory), so L lives in device memory in the same row-major
-// (B, n, n) layout, where the L2 keeps it (B = 64 at n = 359 in f32 is
-// 33 MB).  The factor is right-looking and blocked with 32-wide panels:
-// warp 0 factors the diagonal tile in registers with warp_chol::factor
-// (no pivot floor) and keeps its reciprocals in shared memory; every
-// thread then solves a row of the panel below it against the tile; then
-// every warp updates its own 32 x 32 tiles of the trailing lower triangle
-// (the two panel blocks staged in its shared memory, a lane a column,
-// rank 32), with no barrier between warps.  Block barriers separate the
-// three steps.  The substitutions (big_solve) walk the same 32-row
-// blocks: warp 0 solves the diagonal block with shuffles, every thread
-// then updates one row (forward) or one column (backward) of the rest.
-// factor_solve and resolve run that one function on the same L with the
-// same reciprocals (resolve takes them as 1 / L[i][i], the bits
-// warp_chol::factor keeps), so resolve returns factor_solve's x bit for
-// bit; the factor alone stops before the solve (kSolve), so it returns
-// factor_solve's L bit for bit.  A pivot <= 0 or NaN turns the entry's
-// lower triangle (and x) into NaN; each entry is its own block.  Its
-// bound at B = 64, n = 365 in f32 is ~20 us (68 MB of H and L; 1.0e9
-// operations); this first design is latency-bound instead: twelve panel
-// steps of one warp's diagonal factor and three block barriers each, and
-// a trailing update that spills registers (chip_smoke.py phases 2 and 4
-// print the spills and the times; an H100 took 0.74 ms a factor_solve).
+// C M, 359 at 64 agents).  Where a thread-block cluster of one or two
+// blocks holds the factor in its shared memory (cluster_plan: f32 up to n
+// = 384, f64 up to 256), one cluster a matrix with L resident on chip
+// (chol_cluster.cuh, which has its own note).  Past that, one block of 256
+// threads a matrix (the first design): a matrix no longer fits a warp's
+// registers (nor one SM's shared memory), so L lives in device memory in
+// the same row-major (B, n, n) layout, where the L2 keeps it.  The factor
+// is right-looking and blocked with 32-wide panels: warp 0 factors the
+// diagonal tile in registers with warp_chol::factor (no pivot floor) and
+// keeps its reciprocals in shared memory; every thread then solves a row
+// of the panel below it against the tile; then every warp updates its
+// own 32 x 32 tiles of the trailing lower triangle (the two panel blocks
+// staged in its shared memory, a lane a column, rank 32), with no barrier
+// between warps.  Block barriers separate the three steps.  The
+// substitutions (big_solve) walk the same 32-row blocks: warp 0 solves the
+// diagonal block with shuffles, every thread then updates one row
+// (forward) or one column (backward) of the rest.  factor_solve and
+// resolve run that one function on the same L with the same reciprocals
+// (resolve takes them as 1 / L[i][i], the bits warp_chol::factor keeps),
+// so resolve returns factor_solve's x bit for bit; the factor alone stops
+// before the solve (kSolve), so it returns factor_solve's L bit for bit.
+// A pivot <= 0 or NaN turns the entry's lower triangle (and x) into NaN;
+// each entry is its own block.  This design is latency-bound: twelve
+// panel steps at n = 365, each of one warp's diagonal factor and three
+// block barriers, and a trailing update that spills registers (an H100
+// took 0.77 ms a factor_solve at B = 64, n = 365, PERF.md).  Built with
+// -DLSC_CHOL_MAX_G=0 (a measurement build, never the package's), the
+// one-block kernels take every large n; with 4 or 8, clusters of up to 4
+// or 8 blocks take the shapes they hold.
 
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -shared -Xcompiler -fPIC (lsc_planner_tpu_torch/ops/_build.py).
@@ -85,6 +89,9 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <algorithm>
+
+#include "chol_cluster.cuh"
 #include "warp_chol.cuh"
 
 namespace {
@@ -191,6 +198,7 @@ template <typename T>
 __device__ void big_solve(const T* __restrict__ Lb, int n,
                           const T* __restrict__ rinv, T* z, T* Dt) {
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  LSC_STAMP_DECL(t0);
   for (int k0 = 0; k0 < n; k0 += kPanel) {          // forward
     const int kb = min(kPanel, n - k0), k1 = k0 + kb;
     if (w == 0) {
@@ -218,6 +226,7 @@ __device__ void big_solve(const T* __restrict__ Lb, int n,
     }
     __syncthreads();
   }
+  LSC_STAMP(blockIdx.x == 0 && tid == 0, chol_cluster::kStFwd, t0);
   for (int k0 = ((n - 1) / kPanel) * kPanel; k0 >= 0; k0 -= kPanel) {
     const int kb = min(kPanel, n - k0);              // backward
     if (w == 0) {
@@ -245,6 +254,7 @@ __device__ void big_solve(const T* __restrict__ Lb, int n,
     }
     __syncthreads();
   }
+  LSC_STAMP(blockIdx.x == 0 && tid == 0, chol_cluster::kStBwd, t0);
 }
 
 // factor_solve (kSolve) and the factor alone, one block a matrix.
@@ -264,6 +274,8 @@ big_factor_solve_kernel(const T* __restrict__ H, const T* __restrict__ rhs,
   const size_t nn = static_cast<size_t>(n) * n;
   const T* Hb = H + b * nn;
   T* Lb = L_out + b * nn;
+  LSC_STAMP_DECL(t0);
+  LSC_STAMP_DECL(t_all);
   if (tid == 0) failed = 0;
   // H's lower triangle into L, zeros above: a warp a row
   for (int i = w; i < n; i += kBigWarps)
@@ -272,6 +284,7 @@ big_factor_solve_kernel(const T* __restrict__ H, const T* __restrict__ rhs,
       Lb[static_cast<size_t>(i) * n + j] =
           j <= i ? Hb[static_cast<size_t>(i) * n + j] : T(0);
   __syncthreads();
+  LSC_STAMP(b == 0 && tid == 0, chol_cluster::kStLoad, t0);
 
   for (int k0 = 0; k0 < n; k0 += kPanel) {
     const int kb = min(kPanel, n - k0), k1 = k0 + kb;
@@ -293,6 +306,7 @@ big_factor_solve_kernel(const T* __restrict__ H, const T* __restrict__ rhs,
       if (bad && lane == 0) failed = 1;
     }
     __syncthreads();
+    LSC_STAMP(b == 0 && tid == 0, chol_cluster::kStDiag, t0);
     if (k1 >= n) break;
     // the panel below the tile (kb == kPanel): a thread a row,
     // v = a L_tile^-T by forward substitution
@@ -312,6 +326,7 @@ big_factor_solve_kernel(const T* __restrict__ H, const T* __restrict__ rhs,
       for (int j = 0; j < kPanel; ++j) row[j] = v[j];
     }
     __syncthreads();
+    LSC_STAMP(b == 0 && tid == 0, chol_cluster::kStPanel, t0);
     // the trailing lower triangle, tile (a, c), a >= c, warp by warp:
     // L[I + i][J + lane] -= panel row I + i . panel row J + lane
     const int tiles = (n - k1 + kPanel - 1) / kPanel;
@@ -356,6 +371,7 @@ big_factor_solve_kernel(const T* __restrict__ H, const T* __restrict__ rhs,
       __syncwarp();           // before the next tile overwrites Pi, Pj
     }
     __syncthreads();
+    LSC_STAMP(b == 0 && tid == 0, chol_cluster::kStTrail, t0);
   }
 
   const T nan = quiet_nan<T>();
@@ -368,10 +384,12 @@ big_factor_solve_kernel(const T* __restrict__ H, const T* __restrict__ rhs,
   if constexpr (kSolve) {
     for (int i = tid; i < n; i += kBigThreads) z[i] = rhs[b * n + i];
     __syncthreads();
+    LSC_STAMP(b == 0 && tid == 0, chol_cluster::kStWrite, t0);
     big_solve(Lb, n, rinv, z, Dt);
     for (int i = tid; i < n; i += kBigThreads)
       x[b * n + i] = failed ? nan : z[i];
   }
+  LSC_STAMP(b == 0 && tid == 0, chol_cluster::kStTotal, t_all);
 }
 
 // resolve, one block a matrix: factor_solve's solve on a kept L.
@@ -436,6 +454,104 @@ int launch_big_resolve(const T* L, const T* rhs, T* x, int B, int n,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The cluster design's plan for (n, element bytes): G blocks a matrix (0
+// where no cluster of at most kMaxG holds the factor, or n <= kMaxN: the
+// one-block kernels run) and the shared-memory bytes a block of the
+// factor and of the resolve, the largest over the cluster's blocks.
+// ops/chol.py::large_plan mirrors it.
+struct ClusterPlan {
+  int G;
+  size_t smem_factor, smem_resolve;
+};
+
+ClusterPlan cluster_plan(int n, int elem) {
+  if (n <= kMaxN || n > kBigMaxN) return {0, 0, 0};
+  for (int G = 1; G <= chol_cluster::kMaxG; G *= 2) {
+    size_t f = 0, r = 0;
+    for (int rank = 0; rank < G; ++rank) {
+      const chol_cluster::Geo g(n, G, rank);
+      f = std::max(f, g.smem_bytes(rank, true, elem));
+      r = std::max(r, g.smem_bytes(rank, false, elem));
+    }
+    if (f <= chol_cluster::kSmemCap) return {G, f, r};
+  }
+  return {0, 0, 0};
+}
+
+cudaLaunchConfig_t cluster_config(int blocks, int G, size_t smem,
+                                  cudaStream_t stream,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(chol_cluster::kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = G;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Once a device, at the first (uncaptured) launch of kernel: allows it the
+// most dynamic shared memory a block can have, and checks that a cluster
+// of each size (1, 2, .., kMaxG) of such blocks can be resident at all; no
+// attribute call or query inside a captured CUDA graph after that.
+template <class K>
+int prepare_cluster(K kernel, bool* done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (done[dev]) return 0;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(chol_cluster::kSmemCap));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  for (int G = 1; G <= chol_cluster::kMaxG; G *= 2) {
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg =
+        cluster_config(G, G, chol_cluster::kSmemCap, nullptr, &attr);
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (clusters < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
+  }
+  done[dev] = true;
+  return 0;
+}
+
+template <typename T, bool kSolve>
+int launch_cluster_factor(const T* H, const T* rhs, T* L, T* x, int B,
+                          int n, const ClusterPlan& p, cudaStream_t stream) {
+  static bool done[64];
+  auto kernel = chol_cluster::cluster_factor_kernel<T, kSolve>;
+  const int err = prepare_cluster(kernel, done);
+  if (err) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      cluster_config(B * p.G, p.G, p.smem_factor, stream, &attr);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, H, rhs, L, x, n,
+                                           p.G);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+template <typename T>
+int launch_cluster_resolve(const T* L, const T* rhs, T* x, int B, int n,
+                           const ClusterPlan& p, cudaStream_t stream) {
+  static bool done[64];
+  auto kernel = chol_cluster::cluster_resolve_kernel<T>;
+  const int err = prepare_cluster(kernel, done);
+  if (err) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      cluster_config(B * p.G, p.G, p.smem_resolve, stream, &attr);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, L, rhs, x, n, p.G);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+}
+
 template <typename T, int NC, bool kSolve>
 int launch_factor_solve_nc(const T* H, const T* rhs, T* L, T* x, int B, int n,
                            cudaStream_t stream) {
@@ -465,7 +581,12 @@ int launch_factor_solve(const void* H, const void* rhs, void* L, void* x,
   T* l = static_cast<T*>(L);
   T* xx = static_cast<T*>(x);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n > kMaxN) return launch_big_factor<T, kSolve>(h, r, l, xx, B, n, st);
+  if (n > kMaxN) {
+    const ClusterPlan p = cluster_plan(n, sizeof(T));
+    if (p.G)
+      return launch_cluster_factor<T, kSolve>(h, r, l, xx, B, n, p, st);
+    return launch_big_factor<T, kSolve>(h, r, l, xx, B, n, st);
+  }
   // NC = 40 holds the QP's n = 39; NC = 64 every other n up to kMaxN
   if (n <= 40)
     return launch_factor_solve_nc<T, 40, kSolve>(h, r, l, xx, B, n, st);
@@ -478,11 +599,15 @@ int launch_resolve(const void* L, const void* rhs, void* x, int B, int n,
   if (n < 1 || n > kBigMaxN || B < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return static_cast<int>(cudaGetLastError());
-  if (n > kMaxN)
-    return launch_big_resolve<T>(static_cast<const T*>(L),
-                                 static_cast<const T*>(rhs),
-                                 static_cast<T*>(x), B, n,
-                                 static_cast<cudaStream_t>(stream));
+  if (n > kMaxN) {
+    const T* l = static_cast<const T*>(L);
+    const T* r = static_cast<const T*>(rhs);
+    T* xx = static_cast<T*>(x);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const ClusterPlan p = cluster_plan(n, sizeof(T));
+    if (p.G) return launch_cluster_resolve<T>(l, r, xx, B, n, p, st);
+    return launch_big_resolve<T>(l, r, xx, B, n, st);
+  }
   const size_t smem = static_cast<size_t>(kFsWarps) * n * n * sizeof(T);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -532,6 +657,36 @@ int lsc_chol_factor_f64(const void* H, void* L, int B, int n,
 int lsc_chol_resolve_f64(const void* L, const void* rhs, void* x, int B,
                          int n, void* stream) {
   return launch_resolve<double>(L, rhs, x, B, n, stream);
+}
+
+// out: G, the factor's and the resolve's shared-memory bytes a block
+int lsc_chol_cluster_plan(int n, int elem, long long* out) {
+  const ClusterPlan p = cluster_plan(n, elem);
+  out[0] = p.G;
+  out[1] = static_cast<long long>(p.smem_factor);
+  out[2] = static_cast<long long>(p.smem_resolve);
+  return 0;
+}
+
+// Copies the clock stamps (chol_cluster::kStamps counters of cycles) to
+// the host array out and, with reset, zeroes them; -1 in a build without
+// LSC_CHOL_STAMPS.
+int lsc_chol_stamps(void* out, int reset) {
+#ifdef LSC_CHOL_STAMPS
+  cudaError_t err = cudaMemcpyFromSymbol(
+      out, chol_cluster::lsc_chol_stamps,
+      sizeof(unsigned long long) * chol_cluster::kStamps);
+  if (err == cudaSuccess && reset) {
+    const unsigned long long zero[chol_cluster::kStamps] = {};
+    err = cudaMemcpyToSymbol(chol_cluster::lsc_chol_stamps, zero,
+                             sizeof zero);
+  }
+  return static_cast<int>(err);
+#else
+  (void)out;
+  (void)reset;
+  return -1;
+#endif
 }
 
 }  // extern "C"

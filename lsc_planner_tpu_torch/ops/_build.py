@@ -24,12 +24,15 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("chol.cu", "ipm.cu", "wavefront.cu", "corridor.cu")
-HEADERS = ("warp_chol.cuh",)     # included by chol.cu and ipm.cu
+HEADERS = ("warp_chol.cuh",      # included by chol.cu and ipm.cu
+           "chol_cluster.cuh")   # included by chol.cu
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib = None
+_variant_lock = threading.Lock()   # apart: a variant builds beside _lib
+_variants = {}
 # wall seconds of the nvcc build made by this process, and nvcc's output
 # (ptxas: registers, shared memory, spills per kernel); None: loaded a
 # library built earlier, or nothing loaded yet
@@ -37,17 +40,19 @@ build_seconds = None
 build_log = None
 
 _PTR = ctypes.c_void_p
+_INT = ctypes.c_int
 _SIGNATURES = {
-    "lsc_chol_factor_solve_f32": [_PTR, _PTR, _PTR, _PTR, ctypes.c_int,
-                                  ctypes.c_int, _PTR],
-    "lsc_chol_factor_solve_f64": [_PTR, _PTR, _PTR, _PTR, ctypes.c_int,
-                                  ctypes.c_int, _PTR],
-    "lsc_chol_resolve_f32": [_PTR, _PTR, _PTR, ctypes.c_int, ctypes.c_int,
-                             _PTR],
-    "lsc_chol_factor_f32": [_PTR, _PTR, ctypes.c_int, ctypes.c_int, _PTR],
-    "lsc_chol_factor_f64": [_PTR, _PTR, ctypes.c_int, ctypes.c_int, _PTR],
-    "lsc_chol_resolve_f64": [_PTR, _PTR, _PTR, ctypes.c_int, ctypes.c_int,
-                             _PTR],
+    # inputs and outputs; B, n; stream
+    "lsc_chol_factor_solve_f32": [_PTR] * 4 + [_INT] * 2 + [_PTR],
+    "lsc_chol_factor_solve_f64": [_PTR] * 4 + [_INT] * 2 + [_PTR],
+    "lsc_chol_resolve_f32": [_PTR] * 3 + [_INT] * 2 + [_PTR],
+    "lsc_chol_factor_f32": [_PTR] * 2 + [_INT] * 2 + [_PTR],
+    "lsc_chol_factor_f64": [_PTR] * 2 + [_INT] * 2 + [_PTR],
+    "lsc_chol_resolve_f64": [_PTR] * 3 + [_INT] * 2 + [_PTR],
+    # n, element bytes; out (3 x long long)
+    "lsc_chol_cluster_plan": [_INT, _INT, _PTR],
+    # out (host, chol_cluster::kStamps x unsigned long long), reset
+    "lsc_chol_stamps": [_PTR, _INT],
     # 10 inputs, 5 outputs, scratch; scratch floats; rows_smem, qpb (from
     # the plan), D, N, nf, Ru, C, M, n1, iters, correctors; reg, s_min,
     # tol_gap, tol_rp, tol_rd, tol_step; stream
@@ -79,21 +84,20 @@ def _nvcc() -> str:
     return str(nvcc)
 
 
-def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES + HEADERS:
+def library_path(sources=SOURCES, flags=NVCC_FLAGS) -> Path:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for name in sources + HEADERS:
         h.update((CSRC_DIR / name).read_bytes())
     return BUILD_DIR / f"liblsc_kernels_{h.hexdigest()[:16]}.so"
 
 
-def _compile(out: Path) -> None:
-    global build_seconds, build_log
+def _compile(out: Path, sources=SOURCES, flags=NVCC_FLAGS) -> str:
+    """Builds `sources` into the library `out`; returns nvcc's output."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        objs = [os.path.join(tmp, Path(src).stem + ".o") for src in SOURCES]
-        cmds = [[_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, str(CSRC_DIR / src)]
-                for src, obj in zip(SOURCES, objs)]
+        objs = [os.path.join(tmp, Path(src).stem + ".o") for src in sources]
+        cmds = [[_nvcc(), *flags, "-c", "-o", obj, str(CSRC_DIR / src)]
+                for src, obj in zip(sources, objs)]
         procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)
                  for cmd in cmds]
@@ -109,30 +113,62 @@ def _compile(out: Path) -> None:
             raise RuntimeError("nvcc failed:\n" + " ".join(link) + "\n" +
                                proc.stdout + proc.stderr)
         os.replace(lib, out)      # atomic: concurrent builders never race
-    build_seconds = time.perf_counter() - t0
-    build_log = "".join(logs)
+    return "".join(logs)
+
+
+def _load(path: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def _need_cuda() -> None:
+    if not torch.cuda.is_available():
+        raise RuntimeError("the CUDA kernels need a CUDA device; "
+                           "torch.cuda.is_available() is False")
 
 
 def load_library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed.  Raises
     RuntimeError when there is no CUDA device or no nvcc: the CUDA path
     never falls back to the plain versions."""
-    global _lib
+    global _lib, build_seconds, build_log
     with _lock:
         if _lib is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError("the CUDA kernels need a CUDA device; "
-                                   "torch.cuda.is_available() is False")
+            _need_cuda()
             path = library_path()
             if not path.exists():
-                _compile(path)
-            lib = ctypes.CDLL(str(path))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                t0 = time.perf_counter()
+                build_log = _compile(path)
+                build_seconds = time.perf_counter() - t0
+            lib = _load(path)
+            for name in _SIGNATURES:
+                getattr(lib, name)        # every entry point is there
             _lib = lib
     return _lib
+
+
+def load_variant(sources, defines) -> tuple:
+    """(library, nvcc's output or None when loaded as built before) of
+    `sources` built with the preprocessor `defines` (such as
+    "LSC_CHOL_STAMPS" or "LSC_CHOL_MAX_G=0") besides NVCC_FLAGS: a
+    measurement build, apart from the package's own library (and built
+    while it builds, from another thread).  Raises as load_library does."""
+    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+    key = (tuple(sources), flags)
+    with _variant_lock:
+        if key not in _variants:
+            _need_cuda()
+            path = library_path(tuple(sources), flags)
+            log = None
+            if not path.exists():
+                log = _compile(path, tuple(sources), flags)
+            _variants[key] = (_load(path), log)
+    return _variants[key]
 
 
 def launch(entry, device: torch.device, *args) -> int:

@@ -2,10 +2,10 @@
 
 Port of the JAX package's TPU kernels behind ``chol_factor_solve``,
 ``chol_resolve`` and ``cholesky_batched`` (the note in ``csrc/chol.cu``
-names them).  On a CUDA
-tensor each wrapper launches its hand-written kernel (``csrc/chol.cu``) or
-raises; on a CPU tensor it runs the plain PyTorch version below.  There is
-no fallback from one to the other.
+names them).  On a CUDA tensor each wrapper launches its hand-written
+kernel (``csrc/chol.cu``, which includes ``csrc/chol_cluster.cuh``) or
+raises; on a CPU tensor it runs the plain PyTorch version below.  There
+is no fallback from one to the other.
 
 Semantics: lower Cholesky without a pivot floor, forward then backward
 substitution; a non-SPD instance yields NaN in its own batch entry only.
@@ -16,24 +16,43 @@ lower triangle all NaN); as in the JAX package, nothing on the main path
 calls it.
 
 Up to ``WARP_MAX_N`` = 64 each kernel runs one warp a matrix (the IPM's
-n = 39); above it, up to ``MAX_N``, one block a matrix with the factor in
-device memory (the slack-relaxed QP's n = nv + C M: 359 at 64 agents).
+n = 39).  Above it, up to ``MAX_N`` (the slack-relaxed QP's n = nv + C M:
+359 at 64 agents), one thread-block cluster a matrix with the factor in
+the cluster's shared memory where ``large_plan`` finds a cluster of one
+or two blocks that holds it (f32 up to n = 384, f64 up to 256), and one
+block a matrix with the factor in device memory past that.  The choice
+is by shape alone; either design is a kernel, and a kernel that cannot
+build or launch raises.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from . import _build
 
 WARP_MAX_N = 64        # the one-warp kernels' range
-MAX_N = 1024           # the block-a-matrix kernels' cap
+MAX_N = 1024           # the large-n kernels' cap
+TILE = 32              # the cluster kernels' tile edge
+SMEM_CAP = 232448      # shared-memory bytes a block of an H100 can have
+# the cluster sizes the plan takes (csrc/chol_cluster.cuh, kMaxG): at the
+# slack QP's B = 64, clusters of 4 or 8 blocks a matrix need two or four
+# waves of blocks on an H100's 132 SMs, and ran slower than the one-block
+# kernels (PERF.md §6: scripts/kernel_bits_torch.py designs)
+CLUSTER_SIZES = (1, 2)
+_HDR = 16 + 4 * (2 * 32 + 32 * CLUSTER_SIZES[-1])   # bytes before a
+# cluster block's entries: a flag, the solve's flags
 
 # launches of each kernel since the last reset (CUDA only; the plain
-# versions never count): the one-warp kernels (n <= WARP_MAX_N) and the
-# block-a-matrix ones (*_large)
+# versions never count): the one-warp kernels (n <= WARP_MAX_N), the
+# cluster ones (*_cluster) and the block-a-matrix ones (*_large)
 factor_solve_launches = 0
 resolve_launches = 0
 factor_launches = 0
+factor_solve_cluster_launches = 0
+resolve_cluster_launches = 0
+factor_cluster_launches = 0
 factor_solve_large_launches = 0
 resolve_large_launches = 0
 factor_large_launches = 0
@@ -41,14 +60,89 @@ factor_large_launches = 0
 
 def reset_counts() -> None:
     global factor_solve_launches, resolve_launches, factor_launches
+    global factor_solve_cluster_launches, resolve_cluster_launches
+    global factor_cluster_launches
     global factor_solve_large_launches, resolve_large_launches
     global factor_large_launches
     factor_solve_launches = 0
     resolve_launches = 0
     factor_launches = 0
+    factor_solve_cluster_launches = 0
+    resolve_cluster_launches = 0
+    factor_cluster_launches = 0
     factor_solve_large_launches = 0
     resolve_large_launches = 0
     factor_large_launches = 0
+
+
+def cluster_cuts(n: int, G: int) -> list:
+    """The tile rows of each block of a cluster of G at n (csrc/
+    chol_cluster.cuh, Geo): block r holds rows cuts[r] .. cuts[r+1] - 1,
+    cut where the tiles before reach r / G of the lower triangle's."""
+    nt = -(-n // TILE)
+    cuts = [0]
+    for r in range(1, G):
+        a = cuts[-1]
+        while a < nt and a * (a + 1) * G < r * nt * (nt + 1):
+            a += 1
+        cuts.append(a)
+    return cuts + [nt]
+
+
+def cluster_tiles(n: int, G: int, rank: int) -> tuple:
+    """Block `rank`'s tiles in a cluster of G at n, as Geo numbers them (in
+    tiles after the reciprocals, the buffer and the partials): ({(a, c):
+    index} of its own tiles, rows cluster_cuts' range, row a holding (a,
+    0..a); {c: index} of its slots, one for each earlier block's tile row
+    c >= 1 (a panel tile of row c is read only by the blocks after c's),
+    after them)."""
+    cuts = cluster_cuts(n, G)
+    lo, hi = cuts[rank], cuts[rank + 1]
+    own = {(a, c): (a * (a + 1) - lo * (lo + 1)) // 2 + c
+           for a in range(lo, hi) for c in range(a + 1)}
+    return own, {c: len(own) + c - 1 for c in range(1, lo)}
+
+
+def cluster_smem_bytes(n: int, G: int, elem: int, rank: int,
+                       slots: bool = True) -> int:
+    """Shared-memory bytes of block `rank` of a cluster of G at n
+    (Geo::smem_bytes): the flags, the diagonal's reciprocals (nt 32), a
+    tile-sized buffer, the solve's partials (32 for each of the largest
+    block's tile rows and each block), the block's tiles and, for the
+    factor (slots), its slots (cluster_tiles)."""
+    nt = -(-n // TILE)
+    cuts = cluster_cuts(n, G)
+    rows = max(b - a for a, b in zip(cuts, cuts[1:]))
+    own, slot = cluster_tiles(n, G, rank)
+    tiles = len(own) + (len(slot) if slots else 0)
+    return _HDR + (nt * TILE + TILE * TILE + rows * G * TILE +
+                   tiles * TILE * TILE) * elem
+
+
+@functools.lru_cache(maxsize=None)
+def large_plan(n: int, dtype) -> tuple | None:
+    """(G, shared-memory bytes a block) of the cluster design at n > 64:
+    the smallest cluster of CLUSTER_SIZES whose largest block holds its
+    tiles and buffers in SMEM_CAP; None where none does (f32 past n =
+    384, f64 past 256: the one-block kernels run) or n is outside
+    WARP_MAX_N < n <= MAX_N.  Mirrors csrc/chol.cu::cluster_plan; cached
+    (the wrappers ask at every call, 120 a slack-QP cycle)."""
+    if not WARP_MAX_N < n <= MAX_N:
+        return None
+    elem = torch.empty((), dtype=dtype).element_size()
+    for G in CLUSTER_SIZES:
+        smem = max(cluster_smem_bytes(n, G, elem, r) for r in range(G))
+        if smem <= SMEM_CAP:
+            return G, smem
+    return None
+
+
+def large_design(n: int, dtype) -> str | None:
+    """The kernel that runs at n: None (one warp a matrix, n <= 64),
+    "cluster" (large_plan has a plan) or "block"."""
+    if n <= WARP_MAX_N:
+        return None
+    return "cluster" if large_plan(n, dtype) is not None else "block"
 
 
 # ----------------------------------------------------------------------
@@ -123,10 +217,19 @@ def _suffix(dtype):
     return "f32" if dtype == torch.float32 else "f64"
 
 
+_COUNTER_SUFFIX = {None: "", "cluster": "_cluster", "block": "_large"}
+
+
+def _count(kind, ran):
+    """Adds a launch of `kind` ("factor_solve", "resolve", "factor") of
+    the kernel `ran` (large_design's answer) to its counter."""
+    globals()[f"{kind}{_COUNTER_SUFFIX[ran]}_launches"] += 1
+
+
 def _factor_solve_cuda(H, rhs):
-    global factor_solve_launches, factor_solve_large_launches
     lib = _build.load_library()
     H3, r2, batch, n = _check(H, rhs, "chol_factor_solve")
+    ran = large_design(n, H.dtype)
     B = H3.shape[0]
     L = torch.empty_like(H3)
     x = torch.empty_like(r2)
@@ -136,17 +239,14 @@ def _factor_solve_cuda(H, rhs):
     if err:
         raise RuntimeError(f"chol_factor_solve kernel launch failed: CUDA "
                            f"error {err}")
-    if n > WARP_MAX_N:
-        factor_solve_large_launches += 1
-    else:
-        factor_solve_launches += 1
+    _count("factor_solve", ran)
     return _unbatch(L, batch, n, n), _unbatch(x, batch, n)
 
 
 def _factor_cuda(H):
-    global factor_launches, factor_large_launches
     lib = _build.load_library()
     H3, _, batch, n = _check(H, None, "cholesky_batched")
+    ran = large_design(n, H.dtype)
     B = H3.shape[0]
     L = torch.empty_like(H3)
     err = _build.launch(getattr(lib, "lsc_chol_factor_" + _suffix(H.dtype)),
@@ -154,17 +254,14 @@ def _factor_cuda(H):
     if err:
         raise RuntimeError(f"cholesky_batched kernel launch failed: CUDA "
                            f"error {err}")
-    if n > WARP_MAX_N:
-        factor_large_launches += 1
-    else:
-        factor_launches += 1
+    _count("factor", ran)
     return _unbatch(L, batch, n, n)
 
 
 def _resolve_cuda(L, rhs):
-    global resolve_launches, resolve_large_launches
     lib = _build.load_library()
     L3, r2, batch, n = _check(L, rhs, "chol_resolve")
+    ran = large_design(n, L.dtype)
     B = L3.shape[0]
     x = torch.empty_like(r2)
     err = _build.launch(
@@ -173,10 +270,7 @@ def _resolve_cuda(L, rhs):
     if err:
         raise RuntimeError(f"chol_resolve kernel launch failed: CUDA "
                            f"error {err}")
-    if n > WARP_MAX_N:
-        resolve_large_launches += 1
-    else:
-        resolve_launches += 1
+    _count("resolve", ran)
     return _unbatch(x, batch, n)
 
 

@@ -250,6 +250,9 @@ def launch_counts() -> dict:
     return {"factor_solve": chol.factor_solve_launches,
             "resolve": chol.resolve_launches,
             "cholesky_batched": chol.factor_launches,
+            "factor_solve_cluster": chol.factor_solve_cluster_launches,
+            "resolve_cluster": chol.resolve_cluster_launches,
+            "cholesky_batched_cluster": chol.factor_cluster_launches,
             "factor_solve_large": chol.factor_solve_large_launches,
             "resolve_large": chol.resolve_large_launches,
             "cholesky_batched_large": chol.factor_large_launches,

@@ -1,24 +1,55 @@
 #!/usr/bin/env python3
 """Dump the port's kernels' outputs on fixed inputs, and compare two dumps
 bit for bit: a check that a kernel source change kept a kernel's bits.
+Also the large-n chol kernels' split of time by phase.
 
     PYTHONPATH=<checkout> python3 scripts/kernel_bits_torch.py dump OUT.pt
     python3 scripts/kernel_bits_torch.py compare A.pt B.pt
+    PYTHONPATH=. python3 scripts/kernel_bits_torch.py split [OUT.json]
+    PYTHONPATH=. python3 scripts/kernel_bits_torch.py designs [OUT.json]
 
 `dump` runs on one CUDA GPU with the package on PYTHONPATH (this checkout,
 or another one unpacked with `git archive`): the fused IPM in 3-D at the
 main path's shapes (B, C) = (1024, 32), (64, 64), (128, 128), Param's
 tolerances, with each QP's own iteration count; factor_solve, resolve and
-the factor alone at n = 39 and 64, f32 and f64; and each fused call's
-time (CUDA events, median of 20).  The inputs are made from numpy seeds
-with the package's own tables, so two checkouts get the same inputs.
+the factor alone at n = 39 and 64, f32 and f64, and at the large n of the
+slack QP (B = 64, n = 365, f32) and of the one-block kernels (n = 1024,
+f32); each fused call's time and each large-n kernel's (CUDA events,
+median of 20), with the large-n design that ran ("block" in a checkout
+without chol.large_design).  The inputs are made from numpy seeds with
+the package's own tables, so two checkouts get the same inputs.
 `compare` prints, as one JSON line, the card that made each dump, the
-differing bits of every output (0 where equal) and both dumps' times, and
-exits non-zero when any bits differ.  Compare two checkouts' times only
-from dumps made in one call on one card, in turns (A, B, B, A).
+differing bits of every output (0 where equal), the large-n designs and
+both dumps' times, and exits non-zero when any bits differ in an output
+whose kernel design is the same in both dumps.  Compare two checkouts'
+times only from dumps made in one call on one card, in turns (A, B, B,
+A).
+
+`split` builds csrc/chol.cu alone with -DLSC_CHOL_STAMPS (clock64
+intervals of the first matrix's blocks, csrc/chol_cluster.cuh), once as
+the package builds it and once with -DLSC_CHOL_MAX_G=0 (the one-block
+kernels at every large n), apart from the package's library, and prints
+as JSON, for the cluster and the one-block kernels at the slack QP's B =
+64, n = 365 in f32 (IPM-like systems), each phase's cycles a launch of
+factor_solve, the factor alone and resolve (load, diagonal factors,
+panel solves, trailing updates, L out, forward and backward
+substitution, total) beside the event-timed ms of the stamped and of the
+unstamped build, and the card's name, power limit and SM clock.  The
+diagonal factors overlap the trailing updates in the cluster kernel
+(look-ahead); its other phases are intervals of the first block's thread
+0 between cluster barriers.
+
+`designs` times three builds of chol.cu in turns at B = 64 on IPM-like
+systems, f32 and f64, at the n of DESIGN_CASES: the package's (clusters
+of 1 or 2 blocks where they hold the factor, else one block a matrix),
+-DLSC_CHOL_MAX_G=0 (one block a matrix at every large n) and
+-DLSC_CHOL_MAX_G=8 (clusters of up to 8 blocks): the measurement behind
+the plan's cluster sizes.
 """
+import ctypes
 import json
 import statistics
+import subprocess
 import sys
 
 import numpy as np
@@ -105,7 +136,176 @@ def dump(path):
             out[key + " x"] = x.cpu()
             out[key + " resolve"] = chol.chol_resolve(L, r).cpu()
             out[key + " factor"] = chol.cholesky_batched(H).cpu()
+    out["design"] = {}
+    for n in (365, 1024):
+        H, r = large_inputs(64, n, n)
+        key = f"chol large n={n} float32"
+        out["design"][key] = (chol.large_design(n, torch.float32)
+                              if hasattr(chol, "large_design") else "block")
+        L, x = chol.chol_factor_solve(H, r)
+        out[key + " L"] = L.cpu()
+        out[key + " x"] = x.cpu()
+        out[key + " resolve"] = chol.chol_resolve(L, r).cpu()
+        out[key + " factor"] = chol.cholesky_batched(H).cpu()
+        out["ms"][key + " factor_solve"] = median_ms(
+            lambda: chol.chol_factor_solve(H, r))
+        out["ms"][key + " resolve"] = median_ms(
+            lambda: chol.chol_resolve(L, r))
+        out["ms"][key + " factor"] = median_ms(
+            lambda: chol.cholesky_batched(H))
     torch.save(out, path)
+
+
+def large_inputs(B, n, seed):
+    """spd_inputs at a large n in float32, made in f64 on the card from a
+    torch seed (numpy's three-operand einsum takes minutes at n = 1024)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    f64 = dict(device="cuda", dtype=torch.float64)
+    A = torch.randn(B, 3 * n, n, generator=g, **f64)
+    d = torch.exp(torch.empty(B, 3 * n, **f64).uniform_(
+        -np.log(1e3), np.log(1e3), generator=g))
+    H = torch.eye(n, **f64) + A.mT @ (A * d[..., None])
+    dsc = torch.rsqrt(torch.diagonal(H, dim1=-2, dim2=-1))
+    H = H * dsc[:, :, None] * dsc[:, None, :]
+    return [H.float(), torch.randn(B, n, generator=g, **f64).float()]
+
+
+STAMPS = ("load", "diagonal factors", "panel solves", "trailing updates",
+          "tile updates", "cluster barrier waits", "L out",
+          "forward substitution", "backward substitution", "solve flag waits",
+          "solve publishing", "total")
+# builds of csrc/chol.cu: the package's (the cluster kernels at the slack
+# QP's n = 365), the one-block kernels at every large n, clusters of up to
+# 8 blocks
+BUILDS = {"cluster": [], "block": ["LSC_CHOL_MAX_G=0"],
+          "clusters up to 8": ["LSC_CHOL_MAX_G=8"]}
+
+
+def chol_builds(names, stamps):
+    """{name: library} of csrc/chol.cu alone for the BUILDS names, with
+    the clock stamps (LSC_CHOL_STAMPS) or without, built at once in
+    threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from lsc_planner_tpu_torch.ops import _build
+
+    extra = ["LSC_CHOL_STAMPS"] if stamps else []
+    with ThreadPoolExecutor(len(names)) as pool:
+        libs = {d: pool.submit(_build.load_variant, ["chol.cu"],
+                               BUILDS[d] + extra) for d in names}
+        return {d: f.result()[0] for d, f in libs.items()}
+
+
+def chol_calls(H, r, L, x):
+    """{kind: call(lib)} launching factor_solve, the factor alone and
+    resolve of `lib` (a build of csrc/chol.cu) on H, r into L, x."""
+    from lsc_planner_tpu_torch.ops import _build
+
+    B, n = r.shape
+    sfx = "f32" if H.dtype == torch.float32 else "f64"
+    dev = H.device
+    return {
+        "factor_solve": lambda lb: _build.launch(
+            getattr(lb, "lsc_chol_factor_solve_" + sfx), dev, H.data_ptr(),
+            r.data_ptr(), L.data_ptr(), x.data_ptr(), B, n),
+        "factor": lambda lb: _build.launch(
+            getattr(lb, "lsc_chol_factor_" + sfx), dev, H.data_ptr(),
+            L.data_ptr(), B, n),
+        "resolve": lambda lb: _build.launch(
+            getattr(lb, "lsc_chol_resolve_" + sfx), dev, L.data_ptr(),
+            r.data_ptr(), x.data_ptr(), B, n),
+    }
+
+
+def smi():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,"
+         "clocks.max.sm", "--format=csv,noheader"], capture_output=True,
+        text=True).stdout.strip()
+
+
+def emit(out, path):
+    line = json.dumps(out)
+    print(line)
+    if path:
+        with open(path, "w") as f:
+            f.write(line + "\n")
+
+
+def split(path=None):
+    """The large-n chol kernels' phase split (see the module note)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("kernel_bits_torch.py split needs a CUDA device")
+    designs = ("cluster", "block")
+    stamped = chol_builds(designs, True)
+    normal = chol_builds(designs, False)
+    B, n = 64, 365
+    H, r = large_inputs(B, n, n)
+    L, x = torch.empty_like(H), torch.empty_like(r)
+    stamps = (ctypes.c_ulonglong * len(STAMPS))()
+    calls = chol_calls(H, r, L, x)
+    out = {"device": torch.cuda.get_device_name(0), "B": B, "n": n,
+           "dtype": "float32", "phases": STAMPS}
+    for name in designs:
+        lib = stamped[name]
+        for kind, call in calls.items():
+            for lb in (lib, normal[name]):     # warm, and L for resolve
+                if call(lb):
+                    raise RuntimeError(f"{name} {kind}: launch failed")
+            torch.cuda.synchronize()
+            if lib.lsc_chol_stamps(stamps, 1):
+                raise RuntimeError("lsc_chol_stamps failed")
+            if call(lib):
+                raise RuntimeError(f"{name} {kind}: launch failed")
+            torch.cuda.synchronize()
+            if lib.lsc_chol_stamps(stamps, 1):
+                raise RuntimeError("lsc_chol_stamps failed")
+            out[f"{name} {kind}"] = {
+                "cycles": dict(zip(STAMPS, map(int, stamps))),
+                "ms_stamped": median_ms(lambda: call(lib)),
+                "ms": median_ms(lambda: call(normal[name]))}
+    out["smi"] = smi()
+    emit(out, path)
+
+
+# (dtype, n) that `designs` times: the slack QP's n and the edges of the
+# cluster sizes of 1, 2, 4 and 8 blocks in each dtype
+DESIGN_CASES = tuple((torch.float32, n) for n in (65, 199, 288, 365, 399,
+                                                   544, 640)) + \
+    tuple((torch.float64, n) for n in (65, 128, 192, 199, 256, 300, 352,
+                                       365, 384))
+
+
+def designs(path=None):
+    """The three BUILDS at B = 64 on IPM-like systems (DESIGN_CASES):
+    ms of factor_solve, the factor alone and resolve (CUDA events, median
+    of 20) of each, in turns (there and back), with the package's cluster
+    size (null: one block a matrix)."""
+    from lsc_planner_tpu_torch.ops import chol
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("kernel_bits_torch.py designs needs a CUDA "
+                           "device")
+    libs = chol_builds(tuple(BUILDS), False)
+    out = {"device": torch.cuda.get_device_name(0), "B": 64, "cases": []}
+    for dtype, n in DESIGN_CASES:
+        H, r = (t.to(dtype) for t in large_inputs(64, n, n))
+        L, x = torch.empty_like(H), torch.empty_like(r)
+        plan = chol.large_plan(n, dtype)
+        case = {"dtype": str(dtype)[6:], "n": n,
+                "G": plan[0] if plan else None}
+        for kind, call in chol_calls(H, r, L, x).items():
+            for name in BUILDS:
+                if call(libs[name]):
+                    raise RuntimeError(f"{name} {kind} n={n}: launch "
+                                       "failed")
+            ms = {name: [] for name in BUILDS}
+            for name in tuple(BUILDS) + tuple(reversed(BUILDS)):
+                ms[name].append(median_ms(lambda: call(libs[name])))
+            case[kind] = ms
+        out["cases"].append(case)
+    out["smi"] = smi()
+    emit(out, path)
 
 
 def differing_bits(a, b):
@@ -122,13 +322,23 @@ def differing_bits(a, b):
 
 def compare(path_a, path_b):
     a, b = torch.load(path_a), torch.load(path_b)
+    meta = ("device", "ms", "design")
     diffs = {k: differing_bits(a[k], b[k]) for k in a
-             if k not in ("device", "ms") and k in b}
+             if k not in meta and k in b}
+    da, db = a.get("design", {}), b.get("design", {})
+    # an output whose large-n kernel design differs between the dumps may
+    # differ (its sums run in another order); every other must not
+    redesigned = {k for k in diffs
+                  if any(k.startswith(p) and da.get(p) != db.get(p)
+                         for p in set(da) | set(db))}
     print(json.dumps({"devices": [a["device"], b["device"]],
                       "missing": sorted(set(a) ^ set(b)),
                       "differing_bits": diffs,
+                      "designs": [da, db],
+                      "redesigned": sorted(redesigned),
                       "ms": [a["ms"], b["ms"]]}))
-    return 0 if not any(diffs.values()) and set(a) == set(b) else 1
+    held = [v for k, v in diffs.items() if k not in redesigned]
+    return 0 if not any(held) and set(a) == set(b) else 1
 
 
 if __name__ == "__main__":
@@ -136,5 +346,9 @@ if __name__ == "__main__":
         dump(sys.argv[2])
     elif sys.argv[1:2] == ["compare"] and len(sys.argv) == 4:
         sys.exit(compare(sys.argv[2], sys.argv[3]))
+    elif sys.argv[1:2] == ["split"] and len(sys.argv) in (2, 3):
+        split(*sys.argv[2:])
+    elif sys.argv[1:2] == ["designs"] and len(sys.argv) in (2, 3):
+        designs(*sys.argv[2:])
     else:
         sys.exit(__doc__)

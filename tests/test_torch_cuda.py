@@ -917,18 +917,34 @@ def big_spd_system(B, n, seed, dev):
     return Hs, r[0], r[1]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("B, n", [(1, 65), (7, 96), (64, 354), (3, 399),
-                                  (2, 1024)])
-def test_large_n_chol_kernels(cuda, B, n, dtype):
-    """Past 64 the chol kernels run one block a matrix: factor_solve,
-    resolve and the factor alone against the f64 solve (f32: within 4x the
-    plain f32 version's error + 1e-6; f64: rtol 1e-9), resolve(L, rhs) is
-    factor_solve's x bit for bit, the factor alone is factor_solve's L bit
-    for bit with zeros above the diagonal, and a non-SPD entry (B > 1)
-    gives NaN in that entry only."""
-    H64, R1d, R2d = big_spd_system(B, n, seed=n + B, dev=cuda)
+LARGE_COUNTERS = {"cluster": ("factor_solve_cluster_launches",
+                              "resolve_cluster_launches",
+                              "factor_cluster_launches"),
+                  "block": ("factor_solve_large_launches",
+                            "resolve_large_launches",
+                            "factor_large_launches")}
+
+
+def large_counts():
+    """{design: (factor_solve, resolve, factor) launches} of the large-n
+    kernels, and the one-warp kernels' under None."""
+    out = {d: tuple(getattr(chol, c) for c in cs)
+           for d, cs in LARGE_COUNTERS.items()}
+    out[None] = (chol.factor_solve_launches, chol.resolve_launches,
+                 chol.factor_launches)
+    return out
+
+
+def check_large_chol(dev, B, n, dtype):
+    """factor_solve, resolve and the factor alone of the large-n design
+    the plan picks, on an IPM-like system: each against the f64 solve (f32:
+    within 4x the plain f32 version's error + 1e-6; f64: rtol 1e-9),
+    resolve(L, rhs) factor_solve's x bit for bit, the factor alone
+    factor_solve's L bit for bit with zeros above the diagonal, the
+    launches on the counters of the design that ran, and (B > 1) a
+    non-SPD entry NaN in that entry only, the others unchanged."""
+    ran = chol.large_design(n, dtype)
+    H64, R1d, R2d = big_spd_system(B, n, seed=n + B, dev=dev)
     L64, x64 = chol.chol_factor_solve_plain(H64, R1d)
     y64 = chol.chol_resolve_plain(L64, R2d)
     H, R1, R2 = H64.to(dtype), R1d.to(dtype), R2d.to(dtype)
@@ -938,10 +954,9 @@ def test_large_n_chol_kernels(cuda, B, n, dtype):
     xr = chol.chol_resolve(Lk, R1)
     Fk = chol.cholesky_batched(H)
     torch.cuda.synchronize()
-    assert (chol.factor_solve_large_launches, chol.resolve_large_launches,
-            chol.factor_large_launches) == (1, 2, 1)
-    assert (chol.factor_solve_launches, chol.resolve_launches,
-            chol.factor_launches) == (0, 0, 0)
+    want = {d: (0, 0, 0) for d in (None, "cluster", "block")}
+    want[ran] = (1, 2, 1)
+    assert large_counts() == want
     assert torch.equal(xr, xk)
     assert torch.equal(Fk, Lk)
     assert torch.equal(torch.triu(Lk, 1), torch.zeros_like(Lk))
@@ -969,8 +984,100 @@ def test_large_n_chol_kernels(cuda, B, n, dtype):
         low = torch.tril(torch.ones_like(Lb[bad], dtype=torch.bool))
         assert torch.isnan(Lb[bad][low]).all()
         assert torch.equal(Fb.view(-1).isnan(), Lb.view(-1).isnan())
-        ok = torch.arange(B, device=cuda) != bad
+        ok = torch.arange(B, device=dev) != bad
         assert torch.equal(Lb[ok], Lk[ok]) and torch.equal(xb[ok], xk[ok])
+        assert torch.equal(yb[ok], yk[ok])
+    return ran
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B, n", [(1, 65), (7, 96), (64, 354), (3, 399),
+                                  (2, 1024)])
+def test_large_n_chol_kernels(cuda, B, n, dtype):
+    """Past 64 the chol kernels run one cluster a matrix where a cluster
+    of one or two blocks holds the factor (chol.large_plan), else one block
+    a matrix: held as check_large_chol holds them, on the counters of the
+    design the plan picks."""
+    ran = check_large_chol(cuda, B, n, dtype)
+    assert ran == ("cluster" if chol.large_plan(n, dtype) else "block")
+
+
+# n at the edges of each cluster size G (chol.large_plan): f32 G = 1 up to
+# 288, 2 up to 384; f64 G = 1 up to 192, 2 up to 256; and the slack QP's
+# 359 and 365
+CLUSTER_EDGES = {torch.float32: (65, 199, 200, 288, 289, 359, 365, 384),
+                 torch.float64: (65, 192, 193, 199, 200, 256)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,n", [(d, n) for d, ns in CLUSTER_EDGES.items()
+                                     for n in ns])
+def test_cluster_chol_kernels_at_plan_edges(cuda, dtype, n):
+    """The cluster kernels at the edges of each cluster size, B = 3 (a
+    non-SPD entry in the middle one)."""
+    assert check_large_chol(cuda, 3, n, dtype) == "cluster"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,n", [(torch.float32, 385),
+                                     (torch.float32, 399),
+                                     (torch.float32, 641),
+                                     (torch.float32, 1024),
+                                     (torch.float64, 257),
+                                     (torch.float64, 365),
+                                     (torch.float64, 385),
+                                     (torch.float64, 1024)])
+def test_block_chol_kernels_past_the_clusters(cuda, dtype, n):
+    """Where no cluster of the plan's sizes holds the factor, the
+    one-block kernels run (and hold) by the plan."""
+    assert chol.large_plan(n, dtype) is None
+    assert check_large_chol(cuda, 3, n, dtype) == "block"
+
+
+@pytest.mark.cuda
+def test_cluster_plan_matches_the_kernels(cuda):
+    """csrc/chol.cu's cluster_plan and chol.large_plan agree at every n
+    and both element sizes, and the factor's shared memory fits a
+    block."""
+    import ctypes
+
+    from lsc_planner_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+    out = (ctypes.c_longlong * 3)()
+    for dtype, elem in ((torch.float32, 4), (torch.float64, 8)):
+        for n in range(1, chol.MAX_N + 1):
+            lib.lsc_chol_cluster_plan(n, elem, out)
+            plan = chol.large_plan(n, dtype)
+            assert (out[0], out[1]) == (plan or (0, 0)), (n, dtype)
+            assert out[1] <= chol.SMEM_CAP and out[2] <= out[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,n", [(torch.float32, 365),
+                                     (torch.float64, 250),
+                                     (torch.float32, 1024)])
+def test_large_chol_captured_is_bit_equal(cuda, dtype, n):
+    """factor_solve and two resolves captured in one CUDA graph and
+    replayed give the uncaptured launches' bits (the cluster kernels at
+    365 and 250, the one-block kernels at 1024)."""
+    H64, R1d, R2d = big_spd_system(16, n, seed=n, dev=cuda)
+    H, R1, R2 = H64.to(dtype), R1d.to(dtype), R2d.to(dtype)
+
+    def calls():
+        L, x = chol.chol_factor_solve(H, R1)
+        return L, x, chol.chol_resolve(L, R2), chol.chol_resolve(L, R1)
+    want = calls()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = calls()
+    graph.replay()
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert torch.equal(got[3], got[1])
 
 
 @pytest.mark.cuda
@@ -1011,8 +1118,8 @@ def test_fused_kernel_2d_matches_plain(cuda, B, C):
 def test_captured_mode_cycles_are_bit_equal(cuda, mode):
     """4 captured cycles equal 4 uncaptured ones bit for bit: an 8-agent
     circle under RECIPROCAL_RSFC (the slack QP at n = 45 + 7 x 5 = 80 on
-    the large-n chol kernels) and a 130-agent 2-D circle (the fused IPM at
-    ndim 2)."""
+    the large-n chol kernels, a cluster of one block a matrix) and a
+    130-agent 2-D circle (the fused IPM at ndim 2)."""
     from lsc_planner_tpu_torch import (GoalMode, Param, PlannerMode,
                                        make_circle_mission)
     from lsc_planner_tpu_torch.sim.simulator import SyncSimulator
@@ -1032,7 +1139,8 @@ def test_captured_mode_cycles_are_bit_equal(cuda, mode):
         assert not any(d.values()), d
     assert not any(moved.values()), moved
     if mode == "rsfc":
-        assert launches["factor_solve_large"] == 4 * p.qp_iterations
+        assert launches["factor_solve_cluster"] == 4 * p.qp_iterations
         assert launches["factor_solve"] == 0
+        assert launches["factor_solve_large"] == 0
     else:
         assert launches["fused_ipm"] == 4

@@ -264,6 +264,74 @@ def test_chol_plain_versions_do_not_count(rng):
             chol.factor_launches) == (0, 0, 0)
 
 
+# the largest n a cluster of one or two blocks holds (chol.large_plan)
+CLUSTER_LAST_N = {torch.float32: 384, torch.float64: 256}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_large_plan_every_n(dtype):
+    """Every 64 < n <= MAX_N has a large-n design, by shape alone: a
+    cluster plan up to the largest n a cluster of CLUSTER_SIZES' largest
+    holds, the one-block kernels past it.  A plan's bytes are its largest
+    block's, fit a block's SMEM_CAP, and no smaller cluster fits; n <= 64
+    has no large-n design."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    last = CLUSTER_LAST_N[dtype]
+    for n in range(chol.WARP_MAX_N + 1, chol.MAX_N + 1):
+        plan = chol.large_plan(n, dtype)
+        if n > last:
+            assert plan is None and chol.large_design(n, dtype) == "block"
+            continue
+        G, smem = plan
+        assert chol.large_design(n, dtype) == "cluster"
+        assert smem == max(chol.cluster_smem_bytes(n, G, elem, r)
+                           for r in range(G)) <= chol.SMEM_CAP
+        for smaller in chol.CLUSTER_SIZES:
+            if smaller < G:
+                assert max(chol.cluster_smem_bytes(n, smaller, elem, r)
+                           for r in range(smaller)) > chol.SMEM_CAP, n
+    assert chol.large_plan(chol.WARP_MAX_N, dtype) is None
+    assert chol.large_design(chol.WARP_MAX_N, dtype) is None
+    assert chol.large_plan(chol.MAX_N + 1, dtype) is None
+
+
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("n", [65, 96, 199, 359, 365, 399, 640, 1024])
+def test_cluster_covers_the_lower_triangle(n, G):
+    """Over a cluster of G blocks the tiles are exactly the lower
+    triangle's (a, c), c <= a, each in one block, block r holding the
+    contiguous tile rows of cluster_cuts; a block numbers its tiles 0..
+    without gaps, and its slots follow them, one for each earlier block's
+    tile row c >= 1 (the rows whose panel tiles it reads)."""
+    nt = -(-n // chol.TILE)
+    cuts = chol.cluster_cuts(n, G)
+    assert cuts[0] == 0 and cuts[-1] == nt and cuts == sorted(cuts)
+    seen = {}
+    for rank in range(G):
+        own, slots = chol.cluster_tiles(n, G, rank)
+        for a, c in own:
+            assert cuts[rank] <= a < cuts[rank + 1] and (a, c) not in seen
+            seen[(a, c)] = rank
+        assert sorted(own.values()) == list(range(len(own)))
+        assert sorted(slots) == list(range(1, cuts[rank]))
+        assert sorted(slots.values()) == list(range(len(own),
+                                                    len(own) + len(slots)))
+    assert set(seen) == {(a, c) for a in range(nt) for c in range(a + 1)}
+
+
+def test_large_n_plain_versions_do_not_count():
+    """At a large n the wrappers run the plain versions on a CPU tensor,
+    and no large-n counter moves."""
+    chol.reset_counts()
+    H = torch.eye(100, dtype=torch.float64)[None]
+    L, _ = chol.chol_factor_solve(H, torch.ones(1, 100, dtype=torch.float64))
+    chol.chol_resolve(L, torch.ones(1, 100, dtype=torch.float64))
+    assert (chol.factor_solve_cluster_launches, chol.resolve_cluster_launches,
+            chol.factor_cluster_launches, chol.factor_solve_large_launches,
+            chol.resolve_large_launches, chol.factor_large_launches) == \
+        (0,) * 6
+
+
 def test_wavefront_cuda_branch_raises_without_gpu():
     """The wavefront wrapper never runs the plain version on a CUDA
     tensor: without a GPU the loader raises; a grid too large for one
