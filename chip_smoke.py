@@ -76,8 +76,10 @@ Phases, one line each; any failure raises and exits non-zero:
      witness
  12. several cycles a dispatch (make_scan_cycle: one CUDA graph of 10
      cycles): the SFC face-expansion kernel against its plain version, bit
-     for bit, on forest20's cycle-4 inputs and on the 30 m forest's world
-     with 20 seeds, with kernel / plain ms and the bound; then circle64
+     for bit, one launch a call, on forest20's cycle-4 and cycle-21 inputs
+     and on the 30 m forest's world with 20 seeds, with kernel / plain ms,
+     the bound, the busiest agent's tries and the kernel's rounds at the K
+     tries it speculates a round; then circle64
      and forest20 flown to the finish and circle1024 for its 40 cycles
      with run(steps_per_dispatch=10), which captures the graph: cycles and
      distance equal to phases 5, 8 and 10, the mission gates, ms a cycle
@@ -118,9 +120,10 @@ Phases, one line each; any failure raises and exits non-zero:
      n = 365 on the large-n chol kernels, distance within 10 % of JAX's,
      safety > 0.9, then the same 20 cycles through
      run(steps_per_dispatch=10) with 0 differing bits, and each cycle
-     with a QPFAILED agent run again from the same state on the plain
-     chol versions (on the card), their QPFAILED agents printed beside
-     the kernels'; exp64 (experiment
+     with a QPFAILED agent run again from the same state on the card, in
+     f32 with the plain chol versions and in f64, each run's QPFAILED
+     agents and the failing agents' primal residuals and gaps printed
+     beside the kernels'; exp64 (experiment
      mode) through cycle() and inject_positions: 4 agents pushed 0.3-0.5
      m before cycle 5, that cycle finite with max primal residual < 0.1,
      the flags set and cleared and the SFCs re-seeded, then 60 cycles
@@ -155,7 +158,7 @@ from lsc_planner_tpu_torch import (GoalMode, ObstacleSpec, Param,
                                    make_random_mission)
 from lsc_planner_tpu_torch.config import PlannerMode
 from lsc_planner_tpu_torch.config import SP_EPSILON
-from lsc_planner_tpu_torch.convert import state_to_numpy
+from lsc_planner_tpu_torch.convert import state_from_numpy, state_to_numpy
 from lsc_planner_tpu_torch.ops import _build, chol, ipm, wavefront
 from lsc_planner_tpu_torch.ops import corridor as corridor_ops
 from lsc_planner_tpu_torch.ops.grid_search import GridPlanner
@@ -288,6 +291,14 @@ EXP_INJECT_CYCLE, EXP_PUSHED, EXP_SEED = 5, (0, 16, 32, 48), 15
 # tensor cores and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+
+
+def smi_line():
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
 
 
 def phase(name, msg):
@@ -1462,11 +1473,13 @@ def forest30_expand_inputs(dev):
 
 def expand_sat_reads(args):
     """The distinct SAT entries that the face expansion must read on these
-    inputs, and its tries.  The plain version's round-robin is replayed
-    (expand_boxes_plain's loop); a try reads the table only when its slab
-    is in bounds (the kernel tests that first), and then the eight corners
-    of each inclusion-exclusion term that is neither dropped at the world
-    minimum nor empty (OccupancySAT.box_obstructed and _box_count)."""
+    inputs, its tries, and each agent's try outcomes in order.  The plain
+    version's round-robin is replayed (expand_boxes_plain's loop); a try
+    reads the table only when its slab is in bounds, and then the eight
+    corners of each inclusion-exclusion term that is neither dropped at the
+    world minimum nor empty (OccupancySAT.box_obstructed and _box_count).
+    (The kernel reads a round's speculated tries and every term's clamped
+    corners all the same; the bound counts what the function needs.)"""
     lo, hi, cand, seed_ok, sat, wmin32, wmin, wmax = args
     N, dev, res = lo.shape[0], lo.device, sat.resolution
     rows = torch.arange(N, device=dev)
@@ -1476,6 +1489,7 @@ def expand_sat_reads(args):
     T = sat._corner_bits                                   # (8, 3)
     S = sat.sat.shape
     slabs, reads, tries = [], [], 0
+    outcomes = [[] for _ in range(N)]
 
     class Recorder:     # the table, noting the slab of each try
         resolution = res
@@ -1511,35 +1525,60 @@ def expand_sat_reads(args):
             corner[..., 2]
         reads.append(flat[read].reshape(-1))
         tries += int(going.sum())
+        for i, o in zip(going.nonzero().flatten().tolist(),
+                        ok[going].tolist()):
+            outcomes[i].append(o)
         lo = torch.where(going[:, None], lo2, lo)
         hi = torch.where(going[:, None], hi2, hi)
         active[rows, p2] = torch.where(going, ok, active[rows, p2])
         p = torch.where(going, p2, p)
-    return int(torch.cat(reads).unique().numel()), tries
+    return int(torch.cat(reads).unique().numel()), tries, outcomes
+
+
+def spec_rounds(outcomes, k):
+    """The kernel's rounds for one agent's try outcomes at k tries
+    speculated a round: a round commits up to k tries, through the first
+    failure among them."""
+    rounds, i = 0, 0
+    while i < len(outcomes):
+        seg = outcomes[i:i + k]
+        i += seg.index(False) + 1 if False in seg else len(seg)
+        rounds += 1
+    return rounds
 
 
 def expand_bound(args, out):
     """The least time of the face expansion on these inputs: the boxes,
     slots, flags and bounds read once, the boxes written once, and each
     SAT entry that its tries need read once (int32, expand_sat_reads).
-    Returns (bound, entries, tries)."""
-    entries, tries = expand_sat_reads(args)
+    Returns (bound, entries, tries, each agent's try outcomes)."""
+    entries, tries, outcomes = expand_sat_reads(args)
     small = [t for t in args if torch.is_tensor(t)]
     return (bound(tensor_bytes(*small, *out) + 4 * entries, 0.0), entries,
-            tries)
+            tries, outcomes)
 
 
 def compare_expand(dev, forest_sim):
     """Phase 12: the face-expansion kernel against its plain version, bit
-    for bit, on forest20's cycle-4 call and the 30 m forest's seeds.
-    Returns the forest20 numbers."""
+    for bit, one launch a call, on forest20's cycle-4 and cycle-21 calls
+    and the 30 m forest's seeds, with kernel / plain ms, the bound, the
+    busiest agent's tries and the kernel's rounds at the K it speculates
+    (corridor_ops.spec_k).  Returns the cycle-4 numbers."""
     main = None
+    k = corridor_ops.spec_k()
     for name, args in (("forest20 cycle 4", capture_expand_call(forest_sim,
                                                                 3)),
+                       ("forest20 cycle 21", capture_expand_call(forest_sim,
+                                                                 20)),
                        ("forest30 starts", forest30_expand_inputs(dev))):
         want = corridor_ops.expand_boxes_plain(*args)
+        corridor_ops.reset_counts()
         got = corridor_ops.expand_boxes(*args)
         torch.cuda.synchronize()
+        if corridor_ops.expand_launches != 1:
+            raise AssertionError(f"expand_boxes {name}: "
+                                 f"{corridor_ops.expand_launches} launches "
+                                 "in one call")
         if not (torch.equal(got[0], want[0]) and
                 torch.equal(got[1], want[1])):
             bad = ((got[0] != want[0]) | (got[1] != want[1])).any(-1)
@@ -1550,13 +1589,19 @@ def compare_expand(dev, forest_sim):
         t_k = median_ms(lambda: corridor_ops.expand_boxes(*args), reps=20)
         t_p = median_ms(lambda: corridor_ops.expand_boxes_plain(*args),
                         reps=5)
-        (b_ms, b_by), entries, tries = expand_bound(args, want)
+        (b_ms, b_by), entries, tries, outcomes = expand_bound(args, want)
+        busy = max(range(len(outcomes)), key=lambda i: len(outcomes[i]))
+        rounds = [spec_rounds(o, k) for o in outcomes]
         phase("12 captured", f"expand_boxes {name}: N={args[0].shape[0]}, "
                              f"table {tuple(args[4].sat.shape)}, {tries} "
                              f"tries reading {entries} distinct entries, "
-                             f"bit-equal to its plain version; "
+                             f"the busiest agent ({busy}) "
+                             f"{len(outcomes[busy])} tries in "
+                             f"{rounds[busy]} rounds of K={k} (most rounds "
+                             f"{max(rounds)}, {sum(rounds)} in all), "
+                             f"bit-equal to its plain version, one launch; "
                              f"{t_k:.4f} ms vs plain {t_p:.4f} ms, bound "
-                             f"{b_ms:.6f} ms ({b_by})")
+                             f"{b_ms:.7f} ms ({b_by})")
         if main is None:
             main = (err, t_k, t_p, (b_ms, b_by))
     return main
@@ -2047,36 +2092,91 @@ def fly_bvc64(dev):
     return launches
 
 
-def qp_failures_on_plain(sim, cycles):
-    """Steps sim's cycles from its initial state (the kernels' run, bit for
-    bit) and runs each cycle that has a QPFAILED agent once more from the
-    same state with the plain chol versions on the card: [(cycle, the
-    kernels' QPFAILED agents, the plain versions')]."""
-    state, out = sim.initial_state(), []
+def cycle_qp(sim, state):
+    """sim.cycle(state) -> (the new state, (its QPFAILED agents, each
+    agent's primal residual and complementarity gap (N,) numpy)), the gap
+    read from the QP result that plan_block hands the cycle."""
+    seen = []
+    plan = sim.plan_block
+
+    def record(*args, **kw):
+        out = plan(*args, **kw)
+        seen.append(out[0])
+        return out
+    sim.plan_block = record
+    try:
+        state, info = sim.cycle(state)
+    finally:
+        del sim.plan_block
+    return state, (info.qp_failed.nonzero().flatten().tolist(),
+                   as_numpy(seen[0].primal_res), as_numpy(seen[0].gap))
+
+
+# the runs, besides the plain chol versions' in f32, that phase 15 makes of
+# each of rsfc64's QPFAILED cycles: (label, device (None: the card's),
+# dtype)
+CARD_RERUNS = (("card f64", None, torch.float64),)
+
+
+def rerun_cycle(name, sim, prev, ways=CARD_RERUNS):
+    """The cycle from state prev (sim's, f32 on the card) run again with
+    the plain chol versions on sim's card and dtype, then once for each
+    (label, device, dtype) of ways by a new simulator of mode case name.
+    Returns {run: (QPFAILED agents, primal residuals, gaps)}."""
+    tm, kw, _ = mode_case(name)
+    fields = state_to_numpy(prev)
     fs, rs = chol.chol_factor_solve, chol.chol_resolve
+    chol.chol_factor_solve = chol.chol_factor_solve_plain
+    chol.chol_resolve = chol.chol_resolve_plain
+    try:
+        out = {"card f32, plain chol": cycle_qp(sim, prev)[1]}
+    finally:
+        chol.chol_factor_solve, chol.chol_resolve = fs, rs
+    for label, device, dtype in ways:
+        device = sim.device if device is None else device
+        other = SyncSimulator(tm, Param(**kw), device=device, dtype=dtype)
+        out[label] = cycle_qp(other, state_from_numpy(
+            fields, device=device, dtype=dtype))[1]
+    return out
+
+
+def qp_failures_rerun(sim, name, cycles, ways=CARD_RERUNS):
+    """Steps sim's cycles from its initial state (the kernels' run, bit for
+    bit) and runs each cycle that has a QPFAILED agent again from the state
+    before it (rerun_cycle): [(cycle, the kernels' QPFAILED agents, their
+    primal residuals and gaps, the state before the cycle, the reruns)]."""
+    state, out = sim.initial_state(), []
     for it in range(cycles):
         prev = state
-        state, info = sim.cycle(state)
-        failed = info.qp_failed.nonzero().flatten().tolist()
+        state, (failed, res, gap) = cycle_qp(sim, prev)
         if failed:
-            chol.chol_factor_solve = chol.chol_factor_solve_plain
-            chol.chol_resolve = chol.chol_resolve_plain
-            try:
-                _, plain = sim.cycle(prev)
-            finally:
-                chol.chol_factor_solve, chol.chol_resolve = fs, rs
-            out.append((it, failed,
-                        plain.qp_failed.nonzero().flatten().tolist()))
+            out.append((it, failed, res, gap, prev,
+                        rerun_cycle(name, sim, prev, ways)))
     return out
+
+
+def qp_failure_lines(failures):
+    """One line a failing cycle: each run's QPFAILED agents and, for the
+    kernels' failing agents, their primal residuals and gaps."""
+    lines = []
+    for it, failed, res, gap, _, reruns in failures:
+        runs = {"card f32, kernels": (failed, res, gap), **reruns}
+        lines.append(f"cycle {it}: " + "; ".join(
+            f"{label} QPFAILED {agents} (" + ", ".join(
+                f"agent {a} primal {r[a]:.3e} gap {g[a]:.3e}"
+                for a in failed) + ")"
+            for label, (agents, r, g) in runs.items()))
+    return lines
 
 
 def fly_rsfc64(dev):
     """rsfc64, 20 cycles: every cycle the slack QP at n = 45 + 64 x 5 =
     365 on the large-n chol kernels (a cluster of 2 blocks a matrix);
-    its QPFAILED cycles again on the plain chol versions
-    (qp_failures_on_plain); distance within 10 % of the
-    JAX package's CPU f32 run, safety > 0.9 (tests/test_modes.py's bound
-    for RSFC), finite trajectories; then the same 20 cycles through
+    its QPFAILED cycles again on the card (qp_failures_rerun; the state
+    before cycle 3 is f32-hard, tests/test_torch_qpfailed.py);
+    distance within 10 % of the JAX package's CPU f32 run, safety > 0.9
+    (tests/test_modes.py's bound for RSFC), finite trajectories; then the
+    same 20 cycles through
     run(steps_per_dispatch=CAPTURE_K), bit for bit.  Returns the launches
     of the uncaptured run."""
     sim, param, cycles = mode_sim(dev, "rsfc64")
@@ -2085,7 +2185,7 @@ def fly_rsfc64(dev):
     torch.cuda.synchronize()
     launches = check_launches(
         "rsfc64", **chol_launches(param, cycles, kkt_n(sim, param)))
-    failures = qp_failures_on_plain(sim, cycles)
+    failures = qp_failures_rerun(sim, "rsfc64", cycles)
     dist = summary["total_flight_distance"]
     state = summary["final_state"]
     if summary["iterations"] != cycles or \
@@ -2132,9 +2232,9 @@ def fly_rsfc64(dev):
                       f"{len(diffs)} fields")
     n_fs = param.qp_iterations
     n_rs = n_fs * (1 + param.qp_correctors)
-    phase("15 modes", f"rsfc64 QPFAILED (cycle, the kernels' agents, the "
-                      f"plain chol versions' agents on the same cycle's "
-                      f"state, on the card): {failures}")
+    for line in qp_failure_lines(failures) or ["none"]:
+        phase("15 modes", "rsfc64 QPFAILED, each failing cycle run again "
+                          "from the state before it: " + line)
     phase("15 modes", "rsfc64 stage ms (median of 5 cycles after 5, a sync "
                       "around each call): " + ", ".join(
                           f"{k} {v:.3f}" for k, v in st.items()) +
@@ -2279,11 +2379,7 @@ def main():
         raise RuntimeError("chip_smoke needs a CUDA device; "
                            "torch.cuda.is_available() is False")
     dev = torch.device("cuda")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip()
-    print(smi, flush=True)
+    print(smi_line(), flush=True)
     phase("1 device", f"{torch.cuda.get_device_name(0)}, torch "
                       f"{torch.__version__}, CUDA {torch.version.cuda}")
 

@@ -68,8 +68,15 @@ _SIGNATURES = {
                             [ctypes.c_longlong] * 3 + [_PTR] * 3 +
                             [ctypes.c_double] * 3 + [_PTR] * 2 +
                             [ctypes.c_int, _PTR],
+    # the build's tries a round (LSC_CORRIDOR_K)
+    "lsc_expand_boxes_k": [],
 }
 _SIGNATURES["lsc_expand_boxes_f64"] = _SIGNATURES["lsc_expand_boxes_f32"]
+# the measurement build's (-DLSC_CORRIDOR_STAMPS): the same, then the
+# stamps (N, 4) uint64 before the stream
+_STAMPED = _SIGNATURES["lsc_expand_boxes_f32"][:-1] + [_PTR, _PTR]
+_SIGNATURES["lsc_expand_boxes_stamped_f32"] = _STAMPED
+_SIGNATURES["lsc_expand_boxes_stamped_f64"] = _STAMPED
 
 
 def _nvcc() -> str:
@@ -147,7 +154,8 @@ def load_library() -> ctypes.CDLL:
                 build_seconds = time.perf_counter() - t0
             lib = _load(path)
             for name in _SIGNATURES:
-                getattr(lib, name)        # every entry point is there
+                if "_stamped_" not in name:
+                    getattr(lib, name)    # every entry point is there
             _lib = lib
     return _lib
 

@@ -3,10 +3,11 @@
 Port of the JAX package's per-agent ``lax.while_loop`` in
 ``world/corridor.py`` (``CorridorBuilder.expand_box``, vmapped by
 ``expand_boxes``); it is not a Pallas kernel.  On a CUDA tensor
-``expand_boxes`` launches the hand-written kernel (``csrc/corridor.cu``,
-one thread an agent runs its round-robin to the end) or raises; on a CPU
-tensor it runs ``expand_boxes_plain``, the whole swarm's boxes in one
-batched loop.  There is no fallback from one to the other.
+``expand_boxes`` launches the hand-written kernel (``csrc/corridor.cu``:
+a warp an agent, several tries speculated a round, all of a round's
+table reads in flight at once) or raises; on a CPU tensor it runs
+``expand_boxes_plain``, the whole swarm's boxes in one batched loop.  There
+is no fallback from one to the other.
 
 Semantics, shared by the kernel and the plain version bit for bit: from
 the seed lattice box (lo, hi) each agent tries its six face slots ``cand``
@@ -27,6 +28,8 @@ from . import _build
 # launches of the kernel since the last reset (CUDA only; the plain version
 # never counts)
 expand_launches = 0
+# the kernel's flat table indices are 32-bit
+MAX_SAT_ENTRIES = 2 ** 31 - 1
 
 
 def reset_counts() -> None:
@@ -118,29 +121,51 @@ def _check(lo, hi, cand, seed_ok, sat, wmin32, wmin, wmax):
     if sat.sat.ndim != 3:
         raise ValueError(f"expand_boxes: the summed-area table is "
                          f"{tuple(sat.sat.shape)}, expected 3-D")
+    if sat.sat.numel() > MAX_SAT_ENTRIES:
+        raise ValueError(f"expand_boxes: the summed-area table "
+                         f"{tuple(sat.sat.shape)} has {sat.sat.numel()} "
+                         f"entries; the kernel takes at most "
+                         f"{MAX_SAT_ENTRIES} (32-bit indices)")
 
 
-def _expand_cuda(lo, hi, cand, seed_ok, sat, wmin32, wmin, wmax):
-    global expand_launches
-    lib = _build.load_library()
+def entry_args(lo, hi, cand, seed_ok, sat, wmin32, wmin, wmax):
+    """One launch of the kernel: (the entry point's dtype suffix, its
+    arguments before the stream, the outputs (lo_out, hi_out), the inputs
+    the arguments point into), shared by the wrapper and the measurement
+    builds (ops/_build.py::load_variant)."""
     ins = [t.contiguous() for t in (lo, hi, cand, seed_ok, sat.sat, wmin32,
                                     wmin, wmax)]
     N = lo.shape[0]
     lo_out = torch.empty_like(ins[0])
     hi_out = torch.empty_like(ins[1])
     S0, S1, S2 = sat.sat.shape
-    k0 = [int(k) for k in sat.origin_key]
-    entry = (lib.lsc_expand_boxes_f32 if wmin.dtype == torch.float32
-             else lib.lsc_expand_boxes_f64)
-    err = _build.launch(
-        entry, lo.device, *[t.data_ptr() for t in ins[:5]], S0, S1, S2, *k0,
-        *[t.data_ptr() for t in ins[5:]], float(sat.resolution), SP_EPSILON,
-        SP_EPSILON_FLOAT, lo_out.data_ptr(), hi_out.data_ptr(), N)
+    k0 = [int(x) for x in sat.origin_key]
+    sfx = "f32" if wmin.dtype == torch.float32 else "f64"
+    args = [*[t.data_ptr() for t in ins[:5]], S0, S1, S2, *k0,
+            *[t.data_ptr() for t in ins[5:]], float(sat.resolution),
+            SP_EPSILON, SP_EPSILON_FLOAT, lo_out.data_ptr(),
+            hi_out.data_ptr(), N]
+    return sfx, args, (lo_out, hi_out), ins
+
+
+def _expand_cuda(lo, hi, cand, seed_ok, sat, wmin32, wmin, wmax):
+    global expand_launches
+    lib = _build.load_library()
+    sfx, args, out, _ins = entry_args(lo, hi, cand, seed_ok, sat, wmin32,
+                                      wmin, wmax)
+    err = _build.launch(getattr(lib, "lsc_expand_boxes_" + sfx), lo.device,
+                        *args)
     if err:
         raise RuntimeError(f"expand_boxes kernel launch failed: CUDA error "
                            f"{err}")
     expand_launches += 1
-    return lo_out, hi_out
+    return out
+
+
+def spec_k(lib=None) -> int:
+    """The tries a round that a build of the kernel speculates (its
+    LSC_CORRIDOR_K; the package's library when lib is None)."""
+    return int((lib or _build.load_library()).lsc_expand_boxes_k())
 
 
 # ----------------------------------------------------------------------

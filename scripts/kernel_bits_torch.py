@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Dump the port's kernels' outputs on fixed inputs, and compare two dumps
 bit for bit: a check that a kernel source change kept a kernel's bits.
-Also the large-n chol kernels' split of time by phase.
+Also the large-n chol kernels' split of time by phase, and the face
+expansion's clock stamps.
 
     PYTHONPATH=<checkout> python3 scripts/kernel_bits_torch.py dump OUT.pt
     python3 scripts/kernel_bits_torch.py compare A.pt B.pt
     PYTHONPATH=. python3 scripts/kernel_bits_torch.py split [OUT.json]
     PYTHONPATH=. python3 scripts/kernel_bits_torch.py designs [OUT.json]
+    PYTHONPATH=. python3 scripts/kernel_bits_torch.py corridor [OUT.json]
 
 `dump` runs on one CUDA GPU with the package on PYTHONPATH (this checkout,
 or another one unpacked with `git archive`): the fused IPM in 3-D at the
@@ -14,9 +16,11 @@ main path's shapes (B, C) = (1024, 32), (64, 64), (128, 128), Param's
 tolerances, with each QP's own iteration count; factor_solve, resolve and
 the factor alone at n = 39 and 64, f32 and f64, and at the large n of the
 slack QP (B = 64, n = 365, f32) and of the one-block kernels (n = 1024,
-f32); each fused call's time and each large-n kernel's (CUDA events,
-median of 20), with the large-n design that ran ("block" in a checkout
-without chol.large_design).  The inputs are made from numpy seeds with
+f32); the face expansion's boxes on forest20's cycle-4 and cycle-21
+calls and the 30 m forest's seeds (expand_cases); each fused call's time,
+each large-n kernel's and each face expansion's (CUDA events, median of
+20), with the large-n design that ran ("block" in a checkout without
+chol.large_design).  The inputs are made from numpy seeds with
 the package's own tables, so two checkouts get the same inputs.
 `compare` prints, as one JSON line, the card that made each dump, the
 differing bits of every output (0 where equal), the large-n designs and
@@ -38,6 +42,17 @@ unstamped build, and the card's name, power limit and SM clock.  The
 diagonal factors overlap the trailing updates in the cluster kernel
 (look-ahead); its other phases are intervals of the first block's thread
 0 between cluster barriers.
+
+`corridor` builds csrc/corridor.cu alone for each K of CORRIDOR_KS
+(-DLSC_CORRIDOR_K, the tries a round speculates), with
+-DLSC_CORRIDOR_STAMPS (each agent's tries, rounds, and clock64 cycles in
+table reads and in the rest: slot search, bound tests, addresses, commit)
+and without, and prints as JSON, on forest20's cycle-4 and cycle-21 calls
+and the 30 m forest's seeds, for each K: the tries and rounds, the cycles
+a try over all agents, the busiest agent's (most tries) tries, rounds,
+cycles, cycles a try and a round, the event-timed ms of the stamped and
+the unstamped build, with ptxas's registers and spills; and the K the
+package's build takes, and the card's name, power limit and SM clock.
 
 `designs` times three builds of chol.cu in turns at B = 64 on IPM-like
 systems, f32 and f64, at the n of DESIGN_CASES: the package's (clusters
@@ -153,6 +168,13 @@ def dump(path):
             lambda: chol.chol_resolve(L, r))
         out["ms"][key + " factor"] = median_ms(
             lambda: chol.cholesky_batched(H))
+    from lsc_planner_tpu_torch.ops import corridor as corridor_ops
+    for name, args in expand_cases(torch.device("cuda")).items():
+        lo, hi = corridor_ops.expand_boxes(*args)
+        out[f"expand {name} lo"] = lo.cpu()
+        out[f"expand {name} hi"] = hi.cpu()
+        out["ms"][f"expand {name}"] = median_ms(
+            lambda: corridor_ops.expand_boxes(*args))
     torch.save(out, path)
 
 
@@ -268,6 +290,98 @@ def split(path=None):
     emit(out, path)
 
 
+def expand_cases(dev):
+    """{name: expand_boxes's arguments} of the face expansion's calls that
+    chip_smoke phase 12 checks: forest20's cycle-4 and cycle-21 calls and
+    the 30 m forest's 20 seeds."""
+    import chip_smoke
+    from lsc_planner_tpu_torch import GoalMode, Param
+    from lsc_planner_tpu_torch.sim.simulator import SyncSimulator
+
+    forest = SyncSimulator(chip_smoke.forest_mission(), Param(
+        goal_mode=GoalMode.PRIOR_BASED), device=dev, dtype=torch.float32)
+    return {"forest20 cycle 4": chip_smoke.capture_expand_call(forest, 3),
+            "forest20 cycle 21": chip_smoke.capture_expand_call(forest, 20),
+            "forest30 starts": chip_smoke.forest30_expand_inputs(dev)}
+
+
+CORRIDOR_STAMPS = ("tries", "rounds", "read cycles", "rest cycles")
+# the builds of csrc/corridor.cu that `corridor` stamps: the tries a round
+# each speculates (-DLSC_CORRIDOR_K)
+CORRIDOR_KS = (1, 4, 6, 8)
+
+
+def stamp_summary(rows):
+    """The stamps (N rows of CORRIDOR_STAMPS) of one launch: totals, the
+    busiest agent's (most tries) stamps and its cycles a try and a round."""
+    tries = [r[0] for r in rows]
+    busy = max(range(len(rows)), key=lambda i: tries[i])
+    b = rows[busy]
+    cyc = b[2] + b[3]
+    return {"tries": sum(tries), "rounds": sum(r[1] for r in rows),
+            "cycles a try, all agents": sum(r[2] + r[3] for r in rows) /
+            max(sum(tries), 1),
+            "busiest agent": {"agent": busy, **dict(zip(CORRIDOR_STAMPS, b)),
+                              "cycles": cyc,
+                              "cycles a try": cyc / max(b[0], 1),
+                              "cycles a round": cyc / max(b[1], 1),
+                              "read cycles a round": b[2] / max(b[1], 1)}}
+
+
+def corridor(path=None):
+    """The face expansion's clock stamps (see the module note)."""
+    from lsc_planner_tpu_torch.ops import _build
+    from lsc_planner_tpu_torch.ops import corridor as corridor_ops
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("kernel_bits_torch.py corridor needs a CUDA "
+                           "device")
+    builds = {(k, st): _build.load_variant(
+        ["corridor.cu"], [f"LSC_CORRIDOR_K={k}"] +
+        (["LSC_CORRIDOR_STAMPS"] if st else []))
+        for k in CORRIDOR_KS for st in (True, False)}
+    out = {"device": torch.cuda.get_device_name(0), "stamps":
+           CORRIDOR_STAMPS, "K taken": corridor_ops.spec_k(),
+           "ptxas": {f"K={k}" + (" stamped" if st else ""): [
+               line for line in (log or "").splitlines()
+               if "registers" in line or "spill" in line]
+               for (k, st), (_, log) in builds.items()},
+           "cases": {}}
+    for name, args in expand_cases(torch.device("cuda")).items():
+        dev = args[0].device
+        want = corridor_ops.expand_boxes_plain(*args)
+        case = out["cases"][name] = {"N": args[0].shape[0],
+                                     "table": list(args[4].sat.shape)}
+        for k in CORRIDOR_KS:
+            sfx, eargs, got, _ins = corridor_ops.entry_args(*args)
+            st = torch.zeros(args[0].shape[0], len(CORRIDOR_STAMPS),
+                             dtype=torch.int64, device=dev)
+            timed = getattr(builds[k, True][0],
+                            "lsc_expand_boxes_stamped_" + sfx)
+            plain = getattr(builds[k, False][0], "lsc_expand_boxes_" + sfx)
+
+            def run_stamped():
+                return _build.launch(timed, dev, *eargs, st.data_ptr())
+
+            def run_normal():
+                return _build.launch(plain, dev, *eargs)
+            for call in (run_normal, run_stamped):
+                got[0].fill_(0)
+                got[1].fill_(0)
+                if call():
+                    raise RuntimeError(f"{name} K={k}: launch failed")
+                torch.cuda.synchronize()
+                if not (torch.equal(got[0], want[0]) and
+                        torch.equal(got[1], want[1])):
+                    raise AssertionError(f"{name} K={k}: boxes differ from "
+                                         "the plain version")
+            case[f"K={k}"] = {**stamp_summary(st.cpu().tolist()),
+                              "ms_stamped": median_ms(run_stamped),
+                              "ms": median_ms(run_normal)}
+    out["smi"] = smi()
+    emit(out, path)
+
+
 # (dtype, n) that `designs` times: the slack QP's n and the edges of the
 # cluster sizes of 1, 2, 4 and 8 blocks in each dtype
 DESIGN_CASES = tuple((torch.float32, n) for n in (65, 199, 288, 365, 399,
@@ -348,6 +462,8 @@ if __name__ == "__main__":
         sys.exit(compare(sys.argv[2], sys.argv[3]))
     elif sys.argv[1:2] == ["split"] and len(sys.argv) in (2, 3):
         split(*sys.argv[2:])
+    elif sys.argv[1:2] == ["corridor"] and len(sys.argv) in (2, 3):
+        corridor(*sys.argv[2:])
     elif sys.argv[1:2] == ["designs"] and len(sys.argv) in (2, 3):
         designs(*sys.argv[2:])
     else:

@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 import torch
 
-from lsc_planner_tpu_torch.ops import chol, ipm, qp, wavefront
+from lsc_planner_tpu_torch.ops import _build, chol, ipm, qp, wavefront
 from lsc_planner_tpu_torch.ops import corridor as corridor_ops
 
 
@@ -612,10 +612,32 @@ def corridor_case(case, mis):
     case: random seeds in a 4-agent forest (some inside a tree's margin),
     an empty world, seeds boxed in by a hollow cube, seeds on the world
     minimum, and forest20's starts (toward their goals) with random seeds;
-    `mis` is either package's missions module."""
+    random seeds in the 4-agent forest for N = 1, 33 and 130 agents
+    (warps and blocks with ragged edges), a seed whose six faces all fail
+    at their first try (a hollow cube of inner half-size 0.3 m), and seeds
+    in an empty world that grow to its edges; `mis` is either package's
+    missions module."""
     rng = np.random.default_rng(11)
     world = CORRIDOR_WORLD
-    if case in ("random", "forest20"):
+    if case in ("n1", "n33", "n130"):
+        m = forest_mission(mis, 3, 4, 12, world)
+        boxes = np.stack([np.concatenate([o.pose - o.dimensions,
+                                          o.pose + o.dimensions])
+                          for o in m.obstacles])
+        n = int(case[1:])
+        pts = rng.uniform(world[:3], world[3:], size=(n, 3))
+        goals = rng.uniform(world[:3], world[3:], size=(n, 3))
+    elif case == "all_fail":
+        boxes = shell_boxes(h=0.3)
+        pts = np.array([[0.0, 0.0, 1.25], [0.03, -0.02, 1.27]])
+        goals = np.array([[2.5, 2.5, 2.0], [-2.5, 0.0, 0.2]])
+    elif case == "world_edge":
+        boxes = np.zeros((0, 6))
+        pts = np.array([[-2.9, -2.9, 0.1], [2.9, 2.9, 2.4],
+                        [0.0, 0.0, 1.25]])
+        goals = np.array([[2.9, 2.9, 2.4], [-2.9, -2.9, 0.1],
+                          [1.0, 0.0, 1.0]])
+    elif case in ("random", "forest20"):
         if case == "random":
             m = forest_mission(mis, 3, 4, 12, world)
         else:
@@ -645,14 +667,37 @@ def corridor_case(case, mis):
     return world, boxes, pts, goals
 
 
+def corridor_args(case, dtype, device):
+    """(CorridorBuilder, points, goals, expand_boxes's arguments) of a
+    corridor_case on `device`."""
+    from lsc_planner_tpu_torch import missions
+    from lsc_planner_tpu_torch.world.corridor import CorridorBuilder
+    from lsc_planner_tpu_torch.world.esdf import ESDF
+
+    world, boxes, pts, goals = corridor_case(case, missions)
+    esdf = ESDF.from_boxes(boxes, world[:3], world[3:], resolution=0.1,
+                           dtype=dtype, device=device)
+    b = CorridorBuilder(esdf, np.asarray(world[:3]), np.asarray(world[3:]),
+                        0.15, dtype=dtype)
+    p = torch.as_tensor(pts, dtype=dtype, device=device)
+    g = torch.as_tensor(goals, dtype=dtype, device=device)
+    lo, hi = b.initial_box(p)
+    wmin, wmax = b._world_bounds(dtype)
+    return b, p, g, (lo, hi, b._axis_order(lo, hi, g), ~b._obstructed(lo, hi),
+                     b.sat, b._wmin32, wmin, wmax)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("case", ["random", "empty", "boxed_in",
-                                  "world_min", "forest20"])
+                                  "world_min", "forest20", "n1", "n33",
+                                  "n130", "all_fail", "world_edge"])
 def test_corridor_kernel_matches_plain(cuda, case, dtype):
     """The face-expansion kernel against its plain version on the same
     card tensors, bit for bit, one launch; CorridorBuilder's metric boxes
-    from it equal the plain version's."""
+    from it equal the plain version's.  "all_fail": the first seed's six
+    faces all fail at their first try (its box stays), the second seed is
+    obstructed; "world_edge": every box grows to the world's bounds."""
     from lsc_planner_tpu_torch import missions
     from lsc_planner_tpu_torch.world.corridor import CorridorBuilder
     from lsc_planner_tpu_torch.world.esdf import ESDF
@@ -681,6 +726,71 @@ def test_corridor_kernel_matches_plain(cuda, case, dtype):
     assert torch.equal(bmin, want[0].to(dtype) * 0.1)
     assert torch.equal(bmax, want[1].to(dtype) * 0.1)
     assert torch.equal(seed_ok, ok)
+    if case == "all_fail":
+        assert ok.tolist() == [True, False]
+        assert torch.equal(got[0], lo) and torch.equal(got[1], hi)
+    if case == "world_edge":
+        w = torch.as_tensor(world, dtype=dtype, device=cuda)
+        assert bool((bmin <= w[:3] + 0.1).all() and
+                    (bmax >= w[3:] - 0.1).all()), (bmin, bmax)
+
+
+# the kernel's builds: the tries a round it speculates (LSC_CORRIDOR_K),
+# and the package's
+CORRIDOR_KS = (1, 4, 6, 8)
+CORRIDOR_K = 8
+
+
+def corridor_build_launch(lib, args, stamps=None):
+    """expand_boxes's arguments through a measurement build of the kernel
+    (ops/_build.py::load_variant): its boxes, and each agent's stamps in
+    the stamped build's."""
+    sfx, eargs, got, _ins = corridor_ops.entry_args(*args)
+    name = "lsc_expand_boxes_" + sfx
+    if stamps is not None:
+        name = "lsc_expand_boxes_stamped_" + sfx
+        eargs = [*eargs, stamps.data_ptr()]
+    assert _build.launch(getattr(lib, name), args[0].device, *eargs) == 0
+    torch.cuda.synchronize()
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["forest20", "n130", "world_min"])
+def test_corridor_kernel_every_k(cuda, case, dtype):
+    """Each build of the kernel (-DLSC_CORRIDOR_K=1, 4, 6 and 8 tries
+    speculated a round) gives the plain version's boxes bit for bit, and
+    the package's build takes CORRIDOR_K."""
+    args = corridor_args(case, dtype, cuda)[3]
+    want = corridor_ops.expand_boxes_plain(*args)
+    assert corridor_ops.spec_k() == CORRIDOR_K
+    for k in CORRIDOR_KS:
+        lib = _build.load_variant(["corridor.cu"],
+                                  [f"LSC_CORRIDOR_K={k}"])[0]
+        assert corridor_ops.spec_k(lib) == k
+        got = corridor_build_launch(lib, args)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), k
+
+
+@pytest.mark.cuda
+def test_corridor_stamped_build_matches(cuda):
+    """The stamped measurement build (-DLSC_CORRIDOR_STAMPS) gives the
+    plain version's boxes at every K, and its stamps count the plain
+    round-robin's tries."""
+    args = corridor_args("forest20", torch.float32, cuda)[3]
+    want = corridor_ops.expand_boxes_plain(*args)
+    tries = None
+    for k in CORRIDOR_KS:
+        lib = _build.load_variant(["corridor.cu"], [
+            "LSC_CORRIDOR_STAMPS", f"LSC_CORRIDOR_K={k}"])[0]
+        st = torch.zeros(args[0].shape[0], 4, dtype=torch.int64,
+                         device=cuda)
+        got = corridor_build_launch(lib, args, st)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        tries = int(st[:, 0].sum()) if tries is None else tries
+        assert int(st[:, 0].sum()) == tries, k
+        assert bool((st[:, 1] * k >= st[:, 0]).all()), k
 
 
 def state_bit_diffs(a, b):

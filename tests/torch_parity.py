@@ -53,6 +53,23 @@ def port_state(jstate, dtype=torch.float64):
                             device="cpu", dtype=dtype)
 
 
+def jax_state(fields, dtype):
+    """The reverse of port_state: a dict of numpy arrays (SwarmState fields
+    by name; a missing field stays None) as the JAX package's SwarmState,
+    floats in `dtype` (int32 counters and bool flags as they are)."""
+    import jax.numpy as jnp
+    from lsc_planner_tpu.sim.simulator import SwarmState
+    ints = {"seq", "stall_count", "rescue_phase"}
+    bools = {"sfc_initialized", "rescue_active", "slack_flags"}
+    out = {}
+    for name in SwarmState._fields:
+        v = fields.get(name)
+        out[name] = None if v is None else jnp.asarray(
+            np.asarray(v), jnp.int32 if name in ints else
+            bool if name in bools else dtype)
+    return SwarmState(**out)
+
+
 def follow_jax(jsim, tsim, cycles, dyn=None, before=None):
     """The JAX package's mission, cycle by cycle; at each cycle the port's
     cycle from JAX's state (converted).  dyn(it) gives the cycle's dynamic
