@@ -135,6 +135,25 @@ Phases, one line each; any failure raises and exits non-zero:
      (RIGHT_HAND), 40 cycles, safety >= 1; the launch counts of each
      (40 factor_solve and 80 resolve a cycle on the kernels of its n: the
      cluster kernels at rsfc64's and exp64's)
+ 16. the ORCA planner and the host surface (f32; JAX's CPU f32 runs of the
+     same missions as constants, ORCA_CASES): the rotational exchange at
+     the bench's circle geometry (agent i's goal agent (i + N // 3)'s
+     start).  orca64 (STATIC goals) through run() to the finish, cycles
+     within max(20 %, 10) of JAX's, then through
+     run(steps_per_dispatch=10) with the same cycles and distance;
+     orca64-goal (the ORCA goal mode) and orca64-2d, 40 cycles each,
+     distance within 10 % of JAX's; orca1024, 40 cycles uncaptured and
+     captured, 10 captured cycles after 20 against 10 uncaptured (0
+     differing bits), the CUDA kernels of one cycle (torch.profiler) and
+     its peak device memory; every ORCA run with min safety > 0.75 and no
+     kernel launch, ms a cycle printed.  The continuous-time audit
+     (audit.continuous_safety_ratio) at cycle 20 of orca64 and of
+     circle64's LSC run (>= 1), each beside a sampled audit of the same
+     trajectories over their horizon, never above it by more than 1e-4;
+     circle64's run(profile=True) stage_times beside the same stages
+     timed inside cycles (stage_times); and the CLI as subprocesses:
+     --generate circle:64, --mission with --save-result for 20 cycles on
+     the card, --replay of its CSV (summary keys, start positions)
 Then the kernels' JSON line (every kernel: launches on its main path,
 error against its plain version, kernel / plain / library ms, and the
 bound for the same work computed from this run's inputs), and last
@@ -283,6 +302,28 @@ JAX_CPU_F32_2D64 = (197, 1.0082)
 JAX_CPU_2D128 = (455.5657043457031, 530.579147154177)
 # rh64 (distance over its 40 cycles, cycles): min safety 1.0027
 JAX_CPU_F32_RH64 = (611.137939453125, 40)
+# phase 16: the ORCA planner on the rotational exchange at the bench's
+# circle geometry (orca_case), each case (agents, Param keywords, cycles:
+# None flies to the finish under ORCA_CAP)
+ORCA_CASES = {
+    "orca64": (64, dict(goal_mode=GoalMode.STATIC), None),
+    "orca64_goal": (64, dict(goal_mode=GoalMode.ORCA), 40),
+    "orca64_2d": (64, dict(goal_mode=GoalMode.STATIC, world_dimension=2,
+                           world_z_2d=1.0), 40),
+    "orca1024": (1024, dict(goal_mode=GoalMode.STATIC), 40),
+}
+ORCA_CAP = 1000
+# The JAX package's run() of these missions on a CPU in float32, x64 off
+# (tests/test_torch_f32_missions.py orca64 orca64_goal orca64_2d orca1024
+# prints them): (cycles, distance, min safety).  The port's CPU f32 runs:
+# orca64 86 cycles, 1003.4241 m; orca64_goal 54.0649 m; orca64_2d
+# 505.7791 m.
+JAX_CPU_F32_ORCA = {
+    "orca64": (86, 1003.424072265625, 1.5136),         # finished
+    "orca64_goal": (40, 54.06486129760742, 2.7250),
+    "orca64_2d": (40, 505.779052734375, 1.5136),
+    "orca1024": (40, 8143.02490234375, 2.8603),
+}
 # exp64's disturbance: before cycle EXP_INJECT_CYCLE the agents EXP_PUSHED
 # are observed 0.3-0.5 m off their plans (horizontal offsets, numpy seed
 # EXP_SEED)
@@ -1984,6 +2025,26 @@ def mode_case(name, mis=None):
                  world=(-w, -w, 0, w, w, 2.5)), kw, cycles)
 
 
+def orca_case(name, mis=None):
+    """(mission, Param keywords, cycles) of ORCA_CASES[name]: the circle of
+    bench.py's geometry (radius max(4, 0.45 N / pi), world +-(radius + 2))
+    with agent i's goal agent (i + N // 3) mod N's start
+    (tests/test_orca.py's rotational exchange; the antipodal swap is
+    ORCA's known standstill), the ORCA planner, in the missions module
+    `mis` (the port's by default)."""
+    qn, kw, cycles = ORCA_CASES[name]
+    kw = dict(kw, planner_mode=PlannerMode.ORCA)
+    radius = max(4.0, 0.45 * qn / math.pi)
+    w = radius + 2.0
+    make = make_circle_mission if mis is None else mis.make_circle_mission
+    m = make(qn, radius=radius, z=kw.get("world_z_2d", 1.0),
+             world=(-w, -w, 0, w, w, 2.5))
+    starts = [a.start for a in m.agents]
+    for qi, a in enumerate(m.agents):
+        a.goal = starts[(qi + qn // 3) % qn].copy()
+    return m, kw, cycles
+
+
 def exp_push():
     """exp64's observed offsets of the agents EXP_PUSHED, (4, 3) metres."""
     rng = np.random.default_rng(EXP_SEED)
@@ -2373,6 +2434,249 @@ def fly_modes(dev):
     return large, fused2d
 
 
+def orca_sim(dev, name):
+    """(simulator on the card in f32, Param, cycles) of ORCA_CASES[name]."""
+    tm, kw, cycles = orca_case(name)
+    param = Param(**kw)
+    return (SyncSimulator(tm, param, device=dev, dtype=torch.float32), param,
+            cycles)
+
+
+def check_orca(summary, sim, name, cycles):
+    """An ORCA run() summary against the JAX package's CPU f32 run of the
+    same mission: to the finish (cycles None) within max(20 %, 10) of its
+    cycles, else its distance within 10 %; min sampled safety > 0.75
+    (tests/test_orca.py's bar: ORCA is not hard-safe), finite positions,
+    no kernel launched.  Returns the line's gate text."""
+    ref_cycles, ref_dist, ref_safety = JAX_CPU_F32_ORCA[name]
+    done, dist = summary["iterations"], summary["total_flight_distance"]
+    safety = summary["safety_ratio_agent"]
+    check_launches(name)
+    if not bool(torch.isfinite(summary["final_state"].pos).all()):
+        raise AssertionError(f"{name}: non-finite final positions")
+    if not safety > 0.75:
+        raise AssertionError(f"{name}: min safety {safety} <= 0.75")
+    rel = abs(dist - ref_dist) / ref_dist
+    if cycles is None:
+        if not (done < ORCA_CAP and in_band(done, ref_cycles)):
+            raise AssertionError(f"{name}: {done} cycles against JAX's "
+                                 f"{ref_cycles} (cap {ORCA_CAP})")
+        gate = f"finished in {done} cycles (JAX CPU f32: {ref_cycles})"
+    else:
+        if not rel <= 0.10:
+            raise AssertionError(f"{name}: distance {dist} m, {100 * rel:.1f}"
+                                 f" % off JAX's {ref_dist} m (limit 10 %)")
+        gate = f"{done} cycles"
+    return (f"{gate}, distance {dist:.4f} m (JAX CPU f32 {ref_dist:.4f} m, "
+            f"{100 * rel:.2f} % off), min safety {safety:.4f} (JAX "
+            f"{ref_safety:.4f})")
+
+
+def fly_orca_captured(sim, name, cycles, uncaptured):
+    """The same mission through run(steps_per_dispatch=CAPTURE_K): the
+    uncaptured run's cycles and distance, bit for bit.  Returns its
+    summary."""
+    reset_launch_counts()
+    summary = sim.run(max_iterations=cycles or ORCA_CAP,
+                      steps_per_dispatch=CAPTURE_K)
+    torch.cuda.synchronize()
+    check_launches(name + " captured")
+    if (summary["iterations"], summary["total_flight_distance"]) != (
+            uncaptured["iterations"], uncaptured["total_flight_distance"]):
+        raise AssertionError(
+            f"{name} captured: {summary['iterations']} cycles, "
+            f"{summary['total_flight_distance']} m against "
+            f"{uncaptured['iterations']}, "
+            f"{uncaptured['total_flight_distance']} m uncaptured")
+    return summary
+
+
+def continuous_audit(sim, what, cycles=20):
+    """The continuous-time audit of sim's trajectories after `cycles`
+    cycles beside a sampled audit of the same trajectories over their
+    whole horizon (1,000 samples): the continuous ratio may never exceed
+    the sampled one by more than 1e-4 (it is a lower bound).  Returns
+    (continuous, sampled)."""
+    state = sim.initial_state()
+    for _ in range(cycles):
+        state, _ = sim.cycle(state)
+    p = sim.param
+    cont = float(audit.continuous_safety_ratio(state.traj, sim.radius,
+                                               sim.downwash))
+    ts = np.linspace(0.0, p.M * p.dt, 1001)[:-1]
+    pos = audit.positions_at(state.traj, ts, p.dt)
+    sampled = float(audit.pairwise_safety_ratio(pos, sim.radius,
+                                                sim.downwash).min())
+    if not cont <= sampled + 1e-4:
+        raise AssertionError(f"{what}: continuous audit {cont} above the "
+                             f"sampled {sampled}")
+    phase("16 orca", f"{what} at cycle {cycles}: continuous audit "
+                     f"{cont:.6f}, sampled over the horizon {sampled:.6f}")
+    return cont, sampled
+
+
+def cycle_kernels(sim, state):
+    """CUDA kernels (launches, memory copies and sets apart) of one
+    uncaptured cycle from `state`, counted by torch.profiler as
+    scripts/profile_forest20_torch.py counts them, and the cycle's peak
+    device memory (torch.cuda.max_memory_allocated) in MiB."""
+    sim.cycle(state)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        sim.cycle(state)
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    device = [e for e in prof.key_averages()
+              if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    copies = sum(e.count for e in device
+                 if e.key.startswith(("Memcpy", "Memset")))
+    kernels = sum(e.count for e in device) - copies
+    return kernels, copies, peak / 2 ** 20, (peak - base) / 2 ** 20
+
+
+def fly_orca(dev, circle_sim):
+    """Phase 16: the ORCA planner and the host surface (see the module
+    docstring)."""
+    # orca64 to the finish, uncaptured and captured, and its audit
+    sim, param, cycles = orca_sim(dev, "orca64")
+    reset_launch_counts()
+    run = sim.run(max_iterations=cycles or ORCA_CAP)
+    torch.cuda.synchronize()
+    gate = check_orca(run, sim, "orca64", cycles)
+    cap = fly_orca_captured(sim, "orca64", cycles, run)
+    wall_ms = 1e3 * run['wall_time'] / run['iterations']
+    phase("16 orca", f"orca64 (ORCA, STATIC goals): {gate}; ms/cycle "
+                     f"uncaptured {wall_ms:.2f} (run wall / cycles; "
+                     f"{1e3 * run['average_planning_time']:.2f} mean after "
+                     f"the first), captured "
+                     f"{1e3 * cap['average_planning_time']:.2f} (blocks "
+                     f"after the first, {CAPTURE_K} cycles a block; the "
+                     "same cycles and distance, 0 kernel launches)")
+    continuous_audit(sim, "orca64")
+    del sim
+
+    for name in ("orca64_goal", "orca64_2d"):
+        sim, param, cycles = orca_sim(dev, name)
+        reset_launch_counts()
+        run = sim.run(max_iterations=cycles)
+        torch.cuda.synchronize()
+        gate = check_orca(run, sim, name, cycles)
+        if param.world_dimension == 2:
+            z = run["final_state"].pos[:, 2]
+            dz = float((z - param.world_z_2d).abs().max())
+            if not dz <= 0.05:
+                raise AssertionError(f"{name}: z {dz} m off the plane")
+            gate += f", max |z - z_2d| {dz:.2e} m"
+        phase("16 orca", f"{name}: {gate}; "
+                         f"{1e3 * run['wall_time'] / run['iterations']:.2f} "
+                         "ms/cycle uncaptured")
+        del sim
+
+    # orca1024: 40 cycles uncaptured and captured, the graph's bits, the
+    # kernels a cycle and the peak memory
+    sim, param, cycles = orca_sim(dev, "orca1024")
+    reset_launch_counts()
+    run = sim.run(max_iterations=cycles)
+    torch.cuda.synchronize()
+    gate = check_orca(run, sim, "orca1024", cycles)
+    cap = fly_orca_captured(sim, "orca1024", cycles, run)
+    captured_bits(sim, "orca1024", name="16 orca")
+    state = sim.initial_state()
+    for _ in range(CAPTURE_BEFORE):
+        state, _ = sim.cycle(state)
+    kernels, copies, peak, extra = cycle_kernels(sim, state)
+    phase("16 orca", f"orca1024: {gate}; ms/cycle uncaptured "
+                     f"{1e3 * run['wall_time'] / cycles:.2f} (run wall / "
+                     f"cycles; {1e3 * run['average_planning_time']:.2f} "
+                     "mean after the first), captured "
+                     f"{1e3 * cap['average_planning_time']:.2f}; one "
+                     f"uncaptured cycle after {CAPTURE_BEFORE}: {kernels} "
+                     f"CUDA kernels, {copies} copies and sets "
+                     f"(torch.profiler), peak device memory {peak:.1f} MiB "
+                     f"({extra:.1f} MiB above the state's)")
+    del sim
+
+    # the continuous audit on LSC trajectories, and stage profiles
+    cont, _ = continuous_audit(circle_sim, "circle64 (LSC)")
+    if not cont >= 1.0:
+        raise AssertionError(f"circle64: continuous audit {cont} < 1")
+    prof = circle_sim.run(max_iterations=20, profile=True)
+    torch.cuda.synchronize()
+    st = stage_times(circle_sim, [
+        (circle_sim.goal_planner, "plan", "goal_planning"),
+        (constraints, "lsc_planes", "lsc_generation"),
+        (circle_sim.optimizer, "solve", "traj_optimization")])
+    phase("16 orca", "circle64 run(max_iterations=20, profile=True) "
+                     "stage_times, ms (profile_stages: each stage alone "
+                     "from the final state, the mean of 5 synced calls): " +
+          ", ".join(f"{k} {1e3 * v:.2f}"
+                    for k, v in prof["stage_times"].items()))
+    phase("16 orca", "the same stages inside cycles (stage_times: median "
+                     "of 5 cycles after 20, a sync around each call; "
+                     "lsc_planes without the K-NN selection, solve with "
+                     "the SFC rows it is given): " +
+          ", ".join(f"{k} {v:.2f}" for k, v in st.items()))
+
+    # the CLI, as a user runs it
+    fly_cli()
+
+
+def fly_cli():
+    """python -m lsc_planner_tpu_torch.cli: a generated 64-agent circle,
+    20 cycles on the card with the result CSV saved, and its replay: the
+    summary's keys and the replayed start positions."""
+    from lsc_planner_tpu_torch.missions import load_mission
+    from lsc_planner_tpu_torch.sim.replay import read_result_csv
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.dirname(os.path.abspath(__file__))] +
+        [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep)
+         if p]))
+    with tempfile.TemporaryDirectory() as tmpdir:
+        mission = os.path.join(tmpdir, "circle64.json")
+        logs = os.path.join(tmpdir, "log")
+
+        def cli(*args):
+            out = subprocess.run(
+                ["python3", "-m", "lsc_planner_tpu_torch.cli", *args],
+                capture_output=True, text=True, env=env, timeout=300)
+            if out.returncode:
+                raise AssertionError(f"cli {args}: exit {out.returncode}\n"
+                                     f"{out.stderr[-2000:]}")
+            return out.stdout.strip().splitlines()[-1]
+        t0 = time.perf_counter()
+        cli("--generate", "circle:64", "--out", mission)
+        summary = json.loads(cli("--mission", mission, "--max-iterations",
+                                 "20", "--save-result", "--log-dir", logs))
+        keys = {"mission", "stage_times", "total_flight_time",
+                "total_flight_distance", "is_collided", "safety_ratio_agent",
+                "safety_ratio_obs", "average_planning_time",
+                "min_planning_time", "max_planning_time", "iterations",
+                "qp_failures", "wall_time", "planner_mode"}
+        if set(summary) != keys or summary["iterations"] != 20 or \
+                summary["is_collided"]:
+            raise AssertionError(f"cli: summary {summary}")
+        (csv,) = [f for f in os.listdir(logs) if f.startswith("result_")]
+        replay = json.loads(cli("--replay", os.path.join(logs, csv)))
+        data = read_result_csv(os.path.join(logs, csv))
+        starts = np.stack([a.start for a in load_mission(mission).agents])
+        err = float(np.abs(data.pos[0] - starts).max())
+        if replay["agents"] != 64 or replay["rows"] != 40 or not err <= 1e-5:
+            raise AssertionError(f"cli: replay {replay}, start error {err}")
+        phase("16 orca", f"cli: --generate circle:64, --mission (20 cycles "
+                         f"on the card, safety "
+                         f"{summary['safety_ratio_agent']:.4f}, "
+                         f"{1e3 * summary['average_planning_time']:.2f} ms "
+                         f"mean) --save-result, --replay: {replay['rows']} "
+                         f"rows of {replay['agents']} agents, start "
+                         f"positions within {err:.1e} m of the mission's; "
+                         f"{time.perf_counter() - t0:.1f} s for the three "
+                         "processes")
+
+
 def main():
     # 1. the card
     if not torch.cuda.is_available():
@@ -2499,6 +2803,9 @@ def main():
     # 15. the other planner modes: BVC, RSFC, experiment mode, 2-D worlds,
     # the right-hand goal rule
     large_launches, fused2d_launches = fly_modes(dev)
+
+    # 16. the ORCA planner, the continuous audit, stage profiles, the CLI
+    fly_orca(dev, sim)
 
     errs, times = results[MAIN_B]
     source = "lsc_planner_tpu_torch/csrc/chol.cu"

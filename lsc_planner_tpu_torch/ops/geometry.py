@@ -1,6 +1,8 @@
-"""Batched closest-point geometry (port of collision_time_linear and the
-linear-path helpers of RSFC from lsc_planner_tpu/ops/geometry.py; the
-helpers of ORCA come with it, ROADMAP queue 1, item 13)."""
+"""Batched closest-point geometry (port of collision_time_linear, the
+point-to-segment distance of the ORCA goal mode and the linear-path
+helpers of RSFC from lsc_planner_tpu/ops/geometry.py; its other helpers
+have no caller on the ported paths), and the K nearest neighbours of the
+LSC planner's pruning and of ORCA."""
 from __future__ import annotations
 
 import torch
@@ -85,3 +87,16 @@ def normal_vector_between_paths(obs_start, obs_goal, agent_start, agent_goal,
     alt_n = torch.linalg.vector_norm(alt, dim=-1, keepdim=True)
     alt = torch.where(alt_n > eps, alt / torch.clamp(alt_n, min=eps), x_hat)
     return torch.where(nrm > eps, normal, alt), dist
+
+
+def knn_select(pos, obs_pos, self_mask, K: int):
+    """The K nearest obstacles of each agent: (squared distances ascending
+    (L, K), indices (L, K)).  The squares are summed over the axes in the
+    JAX order, and a stable sort breaks ties by the lower index as
+    ``lax.top_k`` does (a circle puts neighbours i - k and i + k at equal
+    distances, so the K-th pick depends on it)."""
+    diff = obs_pos[None, :, :] - pos[:, None, :]
+    d2 = diff[..., 0] ** 2 + diff[..., 1] ** 2 + diff[..., 2] ** 2
+    d2 = torch.where(self_mask, float("inf"), d2)
+    sel_d2, nbr = torch.sort(d2, dim=-1, stable=True)
+    return sel_d2[:, :K], nbr[:, :K]

@@ -1,15 +1,17 @@
-"""Goal planning stage (port of lsc_planner_tpu/planner/goal.py for the
-STATIC, RIGHT_HAND and PRIOR_BASED modes; with a static world (esdf) the
-PRIOR_BASED sub-goal comes from the grid planner, ops/grid_search.py.
-The ORCA goal mode comes with ORCA, ROADMAP queue 1, item 13)."""
+"""Goal planning stage (port of lsc_planner_tpu/planner/goal.py): the
+STATIC, RIGHT_HAND, PRIOR_BASED and ORCA modes; with a static world (esdf)
+the PRIOR_BASED sub-goal comes from the grid planner, ops/grid_search.py.
+The ORCA goal mode advances along the ORCA planner's velocities, so it
+needs the ORCA planner mode."""
 from __future__ import annotations
 
 import dataclasses
 
 import torch
 
-from ..config import GoalMode, Param, SP_INFINITY
+from ..config import GoalMode, Param, PlannerMode, SP_INFINITY
 from ..missions import Mission
+from ..ops.geometry import closest_point_on_segment
 
 
 def _normalize(v, eps=1e-12):
@@ -30,19 +32,26 @@ class GoalPlanner:
             from ..ops.grid_search import GridPlanner
             self.grid_planner = GridPlanner(self.mission, self.param,
                                             self.esdf, dtype=self.dtype)
-        if self.param.goal_mode not in (GoalMode.STATIC, GoalMode.RIGHT_HAND,
-                                        GoalMode.PRIOR_BASED):
-            raise NotImplementedError(
-                f"goal mode {self.param.goal_mode.value} is not ported "
-                "(ROADMAP queue 1, item 13)")
+        p = self.param
+        if p.goal_mode == GoalMode.ORCA and \
+                p.planner_mode != PlannerMode.ORCA:
+            raise ValueError(self._orca_combination())
+
+    def _orca_combination(self):
+        # the JAX package passes no ORCA velocities to its goal rule in any
+        # other planner mode and fails inside the cycle
+        return (f"goal mode {GoalMode.ORCA.value} advances along the ORCA "
+                "planner's velocities; planner mode "
+                f"{self.param.planner_mode.value} computes none")
 
     def plan(self, pos, vel, init_traj, desired_goal, seq, radius,
              downwash, prev_traj=None, obs_pos=None, obs_goal=None,
              obs_prev_traj=None, self_mask=None, obs_radius=None,
-             obs_downwash=None):
+             obs_downwash=None, orca_vel=None):
         """Current goals (L, 3) and the rescue path floor (L, 3) for a block
         of agents against the global obstacle view (defaults: the block
-        itself)."""
+        itself); orca_vel (L, 3), the ORCA velocities, for the ORCA goal
+        mode."""
         if obs_pos is None:
             obs_pos, obs_goal = pos, desired_goal
             obs_prev_traj = prev_traj if prev_traj is not None \
@@ -54,9 +63,22 @@ class GoalPlanner:
             return desired_goal, pos
         if self.param.goal_mode == GoalMode.RIGHT_HAND:
             return self._right_hand(pos, vel, desired_goal, seq), pos
+        if self.param.goal_mode == GoalMode.ORCA:
+            if orca_vel is None:
+                raise ValueError(self._orca_combination())
+            return self._orca_goal(pos, desired_goal, orca_vel), pos
         return self._prior_based(pos, init_traj, desired_goal, radius,
                                  downwash, obs_pos, obs_goal, obs_prev_traj,
                                  self_mask, obs_radius, obs_downwash)
+
+    def _orca_goal(self, pos, desired_goal, orca_vel):
+        """goalPlanningWithORCA (traj_planner.cpp:515-526): advance along
+        the ORCA velocity over the horizon; snap to the desired goal when it
+        lies within 0.05 m of that segment."""
+        p = self.param
+        cand = pos + orca_vel * (p.M * p.dt)
+        _, dist = closest_point_on_segment(desired_goal, pos, cand)
+        return torch.where((dist < 0.05)[:, None], desired_goal, cand)
 
     def _right_hand(self, pos, vel, desired_goal, seq):
         """A deadlocked agent's goal moves to the right of its goal

@@ -3,7 +3,8 @@
 Every cycle, all trajectories are sampled at the record time step and the
 pairwise ellipsoidal (downwash-aware) safety ratios are computed; a ratio
 below 1 is a collision (savePlanningResult,
-multi_sync_simulator.cpp:446-503).
+multi_sync_simulator.cpp:446-503).  continuous_safety_ratio checks whole
+trajectories exactly in time.
 """
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..ops.bernstein import nchoosek
+from ..ops.bernstein import curve_pair_min_distance, nchoosek
 
 
 def _sample_times(record_time_step: float, time_step: float,
@@ -143,3 +144,26 @@ def precision_self_check(device=None, coord: float = 148.0,
             "positions_at is not exact f32 (TF32 matmul leak); min_safety "
             "values are untrustworthy")
     return err
+
+
+def continuous_safety_ratio(trajs, radius, downwash):
+    """Continuous-time pairwise safety ratio over the whole horizon
+    (audit.py:116-140): for every agent pair and segment the minimum of
+    the downwash-scaled relative Bernstein curve's norm is found by root
+    isolation on <delta, delta'> (distanceBetweenPolys,
+    polynomial.hpp:310-413), so no near-miss between samples hides; a
+    lower bound of every sampled audit.  trajs (N, M, n+1, 3).  Returns
+    the 0-d min over pairs, segments and time of the ellipsoidal distance
+    over r_i + r_j."""
+    N = trajs.shape[0]
+    r_sum = radius[:, None] + radius[None, :]
+    dw = (downwash[:, None] * radius[:, None] +
+          downwash[None, :] * radius[None, :]) / r_sum        # (N, N)
+    rel = trajs[:, None] - trajs[None, :]          # (N, N, M, n+1, 3)
+    scale = torch.stack([torch.ones_like(dw), torch.ones_like(dw), 1.0 / dw],
+                        dim=-1)                    # (N, N, 3)
+    rel = rel * scale[:, :, None, None, :]
+    dist, _ = curve_pair_min_distance(rel, torch.zeros_like(rel))
+    ratio = dist / r_sum[..., None]                # (N, N, M)
+    eye = torch.eye(N, dtype=torch.bool, device=trajs.device)[..., None]
+    return torch.where(eye, float("inf"), ratio).amin()

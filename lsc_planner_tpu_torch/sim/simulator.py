@@ -1,10 +1,12 @@
 """Synchronous multi-agent replanning simulator (port of
-lsc_planner_tpu/sim/simulator.py but the ORCA planner).
+lsc_planner_tpu/sim/simulator.py).
 
 One cycle for the whole swarm: propagate the previous solutions one time
 step, stall/rescue bookkeeping, prediction, the goal rule, the planner
 mode's planes (LSC, BVC or reciprocal RSFC), the batched trajectory QP,
-the QPFAILED fallback and the sampled safety audit. RSFC, and LSC in
+the QPFAILED fallback and the sampled safety audit; the ORCA planner
+flies a straight line at each agent's ORCA velocity (ops/orca.py) and
+solves no QP. RSFC, and LSC in
 experiment mode, solve the slack-relaxed QP; experiment mode also takes
 external poses (``inject_positions``): a deviated agent restarts from its
 observed position, re-seeds its SFC and slacks its rows in the next cycle,
@@ -32,9 +34,9 @@ Bernstein fit of the prediction mode, and hands the cycle their positions,
 velocities and predictions, which join each agent's LSC rows after its
 agent columns.  Several cycles a dispatch refuse them with ValueError.
 
-Off the ported slice (the ORCA planner, goal and prediction modes, cycle
-logs and stage profiles) the constructor or the call raises
-NotImplementedError naming its ROADMAP item.
+``run(log=...)`` writes the reference's result CSV through
+sim/logging.py's ResultLogger, and ``run(profile=True)`` adds
+``profile_stages``' per-stage times to the summary.
 """
 from __future__ import annotations
 
@@ -47,12 +49,15 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..config import InitialTrajMode, Param, PlannerMode, PredictionMode
+from ..config import (GoalMode, InitialTrajMode, Param, PlannerMode,
+                      PredictionMode)
 from ..missions import Mission
 from ..device import resolve_device, synchronize
 from ..ops import bernstein as bz
 from ..ops import chol, ipm, wavefront
 from ..ops import corridor as corridor_ops
+from ..ops import orca as orca_ops
+from ..ops.geometry import knn_select
 from ..planner import constraints as cons
 from ..planner import goal as goal_mod
 from ..planner import prediction as pred
@@ -226,19 +231,6 @@ def _update_rescue(state, pos, desired_goal, stall_count, progress, p,
     return rescue_goal, active | engage, phase_new, stall_count
 
 
-def knn_select(pos, obs_pos, self_mask, K: int):
-    """The K nearest obstacles of each agent: (squared distances ascending
-    (L, K), indices (L, K)).  The squares are summed over the axes in the
-    JAX order, and a stable sort breaks ties by the lower index as
-    ``lax.top_k`` does (a circle puts neighbours i - k and i + k at equal
-    distances, so the K-th pick depends on it)."""
-    diff = obs_pos[None, :, :] - pos[:, None, :]
-    d2 = diff[..., 0] ** 2 + diff[..., 1] ** 2 + diff[..., 2] ** 2
-    d2 = torch.where(self_mask, float("inf"), d2)
-    sel_d2, nbr = torch.sort(d2, dim=-1, stable=True)
-    return sel_d2[:, :K], nbr[:, :K]
-
-
 def reset_launch_counts() -> None:
     """Sets every kernel wrapper's launch counter (ops/*.py) to 0."""
     for mod in (chol, ipm, wavefront, corridor_ops):
@@ -375,9 +367,6 @@ class SyncSimulator:
         self.M, self.n = p.M, p.n
         # make_scan_cycle's CUDA graphs by (k, the state's shapes and dtypes)
         self._graphs = {}
-        if p.planner_mode == PlannerMode.ORCA:
-            raise NotImplementedError("the ORCA planner mode is not ported "
-                                      "(ROADMAP queue 1, item 13)")
         static_specs = [o for o in self.mission.obstacles
                         if o.kind == "static"]
         dyn_specs = [o for o in self.mission.obstacles
@@ -521,6 +510,29 @@ class SyncSimulator:
                 torch.where(is_first, state.vel, rvel),
                 torch.where(is_first, state.acc, racc))
 
+    def orca_velocities(self, pos, vel, current_goal):
+        """All-agent ORCA velocities with the reference's parameters
+        (updateORCAVelocity, traj_planner.cpp:1063-1223): radius inflated
+        by orca_inflation_ratio, the preferred velocity toward the current
+        goal capped at max_vel * orca_pref_velocity_ratio (with the
+        reference's squared-norm-against-speed test, kept for parity),
+        and v_z pinned to 0 in a 2-D world."""
+        p = self.param
+        pref_speed = self.max_vel[:, 0] * p.orca_pref_velocity_ratio
+        gvec = current_goal - pos
+        too_fast = (gvec * gvec).sum(-1) > pref_speed
+        gnorm = _norm(gvec, keepdim=True)
+        gvec = torch.where(too_fast[:, None],
+                           gvec / torch.clamp(gnorm, min=1e-9) *
+                           pref_speed[:, None], gvec)
+        return orca_ops.orca_velocities(
+            pos, vel, self.radius * p.orca_inflation_ratio,
+            pref_vel=gvec, max_speed=pref_speed,
+            is_dynamic=torch.zeros((self.N,), dtype=torch.bool,
+                                   device=pos.device),
+            time_horizon=p.orca_horizon, time_step=0.5,
+            force_z_zero=(p.world_dimension == 2))
+
     def _traj_for_mode(self, mode, traj, pos, vel, seq, prev_goal=None):
         """The trajectory of a prediction or initial-trajectory mode
         (traj_planner.cpp:610-1061, simulator.py:509-553)."""
@@ -562,8 +574,10 @@ class SyncSimulator:
                                                p.dt)
         if mode in (PredictionMode.POSITION, InitialTrajMode.POSITION):
             return pred.constant_position_traj(pos, self.M, self.n)
-        raise NotImplementedError(f"{type(mode).__name__} {mode.value} is "
-                                  "not ported (ROADMAP queue 1, item 13)")
+        # the ORCA prediction and initial-trajectory modes: the JAX package
+        # raises NotImplementedError(mode) on them too
+        raise NotImplementedError(f"{type(mode).__name__} {mode.value}: "
+                                  "the JAX package has no such mode either")
 
     def predict_and_init(self, traj, pos, vel, seq, prev_goal=None):
         """Obstacle prediction and initial trajectory, in the modes that
@@ -777,6 +791,10 @@ class SyncSimulator:
         else:
             rescue_goal, rescue_active, rescue_phase = _no_rescue(state)
 
+        if p.planner_mode == PlannerMode.ORCA:
+            return self._cycle_orca(state, pos, vel, acc, start,
+                                    desired_goal)
+
         init, prediction = self.predict_and_init(state.traj, pos, vel,
                                                  state.seq,
                                                  prev_goal=state.current_goal)
@@ -857,6 +875,133 @@ class SyncSimulator:
             qp_failed=qp_failed, knn_overflow=knn_overflow,
             qp_iters=res.iters)
         return new_state, info
+
+    def _cycle_orca(self, state: SwarmState, pos, vel, acc, start,
+                    desired_goal):
+        """The ORCA planner mode (planORCA, traj_planner.cpp:375-387,
+        simulator.py:951-999): the new trajectory is a straight line at the
+        ORCA velocity; no QP.  Dynamic obstacles are not among the ORCA
+        neighbours, as in the JAX package."""
+        p = self.param
+        if p.goal_mode == GoalMode.ORCA:
+            orca_v = self.orca_velocities(pos, vel, state.current_goal)
+            current_goal, path_floor = self.goal_planner.plan(
+                pos=pos, vel=vel, init_traj=state.traj,
+                desired_goal=desired_goal, seq=state.seq,
+                radius=self.radius, downwash=self.downwash, orca_vel=orca_v)
+        else:
+            current_goal, path_floor = self.goal_planner.plan(
+                pos=pos, vel=vel, init_traj=state.traj,
+                desired_goal=desired_goal, seq=state.seq,
+                radius=self.radius, downwash=self.downwash,
+                prev_traj=state.traj)
+            orca_v = self.orca_velocities(pos, vel, current_goal)
+
+        traj = pred.constant_velocity_traj(pos, orca_v, self.M, self.n, p.dt)
+        safety_step = audit.step_safety_ratio(
+            traj, self.radius, self.downwash, p.dt,
+            p.multisim_record_time_step, p.multisim_time_step)
+        step_dist = audit.step_distance(
+            traj, p.dt, p.multisim_record_time_step, p.multisim_time_step)
+        zeros = torch.zeros((self.N,), dtype=self.dtype, device=self.device)
+        new_state = SwarmState(
+            traj=traj, pos=pos, vel=vel, acc=acc,
+            current_goal=current_goal, seq=state.seq + 1,
+            qp_cost=zeros, primal_res=zeros,
+            safety_agent_min=torch.minimum(state.safety_agent_min,
+                                           safety_step),
+            distance=state.distance + step_dist,
+            sfc=state.sfc, sfc_initialized=state.sfc_initialized,
+            start=start, desired_goal=desired_goal,
+            safety_obs_min=state.safety_obs_min,
+            stall_count=state.stall_count, rescue_goal=state.rescue_goal,
+            rescue_active=state.rescue_active,
+            rescue_phase=state.rescue_phase,
+            slack_flags=state.slack_flags, path_floor=path_floor,
+            best_goal_dist=state.best_goal_dist)
+        # no QP, so no QPFAILED (the JAX package leaves the flags None)
+        info = CycleInfo(safety_step_min=safety_step, qp_cost=zeros,
+                         primal_res=zeros,
+                         qp_failed=torch.zeros((self.N,), dtype=torch.bool,
+                                               device=self.device))
+        return new_state, info
+
+    # ------------------------------------------------------------------
+    def profile_stages(self, state: SwarmState, n_cycles: int = 5) -> dict:
+        """Per-stage times with the reference's stage taxonomy
+        (PlanningTimeStatistics, include/sp_const.hpp:89-128;
+        simulator.py:1060-1146): each stage runs once to warm up, then
+        n_cycles times with the device synchronized after each, and its
+        mean host seconds are its time.  The cycle has no stage boundaries
+        of its own, so these are diagnostic numbers beside
+        ``cycle_fused_end_to_end``, the whole uncaptured cycle timed the
+        same way."""
+        p = self.param
+        N = self.N
+
+        def stage_pred(st):
+            pos, vel, _ = self.propagate(st)
+            return self.predict_and_init(st.traj, pos, vel, st.seq)
+
+        def stage_goal(pos, vel, init, st):
+            return self.goal_planner.plan(
+                pos=pos, vel=vel, init_traj=init,
+                desired_goal=st.desired_goal, seq=st.seq,
+                radius=self.radius, downwash=self.downwash,
+                prev_traj=st.traj)
+
+        K = p.max_neighbors
+        ones = torch.ones((N, K if 0 < K < N else N), dtype=torch.bool,
+                          device=self.device)
+
+        def stage_lsc(init, prediction, pos):
+            if 0 < K < N:
+                _, nbr = knn_select(pos, pos, self.self_mask, K)
+                return cons.lsc_planes(
+                    init, prediction[nbr], self.radius, self.downwash,
+                    self.radius[nbr], self.downwash[nbr], ones, ones,
+                    guard_margin=p.lsc_guard_margin)
+            return cons.lsc_planes(
+                init, prediction[None].expand(N, *prediction.shape),
+                self.radius, self.downwash,
+                self.radius[None].expand(N, N),
+                self.downwash[None].expand(N, N), ones, ~self.self_mask,
+                guard_margin=p.lsc_guard_margin)
+
+        times = {}
+
+        def timeit(name, fn, *args):
+            fn(*args)                       # warm-up
+            synchronize(self.device)
+            t0 = time.perf_counter()
+            for _ in range(n_cycles):
+                outs = fn(*args)
+                synchronize(self.device)
+            times[name] = (time.perf_counter() - t0) / n_cycles
+            return outs
+
+        init, prediction = timeit("obstacle_prediction", stage_pred, state)
+        times["initial_traj"] = 0.0     # shared with the prediction
+        pos, vel, acc = self.propagate(state)
+        timeit("goal_planning", stage_goal, pos, vel, init, state)
+        planes = timeit("lsc_generation", stage_lsc, init, prediction, pos)
+        if self.corridor is not None:
+            timeit("sfc_generation", lambda: update_sfc(
+                state.sfc, pos, state.desired_goal, self.corridor,
+                ~state.sfc_initialized))
+        else:
+            times["sfc_generation"] = 0.0
+        planes_c = cons.concat_planes(planes, n_ctrl=self.n + 1)
+        y_warm = self.optimizer.extract_y(init).to(self.dtype)
+        timeit("traj_optimization", lambda: self.optimizer.solve(
+            pos, vel, acc, state.desired_goal,
+            nominal_velocity=self.nominal_velocity, max_vel=self.max_vel,
+            max_acc=self.max_acc, planes=planes_c, world_min=self.world_min,
+            world_max=self.world_max, y_warm=y_warm, dtype=self.dtype))
+        times["total"] = sum(times.values())
+        # the whole cycle, which the stages' sum does not make
+        timeit("cycle_fused_end_to_end", self.cycle, state)
+        return times
 
     # ------------------------------------------------------------------
     def qp_violation_report(self, prev_state: SwarmState,
@@ -1031,30 +1176,30 @@ class SyncSimulator:
     def run(self, max_iterations: Optional[int] = None, log=None,
             profile: bool = False, steps_per_dispatch: int = 1) -> dict:
         """Host loop: cycle until every agent reaches its goal or the
-        iteration cap.  Returns the summary dict of the JAX package's run
-        (stage_times stays empty).  steps_per_dispatch = k > 1 runs blocks
-        of k cycles a dispatch (make_scan_cycle, simulator.py:1233-1259):
-        the finishing cycle is still recovered exactly from the per-cycle
-        goal distances, but per-cycle logs, profiles, dynamic obstacles and
-        pacing are refused with ValueError, and the reported safety and
-        QPFAILED count include the cycles planned after the finish in its
-        block."""
+        iteration cap.  Returns the summary dict of the JAX package's run.
+        `log` (a sim.logging.ResultLogger) records every cycle's CSV rows,
+        the dynamic obstacles' with them; `profile` fills the summary's
+        stage_times from profile_stages on the final state (left empty
+        for the ORCA planner, as in the JAX package).
+        steps_per_dispatch = k > 1 runs blocks of k cycles a dispatch
+        (make_scan_cycle, simulator.py:1233-1259): the finishing cycle is
+        still recovered exactly from the per-cycle goal distances, but
+        per-cycle logs, dynamic obstacles and pacing are refused with
+        ValueError, and the reported safety and QPFAILED count include the
+        cycles planned after the finish in its block."""
         p = self.param
         if steps_per_dispatch > 1:
-            if log is not None or profile or p.multisim_experiment or \
+            if log is not None or p.multisim_experiment or \
                     self.obstacle_generator is not None or \
                     p.multisim_planning_rate > 0:
                 raise ValueError("steps_per_dispatch > 1 is incompatible "
-                                 "with log/profile/dynamic obstacles/"
+                                 "with log/dynamic obstacles/"
                                  "experiment mode/real-time pacing")
-            return self._run_fused(max_iterations, steps_per_dispatch)
+            return self._run_fused(max_iterations, steps_per_dispatch,
+                                   profile)
         if steps_per_dispatch < 1:
             raise ValueError(f"steps_per_dispatch = {steps_per_dispatch} "
                              "< 1")
-        if log is not None or profile:
-            raise NotImplementedError("cycle logs and stage profiles are "
-                                      "not ported (ROADMAP queue 1, "
-                                      "item 14)")
         max_iter = max_iterations or p.multisim_max_planner_iteration
         state = self.initial_state()
         t_wall0 = time.perf_counter()
@@ -1090,6 +1235,14 @@ class SyncSimulator:
                     print("[SyncSimulator] aborting run "
                           "(multisim_abort_on_qp_failure)")
                     break
+            if log is not None:
+                if self.obstacle_generator is not None:
+                    log.record_cycle(
+                        self, state, plan_times[-1],
+                        obstacles_pos=self.obstacle_generator._pos,
+                        obstacles_radius=self.obstacle_generator.radii)
+                else:
+                    log.record_cycle(self, state, plan_times[-1])
             if not p.multisim_patrol and goal_dist < p.goal_threshold:
                 flight_time = iters_done * p.multisim_time_step
                 break
@@ -1109,9 +1262,9 @@ class SyncSimulator:
         pt = np.asarray(plan_times[1:]) if len(plan_times) > 1 else \
             np.asarray(plan_times)
         return self._summarize(state, pt, wall, iters_done, flight_time,
-                               is_collided, qp_failures)
+                               is_collided, profile, qp_failures)
 
-    def _run_fused(self, max_iterations, k: int) -> dict:
+    def _run_fused(self, max_iterations, k: int, profile: bool) -> dict:
         """run() for steps_per_dispatch = k > 1 (simulator.py:1378-1420):
         blocks of k cycles a dispatch, one host read a block, the exact
         finish from the stacked per-cycle goal distances."""
@@ -1154,13 +1307,16 @@ class SyncSimulator:
         pt = np.asarray(plan_times[1:]) if len(plan_times) > 1 else \
             np.asarray(plan_times)
         return self._summarize(state, pt, wall, iters_done, flight_time,
-                               is_collided, qp_failures)
+                               is_collided, profile, qp_failures)
 
     def _summarize(self, state, pt, wall, iters_done, flight_time,
-                   is_collided, qp_failures: int = 0) -> dict:
+                   is_collided, profile, qp_failures: int = 0) -> dict:
         p = self.param
+        stage_times = {}
+        if profile and p.planner_mode != PlannerMode.ORCA:
+            stage_times = self.profile_stages(state)
         return {
-            "stage_times": {},
+            "stage_times": stage_times,
             "total_flight_time": flight_time,
             "total_flight_distance": float(state.distance),
             "is_collided": bool(is_collided),

@@ -1254,3 +1254,100 @@ def test_captured_mode_cycles_are_bit_equal(cuda, mode):
         assert launches["factor_solve_large"] == 0
     else:
         assert launches["fused_ipm"] == 4
+
+
+def orca_inputs(N, dtype, device, seed=0):
+    """A swarm of N agents as dense as the 64-agent circle's crossing
+    (about 1.3 agents a square metre), random velocities and preferred
+    velocities: orca_velocities' arguments."""
+    rng = np.random.default_rng(seed)
+    half = 0.5 * np.sqrt(N / 1.3)
+    pos = rng.uniform(-half, half, (N, 3))
+    pos[:, 2] = rng.uniform(0.5, 1.5, N)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+    return (t(pos), t(rng.uniform(-1, 1, (N, 3))), t(np.full(N, 0.15 * 1.5)),
+            t(rng.uniform(-1, 1, (N, 3))), t(np.full(N, 1.0)),
+            torch.as_tensor(rng.random(N) < 0.1, device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-12)])
+@pytest.mark.parametrize("force_z_zero", [False, True])
+def test_orca_velocities_card_matches_cpu(cuda, dtype, tol, force_z_zero):
+    """ORCA velocities of 1024 agents on the card equal the same call on
+    the CPU within 1e-5 m/s in f32 and 1e-12 in f64, in 3-D and with the
+    2-D pinning planes; lp4 runs for some agents."""
+    from lsc_planner_tpu_torch.ops import orca
+
+    args = orca_inputs(1024, dtype, cuda)
+    got = orca.orca_velocities(*args, 2.0, 0.5, force_z_zero=force_z_zero)
+    want = orca.orca_velocities(*[a.cpu() for a in args], 2.0, 0.5,
+                                force_z_zero=force_z_zero)
+    assert got.dtype == dtype and got.device.type == "cuda"
+    assert (got.cpu() - want).abs().max().item() <= tol
+    nbr_d2, nbr = orca.neighbours(args[0].cpu(), 10)
+    planes = orca.build_orca_planes(
+        args[0].cpu(), args[1].cpu(), args[2].cpu(), args[0].cpu()[nbr],
+        args[1].cpu()[nbr], args[2].cpu()[nbr], args[5].cpu()[nbr],
+        nbr_d2 < 225.0, 2.0, 0.5)
+    fail, _ = orca._lp3(planes, args[4].cpu(), args[3].cpu(), False)
+    assert (fail < 10).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("goal_mode,dim", [("STATIC", 3), ("ORCA", 3),
+                                           ("STATIC", 2)])
+def test_captured_orca_cycles_are_bit_equal(cuda, goal_mode, dim):
+    """10 captured ORCA cycles (the rotational exchange of 64 agents)
+    equal 10 uncaptured ones bit for bit in every SwarmState field, with
+    the static and the ORCA goal modes and in a 2-D world; no kernel is
+    launched."""
+    from lsc_planner_tpu_torch import (GoalMode, Param, PlannerMode,
+                                       make_circle_mission)
+    from lsc_planner_tpu_torch.sim.simulator import SyncSimulator
+
+    qn = 64
+    r = max(4.0, 0.45 * qn / np.pi)
+    m = make_circle_mission(qn, radius=r, z=1.0,
+                            world=(-r - 2, -r - 2, 0, r + 2, r + 2, 2.5))
+    starts = [a.start for a in m.agents]
+    for qi, a in enumerate(m.agents):
+        a.goal = starts[(qi + qn // 3) % qn].copy()
+    kw = dict(world_dimension=2, world_z_2d=1.0) if dim == 2 else {}
+    p = Param(planner_mode=PlannerMode.ORCA,
+              goal_mode=GoalMode[goal_mode], **kw)
+    sim = SyncSimulator(m, p, device=cuda)
+    diffs, launches, moved = captured_against_uncaptured(sim, 20)
+    for d in diffs:
+        assert not any(d.values()), d
+    assert not any(launches.values()), launches
+    assert not any(moved.values()), moved
+
+
+@pytest.mark.cuda
+def test_continuous_audit_card_matches_cpu(cuda):
+    """continuous_safety_ratio of 64 random continuous trajectories on the
+    card equals the CPU's within 1e-6 (f32) and never exceeds a dense
+    sampled audit of the same trajectories by more than 1e-4."""
+    from lsc_planner_tpu_torch.sim import audit
+
+    rng = np.random.default_rng(3)
+    N, M, n = 64, 5, 5
+    base = rng.uniform(-4, 4, (N, 1, 1, 3))
+    tr = base + np.cumsum(rng.normal(size=(N, M, n + 1, 3)) * 0.05, axis=-2)
+    tr[:, 1:, 0] = tr[:, :-1, -1]
+    radius, downwash = np.full(N, 0.15), np.full(N, 2.0)
+
+    def on(dev):
+        return [torch.as_tensor(a, dtype=torch.float32, device=dev)
+                for a in (tr, radius, downwash)]
+    got = audit.continuous_safety_ratio(*on(cuda)).item()
+    want = audit.continuous_safety_ratio(*on("cpu")).item()
+    assert abs(got - want) <= 1e-6
+    ts = np.linspace(0.0, M * 0.2, 1001)[:-1]
+    pos = audit.positions_at(on(cuda)[0], ts, 0.2)
+    sampled = audit.pairwise_safety_ratio(pos, *on(cuda)[1:]).min().item()
+    assert got <= sampled + 1e-4

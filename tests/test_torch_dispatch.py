@@ -147,13 +147,16 @@ def test_scan_cycle_matches_cycles_on_a_forest():
     assert info.qp_cost.shape == (3, 4)
 
 
-@pytest.mark.parametrize("kw", [dict(log=object()), dict(profile=True),
+@pytest.mark.parametrize("kw", [dict(log=object()),
+                                dict(multisim_experiment=True),
                                 dict(multisim_planning_rate=5.0)])
 def test_fused_dispatch_rejects_host_work(kw):
     """tests/test_simulator.py::test_fused_dispatch_rejects_dynamic_
     obstacles: k > 1 cycles a dispatch refuse per-cycle host work (a log,
-    stage profiles, real-time pacing) with ValueError.  Dynamic obstacles
-    are refused earlier, by the constructor (ROADMAP queue 1, item 12)."""
+    experiment mode's pose injection and pacing, real-time pacing) with
+    ValueError, as the JAX package's run does; stage profiles, taken after
+    the run, are not refused (tests/test_torch_host.py).  Dynamic
+    obstacles are refused too (tests/test_torch_dynamic.py)."""
     _, m = missions("make_circle_mission", 4, radius=3.0,
                     world=(-5, -5, 0, 5, 5, 2.5))
     pkw = {k: v for k, v in kw.items() if k.startswith("multisim")}
@@ -294,7 +297,8 @@ class HostTraffic(TorchDispatchMode):
 @pytest.mark.parametrize("case", ["circle_dense", "knn_factored_fused",
                                   "forest", "forest_castray",
                                   "forest_velocity", "bvc", "rsfc",
-                                  "right_hand", "circle_2d_fused"])
+                                  "right_hand", "circle_2d_fused",
+                                  "orca", "orca_goal", "orca_forest_2d"])
 def test_a_cycle_makes_no_host_traffic(case, monkeypatch):
     """After one warm-up cycle (which makes every cached constant), a cycle
     creates no tensor from host data and reads nothing back, outside the
@@ -302,8 +306,10 @@ def test_a_cycle_makes_no_host_traffic(case, monkeypatch):
     the factored (fused) QP rows, K-NN pruning, the grid planner (with the
     exact castRay too), the corridor, and the VELOCITY prediction's
     slow-down against the ESDF; and the BVC, reciprocal RSFC (the slack
-    QP) and right-hand modes, and a 2-D world through the fused IPM.  The
-    IPM's exit read is skipped as under graph capture."""
+    QP) and right-hand modes, and a 2-D world through the fused IPM; the
+    ORCA planner with the static and the ORCA goal modes, and in a 2-D
+    forest with the grid goal rule.  The IPM's exit read is skipped as
+    under graph capture."""
     circle = tmis.make_circle_mission(8, radius=3.0,
                                       world=(-5, -5, 0, 5, 5, 2.5))
     m, p = {
@@ -327,6 +333,14 @@ def test_a_cycle_makes_no_host_traffic(case, monkeypatch):
         "circle_2d_fused": (circle, Param(
             goal_mode=TGoalMode.PRIOR_BASED, world_dimension=2,
             world_z_2d=1.0, qp_fused_mode="on")),
+        "orca": (circle, Param(goal_mode=TGoalMode.STATIC,
+                               planner_mode=TPlannerMode.ORCA)),
+        "orca_goal": (circle, Param(goal_mode=TGoalMode.ORCA,
+                                    planner_mode=TPlannerMode.ORCA)),
+        "orca_forest_2d": (forest_mission(tmis, 3, 4, 12, WORLD),
+                           Param(goal_mode=TGoalMode.PRIOR_BASED,
+                                 planner_mode=TPlannerMode.ORCA,
+                                 world_dimension=2, world_z_2d=1.0)),
     }[case]
     monkeypatch.setattr(qp, "_capturing", lambda device: True)
     sim = TSim(m, p, dtype=torch.float32)

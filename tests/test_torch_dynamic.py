@@ -155,8 +155,11 @@ def test_dynamic_obstacles_refuse_several_cycles_a_dispatch():
         sim.run(steps_per_dispatch=4)
     with pytest.raises(ValueError, match="dynamic obstacles"):
         sim.make_scan_cycle(4)
+    # the JAX package has no ORCA prediction mode either (it raises
+    # NotImplementedError(mode))
     sim.param.prediction_mode = port_value(PredictionMode.ORCA)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="JAX package has no "
+                                                  "such mode"):
         sim.cycle(sim.initial_state())
 
 

@@ -24,6 +24,9 @@ safety.  The cases of chip_smoke.py's MODE_CASES (phase 15: "bvc64",
 mission with the JAX package in f32 (a suffix "_f64": in f64; "_port":
 the port's CPU run in f32) through chip_smoke.fly_cycles, exp64 with its
 injected disturbance, and print cycles, distance, safety and QPFAILED.
+The cases of chip_smoke.py's ORCA_CASES (phase 16: "orca64",
+"orca64_goal", "orca64_2d", "orca1024", with the same suffixes) fly that
+mission through run() and print cycles, distance and safety.
 """
 import dataclasses
 import math
@@ -248,6 +251,42 @@ def mode_run(name):
             for k, v in out.items()}
 
 
+def orca_run(name):
+    """chip_smoke.py's phase-16 case `name` (an ORCA_CASES key, with an
+    optional suffix "_f64" or "_port"): run() to the finish (under
+    chip_smoke.ORCA_CAP) or for the case's cycles, the JAX package's f32
+    runs with x64 off; cycles, distance, min safety, ms a cycle."""
+    import enum
+
+    import chip_smoke
+    from lsc_planner_tpu import config as jcfg
+
+    base = name.split("_f64")[0].split("_port")[0]
+    tm, kw, cycles = chip_smoke.orca_case(base)
+    if name.endswith("_port"):
+        sim = TSim(tm, chip_smoke.Param(**kw), device="cpu",
+                   dtype=torch.float32)
+    else:
+        jkw = {k: getattr(jcfg, type(v).__name__)[v.name]
+               if isinstance(v, enum.Enum) else v for k, v in kw.items()}
+        sim = JSim(chip_smoke.orca_case(base, jmis)[0], jcfg.Param(**jkw),
+                   dtype=jnp.float64 if name.endswith("_f64")
+                   else jnp.float32)
+    if name.endswith(("_f64", "_port")):
+        r = sim.run(max_iterations=cycles or chip_smoke.ORCA_CAP)
+    else:
+        # JAX's own f32 setting: under x64 its 2-D pinning planes
+        # (jnp.zeros) are f64 and its f32 ORCA solve fails to trace
+        with jax.enable_x64(False):
+            r = sim.run(max_iterations=cycles or chip_smoke.ORCA_CAP)
+    return dict(cycles=int(r["iterations"]),
+                finished=bool(r["total_flight_time"] ==
+                              r["total_flight_time"]),
+                distance=float(r["total_flight_distance"]),
+                safety=float(r["safety_ratio_agent"]),
+                ms_per_cycle=1e3 * float(r["wall_time"]) / r["iterations"])
+
+
 def main(names):
     """Print, a JSON line a case, the cycles, safety and distance of the
     JAX package's and the port's CPU runs in f32 and f64."""
@@ -257,6 +296,9 @@ def main(names):
     torch.set_num_threads(1)
     import chip_smoke
     for name in names:
+        if name.split("_f64")[0].split("_port")[0] in chip_smoke.ORCA_CASES:
+            print(json.dumps({"case": name, **orca_run(name)}), flush=True)
+            continue
         if name.split("_f64")[0].split("_port")[0] in chip_smoke.MODE_CASES:
             print(json.dumps({"case": name, **mode_run(name)}), flush=True)
             continue

@@ -45,7 +45,15 @@ def test_import_leaves_jax_out():
         "'lsc_planner_tpu_torch.world.mapping', "
         "'lsc_planner_tpu_torch.sim.obstacles', "
         "'lsc_planner_tpu_torch.sim.kalman', "
-        "'lsc_planner_tpu_torch.ops.geometry'}\n"
+        "'lsc_planner_tpu_torch.ops.geometry', "
+        "'lsc_planner_tpu_torch.ops.orca', "
+        "'lsc_planner_tpu_torch.sim.logging', "
+        "'lsc_planner_tpu_torch.sim.replay', "
+        "'lsc_planner_tpu_torch.sim.command', "
+        "'lsc_planner_tpu_torch.sim.debug', "
+        "'lsc_planner_tpu_torch.sim.msgs', "
+        "'lsc_planner_tpu_torch.sim.lpfile', "
+        "'lsc_planner_tpu_torch.cli'}\n"
         "assert need <= set(names), need - set(names)\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'lsc_planner_tpu' or "

@@ -108,16 +108,38 @@ def test_goal_planner_matches(rng, mode):
 
 
 def test_goal_planner_off_slice_raises():
-    """The ORCA goal mode, off the slice (ROADMAP queue 1, item 13),
-    raises; with an ESDF the planner builds the grid planner on the JAX
-    package's grid, with the exact castRay option too, at the JAX
-    package's recursion depth."""
+    """The ORCA goal mode raises ValueError with a planner mode that has
+    no ORCA velocities, and when plan() is given none; with them, its
+    goals equal the JAX package's.  With an ESDF the planner builds the
+    grid planner on the JAX package's grid, with the exact castRay option
+    too, at the JAX package's recursion depth."""
+    from lsc_planner_tpu.config import PlannerMode
     from lsc_planner_tpu.world.esdf import ESDF as JESDF
     from lsc_planner_tpu_torch.convert import esdf_from_numpy, esdf_to_numpy
 
     jm, tm = missions("make_circle_mission", 4)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(ValueError, match="planner mode lsc"):
         tgoal.GoalPlanner(tm, params(goal_mode=GoalMode.ORCA)[1])
+    jo, to = params(goal_mode=GoalMode.ORCA, planner_mode=PlannerMode.ORCA)
+    rng = np.random.default_rng(5)
+    pos, goal = rng.normal(size=(4, 3)), rng.normal(size=(4, 3))
+    vel = rng.normal(size=(4, 3))
+    goal[0] = pos[0] + vel[0] * 0.5 + 0.01      # within 0.05 m: snaps
+    kw = dict(pos=pos, vel=np.zeros((4, 3)), init_traj=None,
+              desired_goal=goal, seq=np.int32(3), radius=np.full(4, 0.15),
+              downwash=np.full(4, 2.0))
+    planner = tgoal.GoalPlanner(tm, to)
+    with pytest.raises(ValueError, match="computes none"):
+        planner.plan(**{k: None if v is None else _t(v)
+                        for k, v in kw.items()})
+    j = jgoal.GoalPlanner(jm, jo).plan(
+        **{k: None if v is None else jnp.asarray(v) for k, v in kw.items()},
+        orca_vel=jnp.asarray(vel))
+    t = planner.plan(**{k: None if v is None else _t(v)
+                        for k, v in kw.items()}, orca_vel=_t(vel))
+    for a, b in zip(t, j):
+        _close(a, b)
+    assert np.array_equal(t[0][0].numpy(), goal[0])
     jesdf = JESDF.from_boxes(np.array([[0.5, 0.5, 0.0, 1.0, 1.0, 2.5]]),
                              jm.world_min, jm.world_max)
     tesdf = esdf_from_numpy(esdf_to_numpy(jesdf), device="cpu")

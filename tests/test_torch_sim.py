@@ -175,16 +175,18 @@ def test_knn_overflow_audit_matches_jax(ring):
     (dict(planner_mode=PlannerMode.BVC), None),
     (dict(planner_mode=PlannerMode.RECIPROCAL_RSFC), None),
     (dict(multisim_experiment=True), None),
-    (dict(goal_mode=GoalMode.ORCA), "item 13"),
+    (dict(goal_mode=GoalMode.ORCA), "planner mode lsc"),
     (dict(world_dimension=2), None),
+    (dict(planner_mode=PlannerMode.ORCA, goal_mode=GoalMode.ORCA), None),
 ])
 def test_off_slice_raises(change, item):
-    """The ORCA goal mode (ROADMAP queue 1, item 13) is still off the
-    ported slice and raises; BVC, RSFC, experiment mode and the 2-D world
-    build, and their first f64 cycle of the 8-agent circle equals JAX's
-    within 1e-6 m."""
+    """The ORCA goal mode under the LSC planner, which has no ORCA
+    velocities to give it (the JAX package fails inside its cycle), raises
+    ValueError; BVC, RSFC, experiment mode, the 2-D world and the ORCA
+    planner with the ORCA goal mode build, and their first f64 cycle of
+    the 8-agent circle equals JAX's within 1e-6 m."""
     if item is not None:
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(ValueError, match=item):
             TSim(_missions()[1], params(**change)[1])
         return
     jp, tp = params(**change)
