@@ -154,6 +154,29 @@ Phases, one line each; any failure raises and exits non-zero:
      timed inside cycles (stage_times); and the CLI as subprocesses:
      --generate circle:64, --mission with --save-result for 20 cycles on
      the card, --replay of its CSV (summary keys, start positions)
+ 17. the sharded cycle (parallel/shard.py on torch.distributed), f32:
+     17a, a process group of one rank on nccl in this process,
+     circle1024 (K = 32) for 40 cycles through make_sharded_cycle, each
+     cycle also run by sim.cycle from the same state: 0 differing traj
+     bits, one fused launch a cycle, ms a cycle beside phase 8's; 17b, 4
+     gloo ranks as processes sharing the card (parallel.launch.
+     spawn_ranks), circle1024 by all_gather, L = 256 agents a rank (one
+     fused-IPM launch a rank a cycle at B = 256, C = 32), 40 cycles: min
+     safety >= 1, 0 QPFAILED, distance within 10 % of phase 8's, the
+     slowest rank's ms a cycle, profile_sharded's exchange and cycle ms,
+     the max trajectory difference from the single process at cycle 3
+     (printed); 17c, the same ranks as 2 hosts x 2 chips: 0 differing
+     bits against 17b; 17d, lanes1024 (make_lane_mission, K = 4), halo 1
+     with an axis:1 sort before every cycle, through run(cycle_fn=...):
+     in f64 (the chol kernels) to the finish under 300 cycles: finished,
+     safety >= 1, 0 QPFAILED; in f32 (the fused IPM) 100 cycles: safety
+     >= 1, 0 QPFAILED, the agents not home and their lanes' y printed
+     (lanes1024 spans 1 km along y, and the f32 planner of either
+     package strands head-on pairs a few hundred metres from the
+     origin), ms a cycle and
+     the exchange's ms beside 10 cycles of the all_gather exchange on the
+     same mission; 17e, dryrun_multichip(4, "gloo", "cuda"); the card's
+     name and power limit beside the times
 Then the kernels' JSON line (every kernel: launches on its main path,
 error against its plain version, kernel / plain / library ms, and the
 bound for the same work computed from this run's inputs), and last
@@ -171,6 +194,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from lsc_planner_tpu_torch import (GoalMode, ObstacleSpec, Param,
                                    PredictionMode, make_circle_mission,
@@ -180,7 +204,10 @@ from lsc_planner_tpu_torch.config import SP_EPSILON
 from lsc_planner_tpu_torch.convert import state_from_numpy, state_to_numpy
 from lsc_planner_tpu_torch.ops import _build, chol, ipm, wavefront
 from lsc_planner_tpu_torch.ops import corridor as corridor_ops
+from lsc_planner_tpu_torch.missions import make_lane_mission
 from lsc_planner_tpu_torch.ops.grid_search import GridPlanner
+from lsc_planner_tpu_torch.parallel import ranks, shard
+from lsc_planner_tpu_torch.parallel.launch import spawn_ranks
 from lsc_planner_tpu_torch.planner import constraints
 from lsc_planner_tpu_torch.sim import audit
 from lsc_planner_tpu_torch.sim import simulator as sim_mod
@@ -328,6 +355,24 @@ JAX_CPU_F32_ORCA = {
 # are observed 0.3-0.5 m off their plans (horizontal offsets, numpy seed
 # EXP_SEED)
 EXP_INJECT_CYCLE, EXP_PUSHED, EXP_SEED = 5, (0, 16, 32, 48), 15
+# phase 17: the sharded cycle.  circle1024 (K = 32) on SHARD_RANKS gloo
+# ranks sharing the card, L = 256 agents a rank (one fused-IPM launch a
+# rank a cycle at B = 256, C = 32), SHARD_CYCLES cycles, its trajectories
+# held to the single process's at SHARD_DIFF_CYCLE; lanes1024
+# (make_lane_mission, K = 4, halo 1, an axis:1 sort before every cycle) to
+# the finish under LANES_CAP in f64, LANES_F32_CYCLES cycles of it in f32,
+# and LANES_AG_CYCLES cycles of the all_gather exchange on the same
+# mission.  lanes1024's lanes lie at y = 0 .. 1022 m, and the f32 planner
+# of either package (absolute world coordinates in the QP) brings
+# head-on pairs home ever more slowly away from the origin and strands
+# them a few hundred metres out: on the CPU in f32, lanes8 finishes in 53
+# (JAX, x64 off) and 50 (the port) cycles at the origin, the port's in 67
+# moved 100 m along y, and both stay unfinished after 300 cycles moved
+# 200 m or 1000 m.  So the finish is held in f64, and the f32 run's
+# agents not home are printed with their lanes' y.
+SHARD_RANKS, SHARD_CYCLES, SHARD_DIFF_CYCLE = 4, 40, 3
+LANES_N, LANES_K, LANES_CAP, LANES_AG_CYCLES = 1024, 4, 300, 10
+LANES_F32_CYCLES = 100
 # H100 peaks for the bounds (NVIDIA's data sheet, SXM): f32 outside the
 # tensor cores and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
@@ -994,6 +1039,17 @@ def capture_fused_call(sim, cycles_before):
     if len(seen) != 1:
         raise AssertionError(f"{len(seen)} fused IPM calls in one cycle")
     return seen[0]
+
+
+def block_of_call(call, L):
+    """A captured fused IPM call cut to its first L QPs (every input with
+    the batch as its leading dimension): the QPs that rank 0's block of a
+    sharded run hands the kernel, where the sharded trajectories equal the
+    single process's (phase 17b prints the difference)."""
+    args, kw = call
+    B = args[1].shape[0]
+    return [a[:L].clone() if a.dim() and a.shape[0] == B else a
+            for a in args], kw
 
 
 def fused_obj_primal(args, y):
@@ -2625,6 +2681,247 @@ def fly_orca(dev, circle_sim):
     fly_cli()
 
 
+def sharded_world_of_one(dev, mission, param, cycles):
+    """17a: a process group of one rank (this process) on nccl, the
+    mission's cycles through make_sharded_cycle, each cycle also run by
+    sim.cycle from the same state.  Returns (differing traj bits over the
+    cycles, ms a sharded cycle with its stats read, the sharded cycles'
+    fused-IPM launches)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", init_method="file://" + os.path.join(tmp, "store"),
+            world_size=1, rank=0)
+        try:
+            sim = SyncSimulator(mission, param, device=dev,
+                                dtype=torch.float32)
+            cycle = shard.make_sharded_cycle(sim, shard.make_mesh(
+                device=dev))
+            state = cycle.shard(sim.initial_state())
+            sim_mod.synchronize(dev)
+            reset_launch_counts()
+            bits, seconds, fused = 0, [], 0
+            for _ in range(cycles):
+                before = ipm.fused_launches
+                t0 = time.perf_counter()
+                nxt, info = cycle(state)
+                safety, failed, _ = cycle.stats(nxt, info).tolist()
+                seconds.append(time.perf_counter() - t0)
+                fused += ipm.fused_launches - before
+                if safety < 1.0 or failed:
+                    raise AssertionError(f"17a: safety {safety}, "
+                                         f"{int(failed)} QPFAILED")
+                ref, _ = sim.cycle(state)
+                bits += differing_bits(nxt.traj, ref.traj)
+                state = nxt
+        finally:
+            dist.destroy_process_group()
+    return bits, 1e3 * statistics.mean(seconds[1:]), fused
+
+
+def slowest_ms(results, key="seconds"):
+    """The slowest rank's mean ms a cycle after the first."""
+    return max(1e3 * float(np.mean(r[key][1:])) for r in results)
+
+
+def check_rank_launches(what, results, want):
+    """Each rank's kernel launches (its launch_counts() over the run) are
+    `want` (0 for a kernel not named)."""
+    for rank, r in enumerate(results):
+        got = r["launches"]
+        expect = {k: want.get(k, 0) for k in got}
+        if got != expect:
+            raise AssertionError(f"{what}: rank {rank} kernel launches "
+                                 f"{got}, expected {expect}")
+
+
+def fly_sharded(dev, big_run):
+    """Phase 17: the sharded cycle (parallel/shard.py) on the card.
+    big_run is phase 8's run of circle1024.  17a: a world of one rank on
+    nccl against sim.cycle, 0 differing traj bits.  17b: SHARD_RANKS gloo
+    ranks as processes sharing the card: gates min safety >= 1, 0
+    QPFAILED, one fused launch a rank a cycle, distance within 10 % of
+    phase 8's; the trajectories at SHARD_DIFF_CYCLE against the single
+    process's (printed, not gated: the factored QP's static-row
+    equilibration is a max over the batch, which a rank's block may not
+    share);
+    profile_sharded.  17c: the same ranks as 2 hosts x 2 chips, 0
+    differing bits against 17b.  17d: lanes1024 through run(cycle_fn=...)
+    with the halo and the sort: in f64 finished, safe, 0 QPFAILED; in f32
+    safe, 0 QPFAILED, the agents not home printed; ms a cycle and exchange
+    ms beside the all_gather exchange's.  17e:
+    dryrun_multichip(SHARD_RANKS, "gloo", "cuda").  Returns rank 0's fused-IPM
+    launches in 17b."""
+    smi = smi_line()
+    n, cycles, world, lanes_n = BIG_N, SHARD_CYCLES, SHARD_RANKS, LANES_N
+    param = Param(goal_mode=GoalMode.PRIOR_BASED, max_neighbors=BIG_K)
+    mission = circle_mission(n)
+    t_phase = time.perf_counter()
+
+    bits, ms_one, fused_one = sharded_world_of_one(dev, mission, param,
+                                                   cycles)
+    if bits or fused_one != cycles:
+        raise AssertionError(f"17a: {bits} differing traj bits, "
+                             f"{fused_one} fused launches in {cycles} "
+                             "cycles")
+    ms_8 = big_run["average_planning_time"] * 1e3
+    phase("17 sharded", f"17a nccl world of one: circle{n} K={BIG_K}, "
+                        f"{cycles} cycles through make_sharded_cycle, each "
+                        "against sim.cycle from the same state: 0 "
+                        f"differing traj bits, {fused_one} fused launches;"
+                        f" {ms_one:.2f} ms/cycle with the stats read "
+                        f"(phase 8: {ms_8:.2f} ms mean after the first) "
+                        f"[{smi}]")
+
+    # the single process's trajectories at SHARD_DIFF_CYCLE
+    single = SyncSimulator(mission, param, device=dev, dtype=torch.float32)
+    state = single.initial_state()
+    for _ in range(SHARD_DIFF_CYCLE):
+        state, _ = single.cycle(state)
+    single_traj = state.traj.cpu().numpy()
+
+    lanes = make_lane_mission(lanes_n)
+    lane_param = Param(goal_mode=GoalMode.PRIOR_BASED,
+                       max_neighbors=LANES_K)
+    f32, keep = torch.float32, (SHARD_DIFF_CYCLE, cycles)
+    t0 = time.perf_counter()
+    out = spawn_ranks(
+        ranks.sequence, world, "gloo",
+        (ranks.fly_cycles, (mission, param, f32, "cuda", cycles),
+         dict(keep=keep)),
+        (ranks.fly_cycles, (mission, param, f32, "cuda", cycles),
+         dict(keep=keep, mesh_shape=(2, world // 2))),
+        (ranks.profile, (mission, param, f32, "cuda"), {}),
+        (ranks.run_mission, (lanes, lane_param, torch.float64,
+                             "cuda", LANES_CAP),
+         dict(halo_shards=1, sort_key="axis:1")),
+        (ranks.run_mission, (lanes, lane_param, f32, "cuda",
+                             LANES_F32_CYCLES),
+         dict(halo_shards=1, sort_key="axis:1")),
+        (ranks.fly_cycles, (lanes, lane_param, f32, "cuda",
+                            LANES_AG_CYCLES), dict(keep=())),
+        (ranks.profile, (lanes, lane_param, f32, "cuda"),
+         dict(halo_shards=1)),
+        (ranks.profile, (lanes, lane_param, f32, "cuda"), {}))
+    spawn_s = time.perf_counter() - t0
+    (flat, grid, prof, lane_run, lane_f32, lane_ag, prof_halo,
+     prof_ag) = zip(*out)
+
+    # 17b
+    L = n // world
+    check_rank_launches("17b", flat, {"fused_ipm": cycles})
+    safety = min(float(r["safety"].min()) for r in flat)
+    failed = int(sum(r["failed"].sum() for r in flat))
+    dist_b = flat[0]["distance"]
+    rel = abs(dist_b - big_run["total_flight_distance"]) / \
+        big_run["total_flight_distance"]
+    if not (safety >= 1.0 and failed == 0 and rel <= 0.10):
+        raise AssertionError(f"17b: safety {safety}, {failed} QPFAILED, "
+                             f"distance {dist_b} m ({100 * rel:.1f} % off "
+                             "phase 8's, limit 10 %)")
+    for r in flat[1:]:
+        for c in keep:
+            if differing_bits(torch.as_tensor(r["traj"][c]),
+                              torch.as_tensor(flat[0]["traj"][c])):
+                raise AssertionError("17b: ranks disagree on the swarm")
+    diff = float(np.abs(flat[0]["traj"][SHARD_DIFF_CYCLE] -
+                        single_traj).max())
+    p = prof[0]
+    phase("17 sharded", f"17b {world} gloo ranks sharing the card, "
+                        f"circle{n} K={BIG_K}, all_gather, {cycles} cycles,"
+                        f" L={L} (one fused launch a rank a cycle at B={L},"
+                        f" C={BIG_K}): slowest rank "
+                        f"{slowest_ms(flat):.2f} ms/cycle (phase 8: "
+                        f"{ms_8:.2f}), min safety {safety:.4f}, 0 QPFAILED,"
+                        f" distance {dist_b:.2f} m (phase 8 "
+                        f"{big_run['total_flight_distance']:.2f} m, "
+                        f"{100 * rel:.2f} % off), traj max diff from the "
+                        f"single process at cycle {SHARD_DIFF_CYCLE} "
+                        f"{diff:.3e} m; profile_sharded exchange "
+                        f"{1e3 * p['exchange']:.3f} ms, cycle "
+                        f"{1e3 * p['cycle_total']:.2f} ms [{smi}]")
+
+    # 17c
+    check_rank_launches("17c", grid, {"fused_ipm": cycles})
+    bits_c = sum(differing_bits(torch.as_tensor(g["traj"][c]),
+                                torch.as_tensor(f["traj"][c]))
+                 for g, f in zip(grid, flat) for c in keep)
+    if bits_c or grid[0]["distance"] != dist_b:
+        raise AssertionError(f"17c: {bits_c} differing bits against 17b, "
+                             f"distance {grid[0]['distance']} against "
+                             f"{dist_b}")
+    phase("17 sharded", f"17c the same {world} ranks as 2 hosts x "
+                        f"{world // 2} chips (all_gather): 0 differing traj"
+                        f" bits against 17b at cycles {keep}, distance "
+                        f"equal; slowest rank {slowest_ms(grid):.2f} "
+                        "ms/cycle")
+
+    # 17d
+    s0 = lane_run[0]
+    for s in lane_run[1:]:
+        if any(s[k] != s0[k] for k in ("iterations", "qp_failures",
+                                        "total_flight_distance")):
+            raise AssertionError("17d: ranks disagree on the run")
+    if not (s0["iterations"] < LANES_CAP and not s0["is_collided"] and
+            s0["safety_ratio_agent"] >= 1.0 and s0["qp_failures"] == 0):
+        raise AssertionError(
+            f"17d: lanes{lanes_n} {s0['iterations']} cycles (cap "
+            f"{LANES_CAP}), safety {s0['safety_ratio_agent']}, "
+            f"{s0['qp_failures']} QPFAILED")
+    check_rank_launches("17d f64", lane_run, {
+        "factor_solve": s0["iterations"] * lane_param.qp_iterations,
+        "resolve": s0["iterations"] * lane_param.qp_iterations *
+        (1 + lane_param.qp_correctors)})
+    f64_ms = max(1e3 * s["average_planning_time"] for s in lane_run)
+    phase("17 sharded", f"17d lanes{lanes_n} K={LANES_K} f64 on {world} "
+                        "ranks, halo 1 with an axis:1 sort before every "
+                        f"cycle, run(cycle_fn=...): finished in "
+                        f"{s0['iterations']} cycles, min safety "
+                        f"{s0['safety_ratio_agent']:.4f}, 0 QPFAILED, "
+                        f"{s0['total_flight_distance']:.2f} m, chol "
+                        f"launches on rank 0 {s0['launches']['factor_solve']}"
+                        f" + {s0['launches']['resolve']}; slowest rank "
+                        f"{f64_ms:.2f} ms/cycle (sort included)")
+    s1 = lane_f32[0]
+    fs = s1["final_state"]
+    away = np.linalg.norm(fs["pos"] - fs["desired_goal"], axis=-1) >= \
+        lane_param.goal_threshold
+    if not (s1["safety_ratio_agent"] >= 1.0 and s1["qp_failures"] == 0):
+        raise AssertionError(f"17d f32: safety {s1['safety_ratio_agent']},"
+                             f" {s1['qp_failures']} QPFAILED")
+    check_rank_launches("17d f32", lane_f32,
+                        {"fused_ipm": s1["iterations"]})
+    near = np.abs(fs["start"][:, 1]) <= 150.0
+    far_y = np.sort(fs["start"][away, 1])
+    span = f"{far_y[0]:.1f}..{far_y[-1]:.1f} m" if far_y.size else "none"
+    halo_ms = max(1e3 * s["average_planning_time"] for s in lane_f32)
+    phase("17 sharded", f"17d the same in f32, {s1['iterations']} cycles: "
+                        f"min safety {s1['safety_ratio_agent']:.4f}, 0 "
+                        f"QPFAILED, {int(away.sum())} of {lanes_n} agents "
+                        f"not home ({int((away & near).sum())} of the "
+                        f"{int(near.sum())} within 150 m of the origin; "
+                        f"the lanes of those not home at y {span}), one "
+                        "fused launch a rank a cycle; slowest rank "
+                        f"{halo_ms:.2f} ms/cycle (sort included), exchange "
+                        f"{1e3 * prof_halo[0]['exchange']:.3f} ms; the "
+                        f"all_gather exchange, {LANES_AG_CYCLES} cycles: "
+                        f"{slowest_ms(lane_ag):.2f} ms/cycle, exchange "
+                        f"{1e3 * prof_ag[0]['exchange']:.3f} ms [{smi}]")
+    phase("17 sharded", f"17b-17d: one spawn of {world} ranks, "
+                        f"{spawn_s:.1f} s")
+
+    # 17e
+    t0 = time.perf_counter()
+    parts = shard.dryrun_multichip(world, "gloo", "cuda")
+    got = sorted(parts[0])
+    phase("17 sharded", f"17e dryrun_multichip({world}, 'gloo', 'cuda'): "
+                        f"parts {got} passed on every rank (b: halo vs "
+                        f"all_gather {parts[0]['b']['max_diff']:.2e} m; e: "
+                        f"fallback {parts[0]['e']['fallback_err']:.2e} m), "
+                        f"{time.perf_counter() - t0:.1f} s; phase 17 "
+                        f"{time.perf_counter() - t_phase:.1f} s")
+    return flat[0]["launches"]["fused_ipm"]
+
+
 def fly_cli():
     """python -m lsc_planner_tpu_torch.cli: a generated 64-agent circle,
     20 cycles on the card with the result CSV saved, and its replay: the
@@ -2756,9 +3053,10 @@ def main():
     all_pairs = SyncSimulator(circle_mission(ALL_N),
                               Param(goal_mode=GoalMode.PRIOR_BASED),
                               device=dev, dtype=torch.float32)
+    big_call = capture_fused_call(big, 3)
     fused = compare_fused(
-        [capture_fused_call(big, 3), capture_fused_call(small, 3),
-         capture_fused_call(all_pairs, 0),
+        [big_call, block_of_call(big_call, BIG_N // SHARD_RANKS),
+         capture_fused_call(small, 3), capture_fused_call(all_pairs, 0),
          capture_fused_call(mode_sim(dev, "circle128_2d")[0], 0)])
     fused_err, fused_ms, fused_plain_ms, fused_bound_ = fused[(BIG_N, BIG_K,
                                                               3)]
@@ -2807,6 +3105,10 @@ def main():
     # 16. the ORCA planner, the continuous audit, stage profiles, the CLI
     fly_orca(dev, sim)
 
+    # 17. the sharded cycle: a world of one on nccl, gloo ranks sharing
+    # the card, the 2-axis layout, the halo on lanes1024, the dry run
+    block_launches = fly_sharded(dev, big_run)
+
     errs, times = results[MAIN_B]
     source = "lsc_planner_tpu_torch/csrc/chol.cu"
 
@@ -2828,6 +3130,7 @@ def main():
     cluster = (large_shape, large_errs, large_times)
     block = ((MAIN_B, chol.MAX_N), block_errs, block_times)
     f2 = fused[(ALL_N, ALL_N, 2)]
+    fb = fused[(BIG_N // SHARD_RANKS, BIG_K, 3)]
     kernels = [
         chol_entry("chol_factor_solve", "factor_solve",
                    "lsc_planner_tpu/ops/chol_pallas.py:108",
@@ -2889,6 +3192,14 @@ def main():
          "launches": fused2d_launches["fused_ipm"], "max_abs_err": f2[0],
          "ms": f2[1], "plain_ms": f2[2], "bound_ms": f2[3][0],
          "bound_by": f2[3][1], "library_ms": None},
+        # phase 17b's path: each rank's block of circle1024, timed on the
+        # first L of phase 8's cycle-4 QPs; launches on rank 0
+        {"name": "ipm_lsc_fused (a rank's block, sharded)", "route": "cuda",
+         "source": "lsc_planner_tpu_torch/csrc/ipm.cu",
+         "replaces": "lsc_planner_tpu/ops/ipm_pallas.py:122",
+         "launches": block_launches, "max_abs_err": fb[0], "ms": fb[1],
+         "plain_ms": fb[2], "bound_ms": fb[3][0], "bound_by": fb[3][1],
+         "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,8 @@ plus the testall_* launch harness -- a mission argument that is a file runs
 once; a directory is swept recursively, appending one summary row per run
 (param.cpp:106-141, multi_sync_simulator_node.cpp:43-75).  The flags are
 the JAX package's CLI's, but --device (the CUDA device unless another is
-named; it raises without a card) in place of --platform, and no --plot.
+named; it raises without a card) in place of --platform.  --plot needs
+matplotlib (sim/visualize.py), and raises ImportError where it is missing.
 
 Usage:
   python -m lsc_planner_tpu_torch.cli --mission path/to/mission.json
@@ -42,6 +43,9 @@ def build_parser():
                     choices=["float32", "float64"])
     ap.add_argument("--device", default="cuda",
                     help="torch device of the run (cuda, cuda:1, cpu)")
+    ap.add_argument("--plot", default="",
+                    help="render the run to this PNG (requires "
+                         "--save-result and matplotlib)")
     ap.add_argument("--set", action="append", default=[],
                     help="param override key=value (repeatable)")
     return ap
@@ -94,6 +98,18 @@ def run_one(mission_path: str, args, param, world: str = None) -> dict:
     if args.save_result:
         append_summary(args.log_dir, sim.param, mission.qn, summary,
                        mission_file=mission_path, world_file=world)
+        if args.plot:
+            from .sim.replay import read_result_csv
+            from .sim.visualize import plot_run
+            plot_run(read_result_csv(log.path), args.plot,
+                     world_min=mission.world_min,
+                     world_max=mission.world_max,
+                     occupancy=esdf.occ if esdf is not None else None,
+                     occ_origin=esdf.origin_key if esdf is not None
+                     else None,
+                     occ_resolution=esdf.resolution if esdf is not None
+                     else None)
+            print(f"plot written to {args.plot}")
     print(json.dumps({"mission": mission_path, **summary}))
     return summary
 

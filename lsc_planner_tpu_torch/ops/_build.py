@@ -5,11 +5,16 @@ without compiling PyTorch's headers: one ``nvcc -c`` a source, all started
 together, then one ``nvcc -shared`` link.  The build happens at first
 use, into ``lsc_planner_tpu_torch/_build/`` (listed in .gitignore), under
 a file name keyed by the source and flag hash, so an edited source is
-rebuilt and an unchanged one is loaded as it is.
+rebuilt and an unchanged one is loaded as it is.  A file lock a library
+(``build_lock``) makes processes that start together, such as the ranks
+of a sharded run, build each library once: the first builds, the others
+wait and load its build.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import subprocess
@@ -123,6 +128,19 @@ def _compile(out: Path, sources=SOURCES, flags=NVCC_FLAGS) -> str:
     return "".join(logs)
 
 
+@contextlib.contextmanager
+def build_lock(path: Path):
+    """An exclusive lock on `path`'s build across processes (flock on
+    `path` + ".lock"; the system releases it when its holder exits)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(f"{path}.lock", "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def _load(path: Path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
@@ -148,10 +166,11 @@ def load_library() -> ctypes.CDLL:
         if _lib is None:
             _need_cuda()
             path = library_path()
-            if not path.exists():
-                t0 = time.perf_counter()
-                build_log = _compile(path)
-                build_seconds = time.perf_counter() - t0
+            with build_lock(path):
+                if not path.exists():
+                    t0 = time.perf_counter()
+                    build_log = _compile(path)
+                    build_seconds = time.perf_counter() - t0
             lib = _load(path)
             for name in _SIGNATURES:
                 if "_stamped_" not in name:
@@ -173,8 +192,9 @@ def load_variant(sources, defines) -> tuple:
             _need_cuda()
             path = library_path(tuple(sources), flags)
             log = None
-            if not path.exists():
-                log = _compile(path, tuple(sources), flags)
+            with build_lock(path):
+                if not path.exists():
+                    log = _compile(path, tuple(sources), flags)
             _variants[key] = (_load(path), log)
     return _variants[key]
 

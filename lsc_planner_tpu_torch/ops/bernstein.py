@@ -176,6 +176,25 @@ def traj_state_batch(trajs: torch.Tensor, t: float, dt: float) -> dict:
     return traj_state(trajs, t, dt)
 
 
+def bernstein_fitting(targets: torch.Tensor, ts: torch.Tensor) -> torch.Tensor:
+    """Control points through target points (n+1, d) at normalised times
+    ts (n+1,): the square, exactly interpolating case of the reference's
+    least-squares bernsteinFitting (polynomial.hpp:198-222)."""
+    n = targets.shape[0] - 1
+    basis = bernstein_basis(n, ts.to(targets.dtype))   # rows: the times
+    return torch.linalg.solve(basis, targets)
+
+
+def subdivide(ctrl: torch.Tensor, a: float, b: float) -> torch.Tensor:
+    """The Bernstein curve ctrl (..., n+1, d) restricted to q(t) = p(b +
+    a t) and written in Bernstein form again (subdivisionBernsteinCurve,
+    polynomial.hpp:430-455)."""
+    n = ctrl.shape[-2] - 1
+    S = torch.as_tensor(subdivision_matrix(n, a, b), dtype=ctrl.dtype,
+                        device=ctrl.device)
+    return torch.einsum("ji,...jd->...id", S, ctrl)
+
+
 # ----------------------------------------------------------------------
 # real-root isolation and the minimum distance between Bernstein curves
 # (realRootIsolation / distanceBetweenPolys, polynomial.hpp:243-413;

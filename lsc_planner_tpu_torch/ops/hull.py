@@ -1,11 +1,13 @@
 """Batched closest point between the origin and a small convex hull
-(port of the enumeration path of lsc_planner_tpu/ops/hull.py).
+(port of lsc_planner_tpu/ops/hull.py).
 
 By Caratheodory the minimum-norm point of conv(P) in R^3 has support of at
-most 3 points unless the origin is inside; every subset of size 1..3 is
-solved as a bordered min-norm system, the feasible candidate of least
-norm wins, and an optimality test detects the interior case.  The small
-systems are scalarized over flat tensors exactly as in the JAX package.
+most 3 points unless the origin is inside; for K <= 8 points every subset
+of size 1..3 is solved as a bordered min-norm system, the feasible
+candidate of least norm wins, and an optimality test detects the interior
+case.  The small systems are scalarized over flat tensors exactly as in
+the JAX package.  Past 8 points, where the enumeration would blow up, an
+accelerated projected gradient on the simplex (FISTA) takes over.
 """
 from __future__ import annotations
 
@@ -14,6 +16,18 @@ from functools import lru_cache
 
 import numpy as np
 import torch
+
+
+def project_simplex(v: torch.Tensor) -> torch.Tensor:
+    """Euclidean projection of v (..., K) onto the probability simplex."""
+    K = v.shape[-1]
+    u = torch.sort(v, dim=-1, descending=True).values
+    css = torch.cumsum(u, dim=-1)
+    j = torch.arange(1, K + 1, dtype=v.dtype, device=v.device)
+    rho = (u + (1.0 - css) / j > 0).sum(-1)
+    css_rho = torch.gather(css, -1, (rho - 1)[..., None])[..., 0]
+    tau = (css_rho - 1.0) / rho.to(v.dtype)
+    return torch.clamp(v - tau[..., None], min=0.0)
 
 
 @lru_cache(maxsize=None)
@@ -99,13 +113,12 @@ def _solve_subsets(points, k: int, feas_tol: float = 1e-7):
 def closest_point_to_hull(points, iters: int = 0, max_support: int = 3):
     """Exact closest point of conv(points) to the origin, batched.
 
-    points: (..., K, 3).  Returns (closest (..., 3), dist (...,)).  Only
-    the enumeration path (K <= 8) is ported."""
+    points: (..., K, 3).  Returns (closest (..., 3), dist (...,)).  The
+    enumeration is exact and iteration-free for K <= 8 (`iters` unused);
+    K > 8 runs max(iters, 256) FISTA steps."""
     K = points.shape[-2]
     if K > 8:
-        raise NotImplementedError(
-            "hull closest point for K > 8 (the FISTA branch) is not ported "
-            "(ROADMAP queue 1, item 10)")
+        return _closest_point_fista(points, iters=max(iters, 256))
     return _closest_point_enum(points, max_support)
 
 
@@ -142,6 +155,27 @@ def _closest_point_enum(points, max_support):
         d2_best = torch.where(inside, torch.zeros_like(d2_best), d2_best)
 
     return closest, torch.sqrt(d2_best)
+
+
+def _closest_point_fista(points, iters: int = 256):
+    """Accelerated projected gradient on the simplex weights of the K
+    points: a fixed `iters` steps of 1 / L, L = 2 ||G||_F, from the uniform
+    weights (hull.py:223-243)."""
+    G = torch.einsum("...id,...jd->...ij", points, points)
+    K = G.shape[-1]
+    step = (1.0 / (2.0 * torch.sqrt((G * G).sum((-2, -1)) + 1e-30)))[
+        ..., None]
+    lam = torch.full(G.shape[:-1], 1.0 / K, dtype=G.dtype, device=G.device)
+    y = lam
+    t = torch.ones((), dtype=G.dtype, device=G.device)
+    for _ in range(iters):
+        grad = 2.0 * torch.einsum("...ij,...j->...i", G, y)
+        lam_new = project_simplex(y - step * grad)
+        t_new = 0.5 * (1.0 + torch.sqrt(1.0 + 4.0 * t * t))
+        y = lam_new + ((t - 1.0) / t_new) * (lam_new - lam)
+        lam, t = lam_new, t_new
+    closest = torch.einsum("...i,...id->...d", lam, points)
+    return closest, torch.linalg.vector_norm(closest, dim=-1)
 
 
 def hull_normal(points, iters: int = 0, eps: float = 1e-10):

@@ -1,14 +1,17 @@
 """Collision constraints: LSC, BVC, reciprocal RSFC and SFC planes (port
-of lsc_planner_tpu/planner/constraints.py but box_pair_planes).
+of lsc_planner_tpu/planner/constraints.py).
 
 Each generator is one batched tensor program over every (agent, obstacle,
 segment) triple (generateLSC / generateBVC / generateReciprocalRSFC,
 traj_planner.cpp:1254-1440).  Contractions over the 3-D
 coordinate are written as products and sums, never as matmuls, so world
-coordinates stay exact f32 on every device.
+coordinates stay exact f32 on every device.  ``box_pair_planes``, the
+planes of a two-box SFC transition, is host-side numpy, as in the JAX
+package (no planner path calls it).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..ops import geometry as geo
@@ -154,6 +157,117 @@ def sfc_planes(boxes, active, init_traj=None,
     mask = active[:, None, None].expand(N, 6, M)
     return PlaneConstraints(normal=normal, rhs=rhs.expand(N, 6, M, n1),
                             mask=mask)
+
+
+def box_pair_planes(hull_points, box1_min, box1_max, box2_min, box2_max,
+                    eps=1e-6):
+    """Extra LSC planes of a two-box SFC transition (SFC::update,
+    collision_constraints.cpp:232-331): for every edge of the two boxes'
+    intersection that lies on both boxes' boundaries but not on their
+    union's, a half-space that separates the control-point hull from the
+    incut corner.  Host-side numpy in float64; the closest points go
+    through hull.closest_point_to_hull on the CPU (its FISTA branch past 8
+    points).
+
+    Returns (points (E, 3), normals (E, 3)) of the planes
+    {x : n . (x - p) >= 0}, or empty arrays when the transition is invalid
+    (the boxes disjoint, or the hull outside both)."""
+    hull_points = np.asarray(hull_points, float)
+    b1 = (np.asarray(box1_min, float), np.asarray(box1_max, float))
+    b2 = (np.asarray(box2_min, float), np.asarray(box2_max, float))
+    inter_min = np.maximum(b1[0], b2[0])
+    inter_max = np.minimum(b1[1], b2[1])
+    uni_min = np.minimum(b1[0], b2[0])
+    uni_max = np.maximum(b1[1], b2[1])
+    empty = (np.zeros((0, 3)), np.zeros((0, 3)))
+    if np.any(inter_min > inter_max - eps):
+        return empty
+
+    def in_box(p, lo, hi):
+        return bool(np.all(p > lo - eps) and np.all(p < hi + eps))
+
+    for pt in hull_points:
+        if not (in_box(pt, *b1) or in_box(pt, *b2)):
+            return empty
+
+    def box_edges(lo, hi):
+        edges = []
+        for ax in range(3):
+            o1, o2 = (ax + 1) % 3, (ax + 2) % 3
+            for a in (lo[o1], hi[o1]):
+                for b in (lo[o2], hi[o2]):
+                    s, e = np.zeros(3), np.zeros(3)
+                    s[ax], e[ax] = lo[ax], hi[ax]
+                    s[o1] = e[o1] = a
+                    s[o2] = e[o2] = b
+                    edges.append((s, e))
+        return edges
+
+    def on_boundary(s, e, lo, hi):
+        # the segment lies in a face plane of [lo, hi], inside the box
+        for p in (s, e):
+            if not in_box(p, lo, hi):
+                return False
+        for ax in range(3):
+            if abs(s[ax] - e[ax]) < eps and (
+                    abs(s[ax] - lo[ax]) < eps or abs(s[ax] - hi[ax]) < eps):
+                return True
+        return False
+
+    verts = [np.asarray([ix, iy, iz])
+             for ix in (inter_min[0], inter_max[0])
+             for iy in (inter_min[1], inter_max[1])
+             for iz in (inter_min[2], inter_max[2])]
+
+    pts_out, nrm_out = [], []
+    for (s, e) in box_edges(inter_min, inter_max):
+        if not (on_boundary(s, e, *b1) and on_boundary(s, e, *b2)):
+            continue
+        if on_boundary(s, e, uni_min, uni_max):
+            continue
+        d = e - s
+        dn = d / max(np.linalg.norm(d), eps)
+        proj = []
+        for pt in hull_points:
+            r = pt - s
+            proj.append(r - dn * dn.dot(r))
+        for v in verts:
+            if np.linalg.norm(s - v) < eps or np.linalg.norm(e - v) < eps:
+                continue
+            r = v - s
+            proj.append(r - dn * dn.dot(r))
+        proj = np.stack(proj)
+        closest, dist = hull_ops.closest_point_to_hull(
+            torch.as_tensor(proj[None]))
+        closest = closest.numpy()[0]
+        dist = float(dist[0])
+        if dist > eps:
+            normal = closest / dist
+        else:
+            # degenerate: a supporting direction from the projected set
+            # (collision_constraints.cpp:290-327)
+            normal = None
+            for pr in proj:
+                if np.linalg.norm(pr) < eps:
+                    continue
+                cand = np.cross(pr, dn)
+                nc = np.linalg.norm(cand)
+                if nc < eps:
+                    continue
+                cand = cand / nc
+                for sign in (1.0, -1.0):
+                    if np.all(proj.dot(sign * cand) > -eps):
+                        normal = sign * cand
+                        break
+                if normal is not None:
+                    break
+            if normal is None:
+                return empty
+        pts_out.append(s)
+        nrm_out.append(normal)
+    if not pts_out:
+        return empty
+    return np.stack(pts_out), np.stack(nrm_out)
 
 
 def concat_planes(*plane_sets, n_ctrl: int) -> PlaneConstraints:

@@ -599,7 +599,9 @@ class SyncSimulator:
                    max_acc, desired_goal, sfc_prev=None, sfc_initialize=None,
                    sfc_seed=None, rescue_goal=None, rescue_active=None,
                    dyn_pos=None, dyn_vel=None, dyn_pred=None,
-                   obs_slack_global=None, self_slack=None):
+                   obs_slack_global=None, self_slack=None,
+                   obs_radius_global=None, obs_downwash_global=None,
+                   obs_maxacc_global=None):
         """Plan one block of agents (L, ...) against the global obstacle
         view (N_total, ...): goals, K-NN pruning, the dynamic obstacles'
         columns after the agents', LSC planes, the SFC corridor in a static
@@ -611,18 +613,27 @@ class SyncSimulator:
         interaction ball (None without pruning); sfc is sfc_prev without a
         static world.  obs_slack_global (N_total,) flags the obstacles whose
         rows take slack and self_slack (L,) the agents that slack all their
-        rows (experiment mode; both None otherwise)."""
+        rows (experiment mode; both None otherwise).  obs_*_global (N_total,)
+        replace the swarm's radius, downwash and acceleration bound of the
+        view's columns where the view is not the whole swarm in agent order
+        (the ring-halo view of parallel/shard.py)."""
         p = self.param
         L = pos.shape[0]
         O = pred_global.shape[0]
         M, n = self.M, self.n
+        obs_radius_all = (self.radius if obs_radius_global is None
+                          else obs_radius_global)
+        obs_downwash_all = (self.downwash if obs_downwash_global is None
+                            else obs_downwash_global)
+        obs_maxacc_all = (self.max_acc[:, 0] if obs_maxacc_global is None
+                          else obs_maxacc_global)
 
         current_goal, path_floor = self.goal_planner.plan(
             pos=pos, vel=vel, init_traj=init, desired_goal=desired_goal,
             seq=seq, radius=radius, downwash=downwash,
             obs_pos=obs_pos_global, obs_goal=obs_goal_global,
             obs_prev_traj=obs_prev_global, self_mask=self_mask,
-            obs_radius=self.radius, obs_downwash=self.downwash)
+            obs_radius=obs_radius_all, obs_downwash=obs_downwash_all)
         if rescue_goal is not None and rescue_active is not None:
             current_goal = torch.where(rescue_active[:, None], rescue_goal,
                                        current_goal)
@@ -636,17 +647,18 @@ class SyncSimulator:
             r2 = self._knn_cutoff * self._knn_cutoff
             knn_overflow = sel_d2[:, -1] < r2
             obs_pred = pred_global[nbr]                     # (L, K, M, n1, 3)
-            obs_radius, obs_downwash = self.radius[nbr], self.downwash[nbr]
-            obs_max_acc = self.max_acc[nbr, 0]
+            obs_radius = obs_radius_all[nbr]
+            obs_downwash = obs_downwash_all[nbr]
+            obs_max_acc = obs_maxacc_all[nbr]
             obs_mask = sel_d2 <= r2
             obs_slack = (obs_slack_global[nbr]
                          if obs_slack_global is not None else None)
             O = K
         else:
             obs_pred = pred_global[None].expand(L, O, M, n + 1, 3)
-            obs_radius = self.radius[None, :].expand(L, O)
-            obs_downwash = self.downwash[None, :].expand(L, O)
-            obs_max_acc = self.max_acc[None, :, 0].expand(L, O)
+            obs_radius = obs_radius_all[None, :].expand(L, O)
+            obs_downwash = obs_downwash_all[None, :].expand(L, O)
+            obs_max_acc = obs_maxacc_all[None, :].expand(L, O)
             obs_mask = ~self_mask
             obs_slack = (obs_slack_global[None, :].expand(L, O)
                          if obs_slack_global is not None else None)
@@ -1046,6 +1058,18 @@ class SyncSimulator:
         d = _norm(state.pos - state.desired_goal)
         return bool(d.max() < self.param.goal_threshold)
 
+    # the mission services (multi_sync_simulator.cpp:696-728,
+    # simulator.py:1201-1209)
+    def update_goals(self, state: SwarmState, new_goals) -> SwarmState:
+        """/update_goal: the desired goals (N, 3) swapped mid-mission."""
+        return state._replace(desired_goal=torch.as_tensor(
+            new_goals, dtype=self.dtype, device=self.device))
+
+    def go_back(self, state: SwarmState) -> SwarmState:
+        """GOBACK: every agent flies back to its mission start."""
+        return state._replace(start=state.desired_goal,
+                              desired_goal=state.start)
+
     def dynamic_inputs(self, t_sim: float, state: SwarmState):
         """The host's dynamic-obstacle step of the cycle at time t_sim
         (run(), simulator.py:1273-1321): chasing obstacles take the
@@ -1174,34 +1198,55 @@ class SyncSimulator:
         return self._graphs[key]
 
     def run(self, max_iterations: Optional[int] = None, log=None,
-            profile: bool = False, steps_per_dispatch: int = 1) -> dict:
+            cycle_fn=None, profile: bool = False,
+            steps_per_dispatch: int = 1) -> dict:
         """Host loop: cycle until every agent reaches its goal or the
         iteration cap.  Returns the summary dict of the JAX package's run.
         `log` (a sim.logging.ResultLogger) records every cycle's CSV rows,
         the dynamic obstacles' with them; `profile` fills the summary's
         stage_times from profile_stages on the final state (left empty
         for the ORCA planner, as in the JAX package).
+        `cycle_fn` replaces the cycle (simulator.py:1233-1261), such as the
+        sharded cycle of parallel/shard.py.  A cycle_fn that runs on one
+        rank of a mesh (it has ``shard``, ``gather`` and ``stats``, as
+        ShardedCycle does) flies the rank's block of the initial state, and
+        its ``stats`` give the loop's safety, QPFAILED count and goal
+        distance for the whole swarm through one small collective; the
+        state is gathered for chasing obstacles, the QPFAILED report, the
+        log and the summary, so every rank returns the summary of the whole
+        swarm.  Every rank then calls run alike (a log on every rank or on
+        none): a gather is a collective.
         steps_per_dispatch = k > 1 runs blocks of k cycles a dispatch
         (make_scan_cycle, simulator.py:1233-1259): the finishing cycle is
         still recovered exactly from the per-cycle goal distances, but
-        per-cycle logs, dynamic obstacles and pacing are refused with
-        ValueError, and the reported safety and QPFAILED count include the
-        cycles planned after the finish in its block."""
+        cycle_fn, per-cycle logs, dynamic obstacles and pacing are refused
+        with ValueError, and the reported safety and QPFAILED count include
+        the cycles planned after the finish in its block."""
         p = self.param
         if steps_per_dispatch > 1:
-            if log is not None or p.multisim_experiment or \
+            if cycle_fn is not None or log is not None or \
+                    p.multisim_experiment or \
                     self.obstacle_generator is not None or \
                     p.multisim_planning_rate > 0:
                 raise ValueError("steps_per_dispatch > 1 is incompatible "
-                                 "with log/dynamic obstacles/"
+                                 "with cycle_fn/log/dynamic obstacles/"
                                  "experiment mode/real-time pacing")
             return self._run_fused(max_iterations, steps_per_dispatch,
                                    profile)
         if steps_per_dispatch < 1:
             raise ValueError(f"steps_per_dispatch = {steps_per_dispatch} "
                              "< 1")
+        cycle = cycle_fn or self.cycle
+        ranked = all(hasattr(cycle_fn, a) for a in ("shard", "gather",
+                                                    "stats"))
+        whole = cycle_fn.gather if ranked else (lambda s: s)
+        chasing = self.obstacle_generator is not None and any(
+            isinstance(m, ChasingObstacle)
+            for m in self.obstacle_generator.models)
         max_iter = max_iterations or p.multisim_max_planner_iteration
         state = self.initial_state()
+        if ranked:
+            state = cycle_fn.shard(state)
         t_wall0 = time.perf_counter()
         plan_times = []
         is_collided = False
@@ -1212,23 +1257,29 @@ class SyncSimulator:
             prev_state = state
             t0 = time.perf_counter()
             if self.obstacle_generator is not None:
-                state, info = self.cycle(state, *self.dynamic_inputs(
-                    it * p.multisim_time_step, state))
+                dyn = self.dynamic_inputs(it * p.multisim_time_step,
+                                          whole(state) if chasing
+                                          else state)
+                state, info = cycle(state, *dyn)
             else:
-                state, info = self.cycle(state)
+                state, info = cycle(state)
             # one device->host read per cycle
-            safety, n_failed, goal_dist = torch.stack([
-                info.safety_step_min.double(),
-                info.qp_failed.sum().double(),
-                _norm(state.pos - state.desired_goal).max().double(),
-            ]).tolist()
+            if ranked:
+                stats = cycle_fn.stats(state, info)
+            else:
+                stats = torch.stack([
+                    info.safety_step_min.double(),
+                    info.qp_failed.sum().double(),
+                    _norm(state.pos - state.desired_goal).max().double()])
+            safety, n_failed, goal_dist = stats.tolist()
             plan_times.append(time.perf_counter() - t0)
             iters_done = it + 1
             if safety < 1.0:
                 is_collided = True
             if n_failed:
                 qp_failures += int(n_failed)
-                report = self.qp_violation_report(prev_state, state)
+                report = self.qp_violation_report(whole(prev_state),
+                                                  whole(state))
                 print(f"[SyncSimulator] QPFAILED at cycle {it}, agents "
                       f"{sorted(report)}; top violations: {report}")
                 if p.multisim_abort_on_qp_failure:
@@ -1238,11 +1289,11 @@ class SyncSimulator:
             if log is not None:
                 if self.obstacle_generator is not None:
                     log.record_cycle(
-                        self, state, plan_times[-1],
+                        self, whole(state), plan_times[-1],
                         obstacles_pos=self.obstacle_generator._pos,
                         obstacles_radius=self.obstacle_generator.radii)
                 else:
-                    log.record_cycle(self, state, plan_times[-1])
+                    log.record_cycle(self, whole(state), plan_times[-1])
             if not p.multisim_patrol and goal_dist < p.goal_threshold:
                 flight_time = iters_done * p.multisim_time_step
                 break
@@ -1261,8 +1312,9 @@ class SyncSimulator:
         wall = time.perf_counter() - t_wall0
         pt = np.asarray(plan_times[1:]) if len(plan_times) > 1 else \
             np.asarray(plan_times)
-        return self._summarize(state, pt, wall, iters_done, flight_time,
-                               is_collided, profile, qp_failures)
+        return self._summarize(whole(state), pt, wall, iters_done,
+                               flight_time, is_collided, profile,
+                               qp_failures)
 
     def _run_fused(self, max_iterations, k: int, profile: bool) -> dict:
         """run() for steps_per_dispatch = k > 1 (simulator.py:1378-1420):

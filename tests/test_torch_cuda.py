@@ -1351,3 +1351,121 @@ def test_continuous_audit_card_matches_cpu(cuda):
     pos = audit.positions_at(on(cuda)[0], ts, 0.2)
     sampled = audit.pairwise_safety_ratio(pos, *on(cuda)[1:]).min().item()
     assert got <= sampled + 1e-4
+
+
+def _group_of_one(backend):
+    """A process group of one rank in this process (file store in a
+    temporary directory); the caller destroys it."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+    tmp = tempfile.mkdtemp()
+    dist.init_process_group(
+        backend, init_method="file://" + os.path.join(tmp, "store"),
+        world_size=1, rank=0)
+    return dist
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["nccl", "gloo"])
+@pytest.mark.parametrize("qn,K", [(64, -1), (130, 32)])
+def test_sharded_world_of_one_equals_single_cycle_bits(cuda, backend, qn,
+                                                       K):
+    """chip_smoke's 17a at a small size: a world of one rank on nccl (and
+    on gloo, which stages the exchange through host buffers), 3 cycles
+    through make_sharded_cycle, each equal to sim.cycle from the same
+    state bit for bit in traj, through the chol kernels (64 agents) and
+    the fused IPM (130 agents, K = 32)."""
+    from lsc_planner_tpu_torch import GoalMode, Param, make_circle_mission
+    from lsc_planner_tpu_torch.parallel import shard
+    from lsc_planner_tpu_torch.sim.simulator import SyncSimulator
+
+    r = max(4.0, 0.45 * qn / np.pi)
+    m = make_circle_mission(qn, radius=r,
+                            world=(-r - 2, -r - 2, 0, r + 2, r + 2, 2.5))
+    sim = SyncSimulator(m, Param(goal_mode=GoalMode.PRIOR_BASED,
+                                 max_neighbors=K), device=cuda)
+    dist = _group_of_one(backend)
+    try:
+        cycle = shard.make_sharded_cycle(sim, shard.make_mesh(device=cuda))
+        state = cycle.shard(sim.initial_state())
+        for _ in range(3):
+            nxt, info = cycle(state)
+            ref, _ = sim.cycle(state)
+            assert torch.equal(nxt.traj, ref.traj)
+            assert torch.equal(nxt.pos, ref.pos)
+            safety, failed, _ = cycle.stats(nxt, info).tolist()
+            assert safety >= 1.0 and failed == 0
+            state = nxt
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_nccl_refuses_two_ranks_a_card(cuda):
+    """spawn_ranks refuses nccl with more ranks than cards before it
+    starts any."""
+    from lsc_planner_tpu_torch.parallel import ranks
+    from lsc_planner_tpu_torch.parallel.launch import spawn_ranks
+    with pytest.raises(RuntimeError, match="one card a rank"):
+        spawn_ranks(ranks.dryrun_rank, torch.cuda.device_count() + 1,
+                    "nccl")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-9),
+                                       (torch.float32, 2e-4)])
+def test_geometry_and_fista_card_match_cpu(cuda, dtype, tol):
+    """The collision-geometry helpers and the hull's FISTA branch (K = 12)
+    on the card against the same calls on the CPU."""
+    from lsc_planner_tpu_torch.ops import geometry as geo
+    from lsc_planner_tpu_torch.ops import hull
+
+    rng = np.random.default_rng(5)
+    n = 256
+    start = rng.normal(size=(n, 3)) * 2.0
+    goal = start + rng.normal(size=(n, 3)) * 3.0
+    centre = rng.normal(size=(n, 3))
+    half = rng.uniform(0.2, 1.5, size=(n, 3))
+    radius = rng.uniform(0.1, 0.6, size=n)
+    dirn = rng.normal(size=(n, 3))
+    dirn /= np.linalg.norm(dirn, axis=-1, keepdims=True)
+    obs = start[:, None] + rng.normal(size=(n, 5, 3)) * 2.0
+    orad = rng.uniform(0.1, 0.4, size=(n, 5))
+    boxes = np.concatenate([centre[:6] - half[:6], centre[:6] + half[:6]],
+                           axis=-1)
+    pts = rng.normal(size=(64, 12, 3)) + 1.5
+
+    def run(dev):
+        t = [torch.as_tensor(a, dtype=dtype, device=dev)
+             for a in (start, goal, centre - half, centre + half, radius,
+                       dirn, obs, orad, boxes, pts)]
+        s, g, lo, hi, r, d, o, orr, bx, p = t
+        out = {"ellipsoidal": geo.ellipsoidal_distance(s, g, r + 1.0),
+               "transform": geo.downwash_transform(s, r + 1.0),
+               "pair_downwash": geo.pair_downwash(r, r + 1, r.flip(0),
+                                                  r.flip(0) + 1),
+               "point_box": geo.point_box_distance(s, lo, hi),
+               "segments": torch.stack(geo.closest_between_segments(
+                   s, g, lo, hi)[:2]),
+               "segment_box": geo.segment_box_distance(s, g, lo, hi),
+               "collision": geo.segment_box_collision(s, g, lo, hi, r),
+               "time": geo.box_collision_time(s, g, lo, hi, r, 2.0),
+               "safe": geo.safe_dist_in_direction(s, d, o, orr, r,
+                                                  boxes=bx),
+               "fista": torch.cat(hull.closest_point_to_hull(p)[:1])}
+        return {k: v.cpu() for k, v in out.items()}
+
+    got, want = run(cuda), run("cpu")
+    for k in want:
+        # a sphere grazing a box within rounding may flip one verdict
+        if want[k].dtype == torch.bool:
+            assert (got[k] != want[k]).sum() <= 1, k
+            continue
+        finite = torch.isfinite(want[k]) & torch.isfinite(got[k])
+        assert (torch.isfinite(want[k]) != torch.isfinite(got[k])).sum() \
+            <= 1, k
+        scale = max(1.0, float(want[k][finite].abs().max()))
+        assert float((got[k][finite] - want[k][finite]).abs().max()) <= \
+            tol * scale, k

@@ -53,11 +53,15 @@ def test_import_leaves_jax_out():
         "'lsc_planner_tpu_torch.sim.debug', "
         "'lsc_planner_tpu_torch.sim.msgs', "
         "'lsc_planner_tpu_torch.sim.lpfile', "
+        "'lsc_planner_tpu_torch.sim.visualize', "
+        "'lsc_planner_tpu_torch.parallel.shard', "
+        "'lsc_planner_tpu_torch.parallel.launch', "
+        "'lsc_planner_tpu_torch.parallel.ranks', "
         "'lsc_planner_tpu_torch.cli'}\n"
         "assert need <= set(names), need - set(names)\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'lsc_planner_tpu' or "
-        "m.startswith('lsc_planner_tpu.')]\n"
+        "m.startswith('lsc_planner_tpu.') or m == 'matplotlib']\n"
         "assert not bad, bad\n"
         "import torch\n"
         "assert not torch.backends.cuda.matmul.allow_tf32\n"
@@ -125,9 +129,6 @@ def test_closest_point_to_hull_matches(rng, K):
     assert np.abs(d_t.numpy() - np.asarray(d_j)).max() <= TOL
 
 
-def test_hull_fista_branch_not_ported(rng):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        thull.closest_point_to_hull(_t(rng.normal(size=(2, 9, 3))))
 
 
 # ---------------------------------------------------------------- chol
@@ -260,6 +261,29 @@ def test_chol_cuda_branch_raises_without_gpu(rng):
         chol.cholesky_batched(meta)
     assert chol.factor_solve_launches == 0 and chol.resolve_launches == 0
     assert chol.factor_launches == 0
+
+
+def test_build_lock_is_taken_in_turn():
+    """Two processes asking for the same library take its build lock one
+    after the other (each holds it 0.5 s): ranks that start together build
+    each library once.  The lock is the build's own (no nvcc needed)."""
+    code = (
+        "import sys, time\n"
+        "from lsc_planner_tpu_torch.ops import _build\n"
+        "with _build.build_lock(_build.library_path()):\n"
+        "    t0 = time.time(); time.sleep(0.5); t1 = time.time()\n"
+        "print(t0, t1)\n")
+    procs = [subprocess.Popen([sys.executable, "-c", code],
+                              stdout=subprocess.PIPE, text=True)
+             for _ in range(2)]
+    spans = []
+    for proc in procs:
+        out, _ = proc.communicate(timeout=120)
+        assert proc.returncode == 0
+        spans.append(tuple(float(x) for x in out.split()))
+    (a0, a1), (b0, b1) = sorted(spans)
+    assert a1 - a0 >= 0.5 and b1 - b0 >= 0.5
+    assert b0 >= a1, f"the holds overlap: {spans}"
 
 
 def test_chol_plain_versions_do_not_count(rng):
