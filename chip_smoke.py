@@ -6,8 +6,8 @@
 Phases, one line each; any failure raises and exits non-zero:
   1. a CUDA device is required; prints the card's name and power limit
   2. builds the kernels from lsc_planner_tpu_torch/csrc with nvcc; prints
-     ptxas's registers, stack and spills a kernel (the cluster chol
-     kernels must spill nothing), and the fused IPM's
+     ptxas's registers, stack and spills a kernel (the cluster and the
+     tiled chol kernels must spill nothing), and the fused IPM's
      layout (rows in shared or device memory, QPs a block, QPs resident an
      SM) at the main path's (B, C) = (1024, 32), (64, 64) and (128, 128)
   3. audit.precision_self_check on the card (the TF32 guard)
@@ -20,19 +20,25 @@ Phases, one line each; any failure raises and exits non-zero:
      in that entry only); NaN stays in a non-SPD entry; kernel, plain and
      library times (CUDA events, median of 50); the large-n kernels (one
      thread-block cluster a matrix where chol.large_plan finds one, else
-     one block a matrix) the same way at n in {65, 199, 256, 359, 384, 399,
+     the tiled design) the same way at n in {65, 199, 256, 359, 384, 399,
      1024} and B in {1, 64, 130} (n = 1024: B in {1, 130}), f32 and f64
-     (the design of each printed), and on the systems of rsfc64's fourth
-     cycle (B = 64, n = 365, f32; held to the plain version by backward
-     error, these KKT systems being ill-conditioned) with kernel, plain
-     and library times (median of 20) and the one-block kernels' times on
-     the same systems (a build of chol.cu with -DLSC_CHOL_MAX_G=0, made
-     beside the package's in phase 2); the package's design, the one-block
-     kernels and clusters of up to 8 blocks (-DLSC_CHOL_MAX_G=8) timed at
-     B = 64 in f64 at n in {199, 365, 384} and in f32 at n = 399; the
-     one-block kernels at B = 64, n = 1024 (f32, IPM-like, the shape they
-     still serve) held and timed the same way;
-     plus one f64 cycle of an 8-agent circle on the card against the CPU
+     (the design of each printed), and on the systems of the fourth cycle
+     of rsfc64 (B = 64, n = 365, f32: the cluster kernels), rsfc96 (B =
+     96, n = 525, f32: tiled) and rsfc64 in f64 (tiled), each held to the
+     plain version by backward error (these KKT systems are
+     ill-conditioned) with kernel, plain and library times (median of
+     20), the bound, and the times of the first design past the clusters
+     on the same systems (the one-block kernels: a build of chol.cu
+     with -DLSC_CHOL_MAX_G=0 -DLSC_CHOL_ONE_BLOCK, made beside the
+     package's in phase 2); the package's design, the one-block kernels,
+     clusters of up to 8 blocks (-DLSC_CHOL_MAX_G=8) and the tiled design
+     at every n (-DLSC_CHOL_MAX_G=0) timed at B = 64 in f64 at n in {199,
+     365, 384} and in f32 at n in {365, 399}; the tiled design at B = 64,
+     n = 1024 (f32, IPM-like) held and timed the same way beside the
+     one-block kernels and cholesky_ex; and past the one-block kernels'
+     cap (n = 1100 and 1536 in f32 at B in {1, 8}, 1100 in f64 at B = 8),
+     held by backward error and timed; plus one f64 cycle of an 8-agent
+     circle on the card against the CPU
   5. flies the 64-agent circle swap (PRIOR_BASED, float32, all-pairs LSC)
      through SyncSimulator.run() on the card and checks it finished safely
      through the kernels (launch counts = cycles * 40 and cycles * 80)
@@ -127,14 +133,32 @@ Phases, one line each; any failure raises and exits non-zero:
      mode) through cycle() and inject_positions: 4 agents pushed 0.3-0.5
      m before cycle 5, that cycle finite with max primal residual < 0.1,
      the flags set and cleared and the SFCs re-seeded, then 60 cycles
-     with safety > 0.8 after it; circle64-2d to the finish (z within 0.05
+     with safety > 0.8 after it; rsfc96 (RECIPROCAL_RSFC, 96 agents, all
+     pairs), 20 cycles of the slack QP at n = 45 + 96 x 5 = 525 on the
+     tiled design: distance within 10 % of JAX's f32 run, safety > 0.9,
+     its QPFAILED cycles run again as rsfc64's, then the same cycles
+     through run(steps_per_dispatch=10) with 0 differing bits, ms a cycle
+     uncaptured and captured and the chol kernels' share of a captured
+     cycle (launches x their phase-4 times on its systems); rsfc64 in f64,
+     its 20 cycles at n = 365 on the tiled design: each cycle from the
+     same state on the tiled kernels and on the plain chol versions in
+     f64 on the card, the same QPFAILED agents, the kernels' max primal
+     residual <= max(1e-10, 10 x the plain versions') and max gap <= 10 x
+     theirs (a factor that rounds like f32 reads 7.5e-7 and more where
+     f64 reads 5e-15), the trajectories'
+     difference printed; distance within 10 % of JAX's f64 run, its
+     distance from that and from the port's own CPU f64 run printed
+     (PORT_CPU_F64_RSFC64: the f64 distance follows the reductions'
+     rounding), safety > 0.9, QPFAILED no more than JAX's;
+     circle64-2d to the finish (z within 0.05
      m of z_2d, cycles in the band of JAX's), then 10 captured cycles
      after 20 against 10 uncaptured, bit for bit; circle128-2d, 20
      all-pairs cycles through the fused IPM's 2-D instantiation, one
      launch a cycle, distance within 10 % of JAX's f64 run; rh64
      (RIGHT_HAND), 40 cycles, safety >= 1; the launch counts of each
-     (40 factor_solve and 80 resolve a cycle on the kernels of its n: the
-     cluster kernels at rsfc64's and exp64's)
+     (40 factor_solve and 80 resolve a cycle on the kernels of its n and
+     dtype: the cluster kernels at rsfc64's and exp64's in f32, the tiled
+     design at rsfc96's and at rsfc64's in f64)
  16. the ORCA planner and the host surface (f32; JAX's CPU f32 runs of the
      same missions as constants, ORCA_CASES): the rotational exchange at
      the bench's circle geometry (agent i's goal agent (i + N // 3)'s
@@ -182,6 +206,7 @@ error against its plain version, kernel / plain / library ms, and the
 bound for the same work computed from this run's inputs), and last
 {"ok": true, "device": {...}}.  The script imports nothing of JAX.
 """
+import contextlib
 import json
 import math
 import os
@@ -251,13 +276,21 @@ ALL_N, ALL_CYCLES = 128, 20
 # exp64 (nv 39), 365 for rsfc64 (nv 45, no stop-at-horizon rows), 399
 # = 39 + 72 x 5 for dyn64's 64 agents and 8 obstacles in experiment mode;
 # 256 and 384 the largest n a cluster of 2 blocks holds in f64 and f32
-# (chol.large_plan), 1024 the one-block kernels' cap
+# (chol.large_plan; the tiled design past them), 1024 the first design's
+# cap
 LARGE_NS = (65, 199, 256, 359, 384, 399, 1024)
 # and where phase 4 times the large-n designs side by side: f64 at a
 # cluster of 2 (199) and at n where only clusters of 8 hold the factor
-# (365, 384), f32 where only clusters of 4 do (399)
+# (365, 384), f32 at a cluster of 2 (365: the tiled design beside the
+# clusters) and where only clusters of 4 do (399)
 DESIGN_CASES = ((torch.float64, 199), (torch.float64, 365),
-                (torch.float64, 384), (torch.float32, 399))
+                (torch.float64, 384), (torch.float32, 365),
+                (torch.float32, 399))
+# past the first design's cap of 1024 (the tiled design only): (dtype, n,
+# batch sizes)
+PAST_CAP_CASES = ((torch.float32, 1100, (1, 8)),
+                  (torch.float32, 1536, (1, 8)),
+                  (torch.float64, 1100, (8,)))
 JAX_CPU_F64_DIST_128 = 530.7035639320115
 JAX_CPU_F32_DIST_128 = 454.4812316894531
 OFF3 = dict(iters=3, tol_gap=0.0, tol_rp=0.0, correctors=1)
@@ -302,6 +335,7 @@ CASTRAY_CYCLES = 20
 MODE_CASES = {
     "bvc64": (64, dict(planner_mode=PlannerMode.BVC), None),
     "rsfc64": (64, dict(planner_mode=PlannerMode.RECIPROCAL_RSFC), 20),
+    "rsfc96": (96, dict(planner_mode=PlannerMode.RECIPROCAL_RSFC), 20),
     "exp64": (64, dict(multisim_experiment=True), 60),
     "circle64_2d": (64, dict(world_dimension=2, world_z_2d=1.0), None),
     "circle128_2d": (128, dict(world_dimension=2, world_z_2d=1.0), 20),
@@ -315,6 +349,34 @@ MODE_CASES = {
 JAX_CPU_F32_BVC64 = (217, 1.0052)
 # rsfc64 (distance over its 20 cycles, min safety, QPFAILED)
 JAX_CPU_F32_RSFC64 = (260.8952331542969, 2.9960, 0)
+# rsfc96 (the same, f32: the slack QP at n = 525, B = 96) and rsfc64 in
+# f64 (tests/test_torch_f32_missions.py rsfc96 rsfc64_f64)
+JAX_CPU_F32_RSFC96 = (417.11614990234375, 2.7914, 2)
+JAX_CPU_F64_RSFC64 = (277.2906296029458, 2.9988, 0)
+# rsfc64 in f64 by the port on a CPU (plain chol versions, torch on one
+# thread; ... rsfc64_f64_port): 6.7 % below JAX's f64 run, and 265.778 m
+# on four threads (--threads=4): the BLAS's blocking of the same products
+# alone moves the f64 distance over these 20 cycles by 2.7 %.  The two
+# packages' f64 slack QPs at Param's slack weight 1e5 agree only to ~1e-4
+# m a solve (tests/test_torch_slack.py), and the same cycle from the same
+# state with torch.cholesky_solve for the two triangular solves moves the
+# new trajectories by 8e-5 m: the distance follows the reductions'
+# rounding in f64 as in f32, so phase 15 holds it to JAX's within 10 %,
+# the band of every other distance over a fixed run, and prints its
+# distance from JAX's and from this run.
+PORT_CPU_F64_RSFC64 = (258.77112375115405, 0)
+# The f64 precision gate of phase 15 (fly_rsfc64_f64), each cycle from the
+# same state on the tiled kernels and on the plain chol versions: the
+# kernels' max primal residual <= max(F64_PRIMAL_TOL, F64_PLAIN_RATIO x
+# the plain versions') and max gap <= F64_PLAIN_RATIO x theirs.  On the
+# CPU (... --threads=3 rsfc64_f64_rounding) the plain f64 cycles 0 and 3
+# read a primal residual of 5.3e-15 and 5.7e-15 and a gap of 8.8e-11 and
+# 3.7e-10, cholesky_solve the same to 1e-6 relative; the chol calls
+# rounded to f32 read 7.5e-7 and 2.1e-2, gaps 1.8e-4 and 2.8e-2.  A few
+# of the card's cycles end their 40 iterations unconverged on both
+# (primal ~1e-4, gap ~0.1): there the two runs are held to each other.
+F64_PRIMAL_TOL = 1e-10
+F64_PLAIN_RATIO = 10.0
 # exp64: 60 cycles (not finished), 635.5281 m, min safety 1.0148 after the
 # injection cycle and overall, that cycle's max primal residual 8.54e-06,
 # flags and SFC resets of agents 0, 16, 32 and 48, cleared after it
@@ -374,8 +436,11 @@ SHARD_RANKS, SHARD_CYCLES, SHARD_DIFF_CYCLE = 4, 40, 3
 LANES_N, LANES_K, LANES_CAP, LANES_AG_CYCLES = 1024, 4, 300, 10
 LANES_F32_CYCLES = 100
 # H100 peaks for the bounds (NVIDIA's data sheet, SXM): f32 outside the
-# tensor cores and HBM3 bandwidth
+# tensor cores; f64 through the tensor cores (DMMA, IEEE f64 FMAs: 67
+# TFLOP/s, twice the 33.5 outside them), the card's highest f64 rate and
+# so the least time; HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
+PEAK_F64_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
 
@@ -391,9 +456,10 @@ def phase(name, msg):
     print(f"[{name}] {msg}", flush=True)
 
 
-def bound(nbytes, ops):
-    """(least ms the H100 could take, "bytes" or "operations")."""
-    t_b, t_o = nbytes / PEAK_BYTES, ops / PEAK_F32_FLOPS
+def bound(nbytes, ops, peak=PEAK_F32_FLOPS):
+    """(least ms the H100 could take, "bytes" or "operations"); ops at the
+    rate `peak` (operations a second)."""
+    t_b, t_o = nbytes / PEAK_BYTES, ops / peak
     return (1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations")
 
 
@@ -401,15 +467,16 @@ def chol_bound(kind, B, n, elem=4):
     """bound() of one chol call on B systems of size n: what the function
     must move (H's lower triangle in, all of L out with its zeros, or L's
     lower triangle in for resolve; the right-hand side in and x out) and
-    its f32 operations (the factor n^3 / 3, the two substitutions 2 n^2
-    a system)."""
+    its operations (the factor n^3 / 3, the two substitutions 2 n^2 a
+    system) at the peak of the element's type (f32, or f64 for elem 8)."""
     tri, full = n * (n + 1) // 2, n * n
     nbytes, ops = {
         "factor_solve": (tri + full + 2 * n, n ** 3 / 3 + 2 * n * n),
         "resolve": (tri + 2 * n, 2 * n * n),
         "factor": (tri + full, n ** 3 / 3),
     }[kind]
-    return bound(elem * B * nbytes, B * ops)
+    return bound(elem * B * nbytes, B * ops,
+                 PEAK_F64_FLOPS if elem == 8 else PEAK_F32_FLOPS)
 
 
 def tensor_bytes(*ts):
@@ -759,7 +826,7 @@ def check_large_chol(what, H64, R1d, R2d, dtype, time_it=False,
     xr = chol.chol_resolve(Lk, R1)
     Fk = chol.cholesky_batched(H)
     torch.cuda.synchronize()
-    sfx = {"cluster": "_cluster", "block": "_large"}[
+    sfx = {"cluster": "_cluster", "tiled": "_tiled"}[
         chol.large_design(n, dtype)]
     moved = {k: v - before[k] for k, v in launch_counts().items()
              if v != before[k]}
@@ -790,7 +857,8 @@ def check_large_chol(what, H64, R1d, R2d, dtype, time_it=False,
             else:
                 e_k = backward_error(H64, L_k, got.double(), r)
                 e_p = backward_error(H64, L_p, plain.double(), r)
-            lim = 4 * e_p + n * 2.0 ** -24
+            lim = 4 * e_p + n * (2.0 ** -24 if dtype == torch.float32
+                                 else 2.0 ** -53)
         else:
             e_k = (got.double() - ref).abs().max().item()
             e_p = (plain.double() - ref).abs().max().item()
@@ -838,7 +906,7 @@ def check_large_chol(what, H64, R1d, R2d, dtype, time_it=False,
 def design_name(n, dtype):
     """The large-n design at n in dtype, with its cluster size."""
     plan = chol.large_plan(n, dtype)
-    return f"cluster of {plan[0]}" if plan else "one block"
+    return f"cluster of {plan[0]}" if plan else "tiled"
 
 
 def compare_large_chol(dev):
@@ -890,10 +958,13 @@ def capture_chol_calls(sim, cycles_before):
 
 
 # measurement builds of csrc/chol.cu, apart from the package's library:
-# the one-block large-n kernels at every large n, and clusters of up to 8
-# blocks where they hold the factor (the package's plan takes 1 or 2)
-CHOL_BUILDS = {"one block": "LSC_CHOL_MAX_G=0",
-               "clusters up to 8": "LSC_CHOL_MAX_G=8"}
+# the first design past the clusters (one block a matrix, up to n = 1024)
+# at every large n, clusters of up to 8 blocks where they hold the factor
+# (the package's plan takes 1 or 2; the tiled design past them), and the
+# tiled design at every large n
+CHOL_BUILDS = {"one block": ("LSC_CHOL_MAX_G=0", "LSC_CHOL_ONE_BLOCK"),
+               "clusters up to 8": ("LSC_CHOL_MAX_G=8",),
+               "tiled": ("LSC_CHOL_MAX_G=0",)}
 
 
 def chol_builds_start():
@@ -901,7 +972,7 @@ def chol_builds_start():
     (phase 4 times them beside the plan's design).  Returns {name: future
     of (library, nvcc's output)}."""
     pool = ThreadPoolExecutor(len(CHOL_BUILDS))
-    futures = {name: pool.submit(_build.load_variant, ["chol.cu"], [d])
+    futures = {name: pool.submit(_build.load_variant, ["chol.cu"], list(d))
                for name, d in CHOL_BUILDS.items()}
     pool.shutdown(wait=False)
     return futures
@@ -911,12 +982,15 @@ def build_chol_ms(lib, H, R1, R2):
     """{kind: ms} (CUDA events, median of 20) of the large-n kernels of
     lib (a CHOL_BUILDS library) on H, R1 and R2: factor_solve, resolve of
     its L, and the factor alone; raises on a failed launch or a
-    non-finite x."""
+    non-finite x.  The tiled design's workspace goes to every build (the
+    others do not read it)."""
     B, n = R1.shape
     sfx = "f32" if H.dtype == torch.float32 else "f64"
     L, x = torch.empty_like(H), torch.empty_like(R1)
-    args = {"factor_solve": (H, R1, L, x), "resolve": (L, R2, x),
-            "factor": (H, L)}
+    work = torch.empty(chol.tiled_work_ints(n, B), dtype=torch.int32,
+                       device=H.device)
+    args = {"factor_solve": (H, R1, L, x, work), "resolve": (L, R2, x),
+            "factor": (H, L, work)}
     out = {}
     for kind, ts in args.items():
         entry = getattr(lib, f"lsc_chol_{kind}_{sfx}")
@@ -932,53 +1006,95 @@ def build_chol_ms(lib, H, R1, R2):
     return out
 
 
+def time_large_case(what, H64, R1d, R2d, dtype, libs, backward):
+    """check_large_chol with times on one system (the f64 H64, R1d, R2d
+    taken to dtype), beside the first design past the clusters (the
+    one-block kernels of libs["one block"], where n <= 1024) and the
+    bound; prints a line.  Returns (errors, kernel / plain / library
+    ms)."""
+    B, n = R1d.shape
+    errs, times = check_large_chol(what, H64, R1d, R2d, dtype, time_it=True,
+                                   backward=backward)
+    H, R1, R2 = H64.to(dtype), R1d.to(dtype), R2d.to(dtype)
+    one = (build_chol_ms(libs["one block"], H, R1, R2)
+           if n <= chol.CLUSTER_MAX_N else None)
+    elem = H.element_size()
+
+    def line(k, t):
+        b_ms, b_by = chol_bound(k, B, n, elem)
+        return (f"{k} {'backward ' if backward else ''}err {errs[k]:.3e}, "
+                f"{t[0]:.4f} ms vs plain {t[1]:.4f} ms, library "
+                f"{t[2]:.4f} ms" +
+                (f", the one-block kernel {one[k]:.4f} ms" if one else
+                 "") + f", bound {b_ms:.4f} ms ({b_by})")
+    phase("4 kernels", f"{what} (B={B}, n={n}, {str(dtype)[6:]}, "
+                       f"{design_name(n, dtype)}): " +
+          "; ".join(line(k, t) for k, t in times.items()) +
+          f" [{smi_line()}]")
+    return errs, times
+
+
+# phase 4's main-path systems: the first factor_solve and resolve inputs of
+# a mission's fourth cycle, (key, MODE_CASES name, dtype)
+LARGE_MISSION_SYSTEMS = (("cluster", "rsfc64", torch.float32),
+                         ("tiled", "rsfc96", torch.float32),
+                         ("tiled f64", "rsfc64", torch.float64))
+
+
 def time_large_chol(dev, libs):
     """Phase 4 on the main path's own large-n systems: the chol kernels on
-    the first factor_solve and resolve inputs of rsfc64's fourth cycle
-    (B = 64, n = nv + C M = 45 + 64 x 5 = 365, f32: the cluster kernels),
-    held to the plain version by backward error, and timed, with the
-    one-block kernels' times (libs["one block"], chol_builds_start) on
-    the same systems beside them; on an IPM-like system of that shape,
-    held to the f64 solve; the designs timed side by side (time_designs);
-    and the
-    one-block kernels where they still run by the plan (B = 64, n = 1024,
-    f32, IPM-like), held and timed.  Returns (the IPM-like system's
-    errors, the cycle-4 systems' kernel / plain / library ms, the shape,
-    and the n = 1024 errors and times)."""
-    tm, kw, _ = mode_case("rsfc64")
-    sim = SyncSimulator(tm, Param(**kw), device=dev, dtype=torch.float32)
-    (H, R1), (L, R2) = capture_chol_calls(sim, 3)
-    B, n = H.shape[0], H.shape[-1]
-    back, times = check_large_chol(
-        "rsfc64 cycle 4", H.double(), R1.double(), R2.double(),
-        torch.float32, time_it=True, backward=True)
-    errs, _ = check_large_chol(f"IPM-like B={B} n={n}",
-                               *big_spd_system(B, n, n, dev),
-                               torch.float32)
-    block = build_chol_ms(libs["one block"], H, R1, R2)
-    phase("4 kernels", f"rsfc64 cycle 4 (B={B}, n={n}, f32, "
-                       f"{design_name(n, torch.float32)}): " + "; ".join(
-        f"{k} backward err {back[k]:.3e} (IPM-like system's forward err "
-        f"{errs[k]:.3e}), {t[0]:.4f} ms vs plain {t[1]:.4f} ms, library "
-        f"{t[2]:.4f} ms, one-block kernel {block[k]:.4f} ms"
-        for k, t in times.items()))
+    the first factor_solve and resolve inputs of the fourth cycle of
+    rsfc64 (B = 64, n = nv + C M = 45 + 64 x 5 = 365, f32: the cluster
+    kernels), rsfc96 (B = 96, n = 45 + 96 x 5 = 525, f32: the tiled
+    design) and rsfc64 in f64 (n = 365: the tiled design), each held to
+    the plain version by backward error and timed beside the first design
+    past the clusters (libs["one block"], chol_builds_start) and the
+    bound (time_large_case); on an IPM-like system of each shape, held to
+    the f64 solve; the designs timed side by side (time_designs); the
+    tiled design at B = 64, n = 1024 (f32, IPM-like) against the library
+    and the first design; and past that design's cap (past_the_cap).
+    Returns {key: ((B, n), the IPM-like system's errors, the mission
+    system's kernel / plain / library ms)} for the keys of
+    LARGE_MISSION_SYSTEMS."""
+    out = {}
+    for key, name, dtype in LARGE_MISSION_SYSTEMS:
+        tm, kw, _ = mode_case(name)
+        sim = SyncSimulator(tm, Param(**kw), device=dev, dtype=dtype)
+        (H, R1), (L, R2) = capture_chol_calls(sim, 3)
+        B, n = H.shape[0], H.shape[-1]
+        _, times = time_large_case(f"{name} cycle 4", H.double(),
+                                   R1.double(), R2.double(), dtype, libs,
+                                   backward=True)
+        errs, _ = check_large_chol(f"IPM-like B={B} n={n}",
+                                   *big_spd_system(B, n, n, dev), dtype)
+        phase("4 kernels", f"IPM-like B={B} n={n} {str(dtype)[6:]}: held to "
+                           "the f64 solve, errors " + ", ".join(
+                               f"{k} {e:.3e}" for k, e in errs.items()))
+        out[key] = ((B, n), errs, times)
     time_designs(dev, libs)
-    nb = chol.MAX_N
-    big_errs, big_times = check_large_chol(
-        f"IPM-like B={MAIN_B} n={nb}", *big_spd_system(MAIN_B, nb, nb, dev),
-        torch.float32, time_it=True)
-    phase("4 kernels", f"B={MAIN_B} n={nb} (f32, "
-                       f"{design_name(nb, torch.float32)}): " + "; ".join(
-        f"{k} err {big_errs[k]:.3e}, {t[0]:.4f} ms vs plain {t[1]:.4f} ms,"
-        f" library {t[2]:.4f} ms" for k, t in big_times.items()))
-    return errs, times, (B, n), (big_errs, big_times)
+    nb = chol.CLUSTER_MAX_N
+    time_large_case("IPM-like", *big_spd_system(MAIN_B, nb, nb, dev),
+                    torch.float32, libs, backward=False)
+    past_the_cap(dev, libs)
+    return out
+
+
+def past_the_cap(dev, libs):
+    """Phase 4 past the first design's cap of n = 1024 (it raised there):
+    the tiled design at PAST_CAP_CASES on IPM-like systems, held to the
+    plain version by backward error, timed (time_large_case)."""
+    for dtype, n, batches in PAST_CAP_CASES:
+        for B in batches:
+            time_large_case("past n = 1024", *big_spd_system(B, n, n + B, dev),
+                            dtype, libs, backward=True)
 
 
 def time_designs(dev, libs):
-    """Phase 4: the plan's large-n design, the one-block kernels and
-    clusters of up to 8 blocks (libs, chol_builds_start) at B = 64 on
-    IPM-like systems at DESIGN_CASES, each ms a median of 20 (the
-    measurement behind the plan's cluster sizes)."""
+    """Phase 4: the plan's large-n design and the CHOL_BUILDS (the first
+    design past the clusters, clusters of up to 8 blocks, the tiled design
+    at every n; libs, chol_builds_start) at B = 64 on IPM-like systems at
+    DESIGN_CASES, each ms a median of 20 (the measurement behind the
+    plan's cluster sizes and its boundary)."""
     for dtype, n in DESIGN_CASES:
         H, R1, R2 = (t.to(dtype)
                      for t in big_spd_system(MAIN_B, n, n, dev))
@@ -992,10 +1108,11 @@ def time_designs(dev, libs):
         other = {name: build_chol_ms(lib, H, R1, R2)
                  for name, lib in libs.items()}
         phase("4 kernels", f"{str(dtype)[6:]} B={MAIN_B} n={n}: the plan's "
-                           f"design ({design_name(n, dtype)}) / one block "
-                           "/ clusters up to 8: " + "; ".join(
-            f"{k} {plan[k]:.4f} / {other['one block'][k]:.4f} / "
-            f"{other['clusters up to 8'][k]:.4f} ms" for k in plan))
+                           f"design ({design_name(n, dtype)}) / " +
+              " / ".join(other) + ": " + "; ".join(
+                  f"{k} {plan[k]:.4f} / " +
+                  " / ".join(f"{o[k]:.4f}" for o in other.values()) + " ms"
+                  for k in plan))
 
 
 def cycle_parity(dev):
@@ -2163,12 +2280,12 @@ def mode_sim(dev, name):
             cycles)
 
 
-def chol_launches(param, cycles, n):
+def chol_launches(param, cycles, n, dtype=torch.float32):
     """A dense-row mission's chol launches at its KKT size n: 40
     factor_solve and 80 resolve a cycle, on the kernels chol.large_design
-    picks for n in f32."""
-    sfx = {None: "", "cluster": "_cluster", "block": "_large"}[
-        chol.large_design(n, torch.float32)]
+    picks for n in the run's dtype."""
+    sfx = {None: "", "cluster": "_cluster", "tiled": "_tiled"}[
+        chol.large_design(n, dtype)]
     return {"factor_solve" + sfx: cycles * param.qp_iterations,
             "resolve" + sfx: cycles * param.qp_iterations *
             (1 + param.qp_correctors)}
@@ -2235,6 +2352,19 @@ def cycle_qp(sim, state):
 CARD_RERUNS = (("card f64", None, torch.float64),)
 
 
+@contextlib.contextmanager
+def plain_chol():
+    """chol's factor_solve and resolve replaced by their plain versions
+    while the block runs."""
+    fs, rs = chol.chol_factor_solve, chol.chol_resolve
+    chol.chol_factor_solve = chol.chol_factor_solve_plain
+    chol.chol_resolve = chol.chol_resolve_plain
+    try:
+        yield
+    finally:
+        chol.chol_factor_solve, chol.chol_resolve = fs, rs
+
+
 def rerun_cycle(name, sim, prev, ways=CARD_RERUNS):
     """The cycle from state prev (sim's, f32 on the card) run again with
     the plain chol versions on sim's card and dtype, then once for each
@@ -2242,13 +2372,8 @@ def rerun_cycle(name, sim, prev, ways=CARD_RERUNS):
     Returns {run: (QPFAILED agents, primal residuals, gaps)}."""
     tm, kw, _ = mode_case(name)
     fields = state_to_numpy(prev)
-    fs, rs = chol.chol_factor_solve, chol.chol_resolve
-    chol.chol_factor_solve = chol.chol_factor_solve_plain
-    chol.chol_resolve = chol.chol_resolve_plain
-    try:
+    with plain_chol():
         out = {"card f32, plain chol": cycle_qp(sim, prev)[1]}
-    finally:
-        chol.chol_factor_solve, chol.chol_resolve = fs, rs
     for label, device, dtype in ways:
         device = sim.device if device is None else device
         other = SyncSimulator(tm, Param(**kw), device=device, dtype=dtype)
@@ -2286,36 +2411,78 @@ def qp_failure_lines(failures):
     return lines
 
 
-def fly_rsfc64(dev):
-    """rsfc64, 20 cycles: every cycle the slack QP at n = 45 + 64 x 5 =
-    365 on the large-n chol kernels (a cluster of 2 blocks a matrix);
-    its QPFAILED cycles again on the card (qp_failures_rerun; the state
-    before cycle 3 is f32-hard, tests/test_torch_qpfailed.py);
-    distance within 10 % of the JAX package's CPU f32 run, safety > 0.9
-    (tests/test_modes.py's bound for RSFC), finite trajectories; then the
-    same 20 cycles through
-    run(steps_per_dispatch=CAPTURE_K), bit for bit.  Returns the launches
-    of the uncaptured run."""
-    sim, param, cycles = mode_sim(dev, "rsfc64")
+def fly_slack(dev, name, dtype, ref, tol, design):
+    """A slack-QP mission of MODE_CASES on the card in dtype for its
+    cycles through run(): its KKT size on the large-n chol design `design`
+    (chol.large_design), 40 factor_solve and 80 resolve launches a cycle
+    on that design's kernels, finite trajectories, safety > 0.9
+    (tests/test_modes.py's bound for RSFC), distance within tol (relative)
+    of ref[0] (the distance of a CPU run of the same cycles).  Returns
+    (sim, param, the run's summary, the launches)."""
+    tm, kw, cycles = mode_case(name)
+    param = Param(**kw)
+    sim = SyncSimulator(tm, param, device=dev, dtype=dtype)
     reset_launch_counts()
     summary = sim.run(max_iterations=cycles)
     torch.cuda.synchronize()
-    launches = check_launches(
-        "rsfc64", **chol_launches(param, cycles, kkt_n(sim, param)))
-    failures = qp_failures_rerun(sim, "rsfc64", cycles)
+    n = kkt_n(sim, param)
+    launches = check_launches(name, **chol_launches(param, cycles, n, dtype))
+    if chol.large_design(n, dtype) != design:
+        raise AssertionError(f"{name}: n = {n} in {dtype} is on the "
+                             f"{chol.large_design(n, dtype)} design, not "
+                             f"the {design} one")
     dist = summary["total_flight_distance"]
     state = summary["final_state"]
     if summary["iterations"] != cycles or \
             not bool(torch.isfinite(state.traj).all()):
-        raise AssertionError(f"rsfc64: {summary['iterations']} cycles, "
+        raise AssertionError(f"{name}: {summary['iterations']} cycles, "
                              "finite trajectories "
                              f"{bool(torch.isfinite(state.traj).all())}")
     if not summary["safety_ratio_agent"] > 0.9:
-        raise AssertionError(f"rsfc64: safety {summary['safety_ratio_agent']}"
-                             " <= 0.9")
-    if not abs(dist - JAX_CPU_F32_RSFC64[0]) <= 0.1 * JAX_CPU_F32_RSFC64[0]:
-        raise AssertionError(f"rsfc64: distance {dist} m, JAX CPU f32 "
-                             f"{JAX_CPU_F32_RSFC64[0]} m")
+        raise AssertionError(f"{name}: safety "
+                             f"{summary['safety_ratio_agent']} <= 0.9")
+    if not abs(dist - ref[0]) <= tol * ref[0]:
+        raise AssertionError(f"{name} {dtype}: distance {dist} m, the CPU "
+                             f"reference {ref[0]} m (tolerance {tol:.0%})")
+    return sim, param, summary, launches
+
+
+def check_captured(name, sim, summary):
+    """The same cycles as the run() of summary through
+    run(steps_per_dispatch=CAPTURE_K), its final state bit for bit with
+    that run's: (the captured run's summary, {field: differing bits})."""
+    reset_launch_counts()
+    captured = sim.run(max_iterations=summary["iterations"],
+                       steps_per_dispatch=CAPTURE_K)
+    torch.cuda.synchronize()
+    got, state = captured["final_state"], summary["final_state"]
+    diffs = {f: differing_bits(a, b) for f, a, b in zip(got._fields, got,
+                                                          state)
+             if a is not None}
+    if any(diffs.values()):
+        raise AssertionError(f"{name}: run(steps_per_dispatch={CAPTURE_K}) "
+                             f"differs from run() in {diffs}")
+    return captured, diffs
+
+
+def print_qp_failures(name, failures):
+    for line in qp_failure_lines(failures) or ["none"]:
+        phase("15 modes", f"{name} QPFAILED, each failing cycle run again "
+                          "from the state before it: " + line)
+
+
+def fly_rsfc64(dev):
+    """rsfc64, 20 cycles: every cycle the slack QP at n = 45 + 64 x 5 =
+    365 on the cluster chol kernels (a cluster of 2 blocks a matrix;
+    fly_slack: within 10 % of the JAX package's CPU f32 distance); its
+    QPFAILED cycles again on the card (qp_failures_rerun; the state
+    before cycle 3 is f32-hard, tests/test_torch_qpfailed.py); then the
+    same 20 cycles through run(steps_per_dispatch=CAPTURE_K), bit for
+    bit.  Returns the launches of the uncaptured run."""
+    sim, param, summary, launches = fly_slack(
+        dev, "rsfc64", torch.float32, JAX_CPU_F32_RSFC64, 0.1, "cluster")
+    cycles = summary["iterations"]
+    failures = qp_failures_rerun(sim, "rsfc64", cycles)
     ms = 1e3 * summary["wall_time"] / cycles
     from lsc_planner_tpu_torch.ops import qp as qp_ops
     st = stage_times(sim, [(sim.optimizer, "solve", "optimizer.solve"),
@@ -2323,21 +2490,11 @@ def fly_rsfc64(dev):
                            (chol, "chol_factor_solve", "factor_solve"),
                            (chol, "chol_resolve", "resolve")],
                      cycles_before=5)
-    reset_launch_counts()
-    captured = sim.run(max_iterations=cycles, steps_per_dispatch=CAPTURE_K)
-    torch.cuda.synchronize()
-    got = captured["final_state"]
-    diffs = {f: differing_bits(a, b) for f, a, b in zip(got._fields, got,
-                                                          state)
-             if a is not None}
-    if any(diffs.values()):
-        raise AssertionError(f"rsfc64: run(steps_per_dispatch={CAPTURE_K}) "
-                             f"differs from run() in {diffs}")
-    n_kkt = sim.optimizer.nv + sim.N * param.M
+    captured, diffs = check_captured("rsfc64", sim, summary)
     phase("15 modes", f"rsfc64 (RECIPROCAL_RSFC, the slack QP at n = "
-                      f"{n_kkt}): {cycles} cycles, "
-                      f"distance {dist:.4f} m (JAX CPU f32 "
-                      f"{JAX_CPU_F32_RSFC64[0]:.4f} m), safety "
+                      f"{kkt_n(sim, param)}): {cycles} cycles, distance "
+                      f"{summary['total_flight_distance']:.4f} m (JAX CPU "
+                      f"f32 {JAX_CPU_F32_RSFC64[0]:.4f} m), safety "
                       f"{summary['safety_ratio_agent']:.4f} (JAX "
                       f"{JAX_CPU_F32_RSFC64[1]}), {summary['qp_failures']} "
                       f"QPFAILED (JAX {JAX_CPU_F32_RSFC64[2]}), {ms:.2f} "
@@ -2349,14 +2506,129 @@ def fly_rsfc64(dev):
                       f"{len(diffs)} fields")
     n_fs = param.qp_iterations
     n_rs = n_fs * (1 + param.qp_correctors)
-    for line in qp_failure_lines(failures) or ["none"]:
-        phase("15 modes", "rsfc64 QPFAILED, each failing cycle run again "
-                          "from the state before it: " + line)
+    print_qp_failures("rsfc64", failures)
     phase("15 modes", "rsfc64 stage ms (median of 5 cycles after 5, a sync "
                       "around each call): " + ", ".join(
                           f"{k} {v:.3f}" for k, v in st.items()) +
           f"; a cycle's {n_fs} factor_solve and {n_rs} resolve calls "
           f"{n_fs * st['factor_solve'] + n_rs * st['resolve']:.2f}")
+    return launches
+
+
+def fly_rsfc96(dev, chol_ms):
+    """rsfc96 (f32): 20 cycles of the slack QP at n = 45 + 96 x 5 = 525,
+    B = 96, on the tiled design (fly_slack: within 10 % of the JAX
+    package's CPU f32 distance); its QPFAILED cycles again on the card
+    (qp_failures_rerun); then the same cycles through
+    run(steps_per_dispatch=CAPTURE_K), bit for bit.  ms a cycle
+    uncaptured and captured, and the chol kernels' share of a captured
+    cycle: launches x kernel ms (chol_ms, phase 4's times on rsfc96's own
+    systems) over the captured ms.  Returns the launches."""
+    sim, param, summary, launches = fly_slack(
+        dev, "rsfc96", torch.float32, JAX_CPU_F32_RSFC96, 0.1, "tiled")
+    cycles = summary["iterations"]
+    failures = qp_failures_rerun(sim, "rsfc96", cycles)
+    captured, diffs = check_captured("rsfc96", sim, summary)
+    n_fs = param.qp_iterations
+    n_rs = n_fs * (1 + param.qp_correctors)
+    cap_ms = 1e3 * captured["average_planning_time"]
+    chol_cycle = n_fs * chol_ms["factor_solve"][0] + \
+        n_rs * chol_ms["resolve"][0]
+    phase("15 modes", f"rsfc96 (RECIPROCAL_RSFC, f32, the slack QP at n = "
+                      f"{kkt_n(sim, param)}, B = {sim.N}, tiled): {cycles} "
+                      f"cycles, distance "
+                      f"{summary['total_flight_distance']:.4f} m (JAX CPU "
+                      f"f32 {JAX_CPU_F32_RSFC96[0]:.4f} m), safety "
+                      f"{summary['safety_ratio_agent']:.4f} (JAX "
+                      f"{JAX_CPU_F32_RSFC96[1]}), {summary['qp_failures']} "
+                      f"QPFAILED (JAX {JAX_CPU_F32_RSFC96[2]}), "
+                      f"{1e3 * summary['wall_time'] / cycles:.2f} ms/cycle "
+                      f"uncaptured, {cap_ms:.2f} captured (blocks after the "
+                      f"first); the chol kernels {n_fs} x "
+                      f"{chol_ms['factor_solve'][0]:.4f} + {n_rs} x "
+                      f"{chol_ms['resolve'][0]:.4f} = {chol_cycle:.2f} ms, "
+                      f"{100 * chol_cycle / cap_ms:.1f} % of a captured "
+                      f"cycle; launches {launches}; "
+                      f"run(steps_per_dispatch={CAPTURE_K}): differing bits "
+                      f"{sum(diffs.values())} over {len(diffs)} fields "
+                      f"[{smi_line()}]")
+    print_qp_failures("rsfc96", failures)
+    return launches
+
+
+def kernels_vs_plain_cycles(sim, cycles):
+    """Steps sim's cycles from its initial state (the kernels' run, bit for
+    bit) and runs each cycle again from the same state with the plain chol
+    versions on the same card and dtype: [(cycle, the largest difference
+    of the new trajectories (m), the kernels' (QPFAILED agents, max primal
+    residual, max gap), the plain versions')]."""
+    state, out = sim.initial_state(), []
+    for it in range(cycles):
+        prev = state
+        state, (failed, res, gap) = cycle_qp(sim, prev)
+        with plain_chol():
+            plain, (failed_p, res_p, gap_p) = cycle_qp(sim, prev)
+        out.append((it, float((state.traj - plain.traj).abs().max()),
+                    (failed, float(res.max()), float(gap.max())),
+                    (failed_p, float(res_p.max()), float(gap_p.max()))))
+    return out
+
+
+def fly_rsfc64_f64(dev):
+    """rsfc64 in f64: its 20 cycles at n = 365 on the tiled design
+    (fly_slack, within 10 % of the JAX package's CPU f64 distance: the
+    mission-level band), QPFAILED no more than JAX's f64 run's.  The
+    precision gate (kernels_vs_plain_cycles): from the state before each
+    of the 20 cycles, that cycle on the tiled kernels against the same
+    cycle with the plain chol versions in f64 on the card, each with the
+    same QPFAILED agents, the kernels' max primal residual <=
+    max(F64_PRIMAL_TOL, F64_PLAIN_RATIO x the plain versions') and max
+    gap <= F64_PLAIN_RATIO x theirs.
+    The trajectories' difference and the distances from JAX's and the
+    port's own CPU f64 runs are printed.  Returns the launches."""
+    sim, param, summary, launches = fly_slack(
+        dev, "rsfc64", torch.float64, JAX_CPU_F64_RSFC64, 0.1, "tiled")
+    cycles = summary["iterations"]
+    if summary["qp_failures"] > JAX_CPU_F64_RSFC64[2]:
+        raise AssertionError(f"rsfc64 f64: {summary['qp_failures']} "
+                             f"QPFAILED, JAX CPU f64 {JAX_CPU_F64_RSFC64[2]}")
+    per_cycle = kernels_vs_plain_cycles(sim, cycles)
+    bad = [c for c in per_cycle
+           if c[2][0] != c[3][0] or
+           not c[2][1] <= max(F64_PRIMAL_TOL, F64_PLAIN_RATIO * c[3][1]) or
+           not c[2][2] <= F64_PLAIN_RATIO * c[3][2]]
+    if bad:
+        raise AssertionError(f"rsfc64 f64: cycles on the tiled kernels "
+                             f"against the plain chol versions from the "
+                             f"same state, (cycle, max |traj diff| m, "
+                             f"(QPFAILED, primal, gap) tiled, plain): {bad} "
+                             f"(limits: primal max({F64_PRIMAL_TOL}, "
+                             f"{F64_PLAIN_RATIO} x plain), gap "
+                             f"{F64_PLAIN_RATIO} x plain)")
+    dist = summary["total_flight_distance"]
+    phase("15 modes", f"rsfc64 f64 (the slack QP at n = {kkt_n(sim, param)}"
+                      f", tiled): {cycles} cycles, distance {dist:.6f} m "
+                      f"(JAX CPU f64 {JAX_CPU_F64_RSFC64[0]:.6f} m, "
+                      f"{100 * (dist / JAX_CPU_F64_RSFC64[0] - 1):+.4f} %; "
+                      f"the port's CPU f64 run {PORT_CPU_F64_RSFC64[0]:.6f}"
+                      f" m, {100 * (dist / PORT_CPU_F64_RSFC64[0] - 1):+.4f} "
+                      "%), "
+                      f"safety {summary['safety_ratio_agent']:.4f} (JAX "
+                      f"{JAX_CPU_F64_RSFC64[1]}), {summary['qp_failures']} "
+                      f"QPFAILED (JAX {JAX_CPU_F64_RSFC64[2]}), "
+                      f"{1e3 * summary['wall_time'] / cycles:.2f} ms/cycle, "
+                      f"launches {launches}")
+    phase("15 modes", "rsfc64 f64, each cycle from the kernels' state on "
+                      "the tiled kernels and on the plain chol versions, "
+                      "tiled/plain by cycle (limits: primal max("
+                      f"{F64_PRIMAL_TOL:.0e}, {F64_PLAIN_RATIO:g} x plain), "
+                      f"gap {F64_PLAIN_RATIO:g} x plain): max primal " +
+          " ".join(f"{c[2][1]:.1e}/{c[3][1]:.1e}" for c in per_cycle) +
+          "; max gap " + " ".join(f"{c[2][2]:.1e}/{c[3][2]:.1e}"
+                                  for c in per_cycle) +
+          "; max |traj diff| m " + " ".join(f"{c[1]:.1e}"
+                                            for c in per_cycle) +
+          "; QPFAILED agents the same in every cycle")
     return launches
 
 
@@ -2477,17 +2749,19 @@ def fly_rh64(dev):
                       f"{1e3 * summary['wall_time'] / done:.2f} ms/cycle")
 
 
-def fly_modes(dev):
+def fly_modes(dev, rsfc96_chol_ms):
     """Phase 15: the other planner modes.  Returns the launches of the
-    large-n chol kernels (rsfc64) and of the 2-D fused IPM
-    (circle128-2d)."""
+    large-n chol kernels (rsfc64: the cluster kernels; rsfc96 and rsfc64
+    in f64: the tiled design) and of the 2-D fused IPM (circle128-2d)."""
     fly_bvc64(dev)
     large = fly_rsfc64(dev)
+    tiled = fly_rsfc96(dev, rsfc96_chol_ms)
+    tiled64 = fly_rsfc64_f64(dev)
     fly_exp64(dev)
     fly_circle64_2d(dev)
     fused2d = fly_circle128_2d(dev)
     fly_rh64(dev)
-    return large, fused2d
+    return large, tiled, tiled64, fused2d
 
 
 def orca_sim(dev, name):
@@ -2997,6 +3271,9 @@ def main():
         phase("2 build", summary)
         phase("2 build", f"{check_no_spills(summary)} cluster chol kernel "
                          "instantiations, 0 B spilled each")
+        phase("2 build", f"{check_no_spills(summary, 'tiled_')} tiled chol "
+                         "kernel instantiations (the factor and the solve, "
+                         "f32 and f64), 0 B spilled each")
     nf, Ru, M, n1 = 13, 69, 5, 6        # the main path's QP shape
     for B, C in ((BIG_N, BIG_K), (MAIN_B, MAIN_B), (ALL_N, ALL_N)):
         pl = ipm.fused_plan(B, nf, Ru, C, M, n1)
@@ -3014,9 +3291,8 @@ def main():
     # 4. kernels vs plain versions
     results = compare_kernels(dev)
     compare_large_chol(dev)
-    large_errs, large_times, large_shape, (block_errs, block_times) = \
-        time_large_chol(dev, {name: f.result()[0]
-                              for name, f in chol_builds.items()})
+    large = time_large_chol(dev, {name: f.result()[0]
+                                  for name, f in chol_builds.items()})
     cycle_parity(dev)
 
     # 5. the main path below 128 agents: the chol kernels
@@ -3100,7 +3376,8 @@ def main():
 
     # 15. the other planner modes: BVC, RSFC, experiment mode, 2-D worlds,
     # the right-hand goal rule
-    large_launches, fused2d_launches = fly_modes(dev)
+    large_launches, tiled_launches, tiled64_launches, fused2d_launches = \
+        fly_modes(dev, large["tiled"][2])
 
     # 16. the ORCA planner, the continuous audit, stage profiles, the CLI
     fly_orca(dev, sim)
@@ -3111,6 +3388,7 @@ def main():
 
     errs, times = results[MAIN_B]
     source = "lsc_planner_tpu_torch/csrc/chol.cu"
+    tiled_src = "lsc_planner_tpu_torch/csrc/chol_tiled.cuh"
 
     def chol_entry(name, key, replaces, nlaunch):
         b_ms, b_by = chol_bound(key, MAIN_B, N_QP)
@@ -3120,15 +3398,16 @@ def main():
                 "plain_ms": times[key][1], "bound_ms": b_ms,
                 "bound_by": b_by, "library_ms": times[key][2]}
 
-    def large_entry(name, key, replaces, nlaunch, shape, errs_, times_):
-        b_ms, b_by = chol_bound(key, *shape)
-        return {"name": name, "route": "cuda", "source": source,
+    def large_entry(name, key, replaces, nlaunch, shape, errs_, times_,
+                    elem=4, src=source):
+        b_ms, b_by = chol_bound(key, *shape, elem)
+        return {"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": nlaunch,
                 "max_abs_err": errs_[key], "ms": times_[key][0],
                 "plain_ms": times_[key][1], "bound_ms": b_ms,
                 "bound_by": b_by, "library_ms": times_[key][2]}
-    cluster = (large_shape, large_errs, large_times)
-    block = ((MAIN_B, chol.MAX_N), block_errs, block_times)
+    cluster, tiled, tiled64 = (large[k] for k in ("cluster", "tiled",
+                                                   "tiled f64"))
     f2 = fused[(ALL_N, ALL_N, 2)]
     fb = fused[(BIG_N // SHARD_RANKS, BIG_K, 3)]
     kernels = [
@@ -3175,17 +3454,30 @@ def main():
         # the factor alone has no caller, as at n <= 64
         large_entry("cholesky_batched (n > 64, cluster)", "factor",
                     "lsc_planner_tpu/ops/chol_pallas.py:26", 0, *cluster),
-        # past what a cluster holds (f32 n > 384), up to n = 1024: no
-        # mission flown here has a system that large, so no launches on
-        # the main path
-        large_entry("chol_factor_solve (n > 64, block a matrix)",
-                    "factor_solve", "lsc_planner_tpu/ops/chol_pallas.py:108",
-                    large_launches["factor_solve_large"], *block),
-        large_entry("chol_resolve (n > 64, block a matrix)", "resolve",
+        # past what a cluster holds (f32 n > 384, f64 n > 256): the tiled
+        # design, timed on rsfc96's systems (f32) and rsfc64's in f64, with
+        # the launches of those flights (phase 15)
+        large_entry("chol_factor_solve (n > 64, tiled)", "factor_solve",
+                    "lsc_planner_tpu/ops/chol_pallas.py:108",
+                    tiled_launches["factor_solve_tiled"], *tiled,
+                    src=tiled_src),
+        large_entry("chol_resolve (n > 64, tiled)", "resolve",
                     "lsc_planner_tpu/ops/chol_pallas.py:123",
-                    large_launches["resolve_large"], *block),
-        large_entry("cholesky_batched (n > 64, block a matrix)", "factor",
-                    "lsc_planner_tpu/ops/chol_pallas.py:26", 0, *block),
+                    tiled_launches["resolve_tiled"], *tiled, src=tiled_src),
+        large_entry("cholesky_batched (n > 64, tiled)", "factor",
+                    "lsc_planner_tpu/ops/chol_pallas.py:26", 0, *tiled,
+                    src=tiled_src),
+        large_entry("chol_factor_solve (n > 64, tiled, f64)", "factor_solve",
+                    "lsc_planner_tpu/ops/chol_pallas.py:108",
+                    tiled64_launches["factor_solve_tiled"], *tiled64, elem=8,
+                    src=tiled_src),
+        large_entry("chol_resolve (n > 64, tiled, f64)", "resolve",
+                    "lsc_planner_tpu/ops/chol_pallas.py:123",
+                    tiled64_launches["resolve_tiled"], *tiled64, elem=8,
+                    src=tiled_src),
+        large_entry("cholesky_batched (n > 64, tiled, f64)", "factor",
+                    "lsc_planner_tpu/ops/chol_pallas.py:26", 0, *tiled64,
+                    elem=8, src=tiled_src),
         {"name": "ipm_lsc_fused (ndim 2)", "route": "cuda",
          "source": "lsc_planner_tpu_torch/csrc/ipm.cu",
          "replaces": "lsc_planner_tpu/ops/ipm_pallas.py:122",

@@ -50,36 +50,31 @@
 // triangle (factor_solve on a non-SPD entry) gives an all-NaN x in that
 // entry; its block-mates never see it.
 //
-// Large n (64 < n <= 1024: the slack-relaxed QP's KKT system, n = nv +
+// Large n (64 < n <= 4096: the slack-relaxed QP's KKT system, n = nv +
 // C M, 359 at 64 agents).  Where a thread-block cluster of one or two
 // blocks holds the factor in its shared memory (cluster_plan: f32 up to n
 // = 384, f64 up to 256), one cluster a matrix with L resident on chip
-// (chol_cluster.cuh, which has its own note).  Past that, one block of 256
-// threads a matrix (the first design): a matrix no longer fits a warp's
-// registers (nor one SM's shared memory), so L lives in device memory in
-// the same row-major (B, n, n) layout, where the L2 keeps it.  The factor
-// is right-looking and blocked with 32-wide panels: warp 0 factors the
-// diagonal tile in registers with warp_chol::factor (no pivot floor) and
-// keeps its reciprocals in shared memory; every thread then solves a row
-// of the panel below it against the tile; then every warp updates its
-// own 32 x 32 tiles of the trailing lower triangle (the two panel blocks
-// staged in its shared memory, a lane a column, rank 32), with no barrier
-// between warps.  Block barriers separate the three steps.  The
-// substitutions (big_solve) walk the same 32-row blocks: warp 0 solves the
-// diagonal block with shuffles, every thread then updates one row
-// (forward) or one column (backward) of the rest.  factor_solve and
-// resolve run that one function on the same L with the same reciprocals
-// (resolve takes them as 1 / L[i][i], the bits warp_chol::factor keeps),
-// so resolve returns factor_solve's x bit for bit; the factor alone stops
-// before the solve (kSolve), so it returns factor_solve's L bit for bit.
-// A pivot <= 0 or NaN turns the entry's lower triangle (and x) into NaN;
-// each entry is its own block.  This design is latency-bound: twelve
-// panel steps at n = 365, each of one warp's diagonal factor and three
-// block barriers, and a trailing update that spills registers (an H100
-// took 0.77 ms a factor_solve at B = 64, n = 365, PERF.md).  Built with
-// -DLSC_CHOL_MAX_G=0 (a measurement build, never the package's), the
-// one-block kernels take every large n; with 4 or 8, clusters of up to 4
-// or 8 blocks take the shapes they hold.
+// (chol_cluster.cuh, which has its own note).  Past that, the tiled design
+// (chol_tiled.cuh, its own note): one persistent launch of the factor for
+// the whole batch, 64 x 64 tiles of L in device memory taken as tasks in
+// one fixed order (each tile left-looking, one writer, its sums in one
+// order), then a warp-specialised solve, one block a matrix; resolve runs
+// that solve alone on a kept L, so it returns factor_solve's x bit for
+// bit, and the factor alone is the factor launch alone, so it returns
+// factor_solve's L bit for bit.  The factor takes a zeroed workspace of
+// ints (chol_tiled::work_ints: a task counter, a flag a tile and a failed
+// flag an entry; the launch zeroes it with cudaMemsetAsync).
+//
+// The first design past the clusters, one block of 256 threads a matrix
+// (big_factor_solve_kernel, big_resolve_kernel: right-looking 32-wide
+// panels, warp 0 factoring each diagonal tile, three block barriers a
+// panel step, L in device memory, n <= 1024), stays behind
+// -DLSC_CHOL_ONE_BLOCK, a measurement build: it then takes the shapes the
+// tiled design takes (up to 1024).  Built with -DLSC_CHOL_MAX_G=0 (also a
+// measurement build, never the package's) no cluster runs: the tiled
+// design (or, with LSC_CHOL_ONE_BLOCK, the one-block kernels) takes every
+// large n; with 4 or 8, clusters of up to 4 or 8 blocks take the shapes
+// they hold.
 
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -shared -Xcompiler -fPIC (lsc_planner_tpu_torch/ops/_build.py).
@@ -92,18 +87,15 @@
 #include <algorithm>
 
 #include "chol_cluster.cuh"
+#include "chol_tiled.cuh"
 #include "warp_chol.cuh"
 
 namespace {
 
 constexpr int kMaxN = 64;      // two rows per lane in the one-warp solve
 constexpr int kFsWarps = 4;   // matrices a block: the kernels up to kMaxN
-constexpr int kBigMaxN = 1024;          // the block-a-matrix kernels' cap
-constexpr int kPanel = 32;              // their panel width
-constexpr int kBigWarps = 8;
-constexpr int kBigThreads = kBigWarps * 32;
-constexpr int kTile = kPanel * (kPanel + 1);   // a padded panel block
-constexpr size_t kBigSmemCap = 200 * 1024;     // f64 at kBigMaxN: 156 KB
+constexpr int kLargeMaxN = chol_tiled::kMaxN;   // the wrappers' cap
+constexpr int kClusterMaxN = chol_cluster::kMaxNt * chol_cluster::kT;
 
 template <typename T> __device__ T quiet_nan();
 template <> __device__ float quiet_nan<float>() {
@@ -178,9 +170,18 @@ resolve_kernel(const T* __restrict__ L, const T* __restrict__ rhs,
   if (r1 < n) x[b * n + r1] = z1;
 }
 
+#ifdef LSC_CHOL_ONE_BLOCK
 // ---------------------------------------------------------------------
-// 64 < n <= kBigMaxN: one block a matrix (see the note at the top)
+// The first design past the clusters, one block a matrix (see the note
+// at the top), n <= kBigMaxN: measurement builds only (LSC_CHOL_ONE_BLOCK)
 // ---------------------------------------------------------------------
+
+constexpr int kBigMaxN = 1024;          // the block-a-matrix kernels' cap
+constexpr int kPanel = 32;              // their panel width
+constexpr int kBigWarps = 8;
+constexpr int kBigThreads = kBigWarps * 32;
+constexpr int kTile = kPanel * (kPanel + 1);   // a padded panel block
+constexpr size_t kBigSmemCap = 200 * 1024;     // f64 at kBigMaxN: 156 KB
 
 // Shared memory of the large-n kernels, in elements of T: the diagonal's
 // reciprocals and the solve's vector (n each), a diagonal tile, and (the
@@ -453,6 +454,76 @@ int launch_big_resolve(const T* L, const T* rhs, T* x, int B, int n,
   big_resolve_kernel<T><<<B, kBigThreads, smem, stream>>>(L, rhs, x, n);
   return static_cast<int>(cudaGetLastError());
 }
+#endif  // LSC_CHOL_ONE_BLOCK
+
+// The tiled design: a grid of as many factor blocks as are resident on the
+// device (queried once a device, at the first, uncaptured launch, as is the
+// solve's shared-memory attribute: no query or attribute call inside a
+// captured CUDA graph after that), at most one a task.
+template <typename T>
+int tiled_prepare(int* grid) {
+  static int resident[64];
+  static bool solve_smem[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (!resident[dev]) {
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, chol_tiled::tiled_factor_kernel<T>, chol_tiled::kThreads, 0);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (per_sm < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
+    resident[dev] = per_sm * sms;
+  }
+  if (!solve_smem[dev]) {
+    const size_t most = chol_tiled::solve_smem_bytes<T>(chol_tiled::kMaxN);
+    if (most > 48 * 1024) {
+      err = cudaFuncSetAttribute(chol_tiled::tiled_solve_kernel<T>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(most));
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    solve_smem[dev] = true;
+  }
+  *grid = resident[dev];
+  return 0;
+}
+
+template <typename T>
+int launch_tiled_solve(const T* L, const T* rhs, T* x, int B, int n,
+                       cudaStream_t stream) {
+  int grid = 0;
+  const int err = tiled_prepare<T>(&grid);
+  if (err) return err;
+  chol_tiled::tiled_solve_kernel<T>
+      <<<B, chol_tiled::Solve<T>::kThreads,
+         chol_tiled::solve_smem_bytes<T>(n), stream>>>(L, rhs, x, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the factor (work: chol_tiled::work_ints(n, B) ints, zeroed here), then
+// with kSolve the solve of the same L
+template <typename T, bool kSolve>
+int launch_tiled_factor(const T* H, const T* rhs, T* L, T* x, int* work,
+                        int B, int n, cudaStream_t stream) {
+  if (work == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  int grid = 0;
+  int err = tiled_prepare<T>(&grid);
+  if (err) return err;
+  const cudaError_t e = cudaMemsetAsync(
+      work, 0, sizeof(int) * chol_tiled::work_ints(n, B), stream);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long tasks = chol_tiled::task_count(n, B);
+  if (tasks < grid) grid = static_cast<int>(tasks);
+  chol_tiled::tiled_factor_kernel<T>
+      <<<grid, chol_tiled::kThreads, 0, stream>>>(H, L, work, n, B);
+  err = static_cast<int>(cudaGetLastError());
+  if (err || !kSolve) return err;
+  return launch_tiled_solve<T>(L, rhs, x, B, n, stream);
+}
 
 // The cluster design's plan for (n, element bytes): G blocks a matrix (0
 // where no cluster of at most kMaxG holds the factor, or n <= kMaxN: the
@@ -465,7 +536,7 @@ struct ClusterPlan {
 };
 
 ClusterPlan cluster_plan(int n, int elem) {
-  if (n <= kMaxN || n > kBigMaxN) return {0, 0, 0};
+  if (n <= kMaxN || n > kClusterMaxN) return {0, 0, 0};
   for (int G = 1; G <= chol_cluster::kMaxG; G *= 2) {
     size_t f = 0, r = 0;
     for (int rank = 0; rank < G; ++rank) {
@@ -572,8 +643,8 @@ int launch_factor_solve_nc(const T* H, const T* rhs, T* L, T* x, int B, int n,
 // rhs and x are then null and never read.
 template <typename T, bool kSolve>
 int launch_factor_solve(const void* H, const void* rhs, void* L, void* x,
-                        int B, int n, void* stream) {
-  if (n < 1 || n > kBigMaxN || B < 0)
+                        void* work, int B, int n, void* stream) {
+  if (n < 1 || n > kLargeMaxN || B < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return static_cast<int>(cudaGetLastError());
   const T* h = static_cast<const T*>(H);
@@ -585,7 +656,14 @@ int launch_factor_solve(const void* H, const void* rhs, void* L, void* x,
     const ClusterPlan p = cluster_plan(n, sizeof(T));
     if (p.G)
       return launch_cluster_factor<T, kSolve>(h, r, l, xx, B, n, p, st);
+#ifdef LSC_CHOL_ONE_BLOCK
+    (void)work;
+    if (n > kBigMaxN) return static_cast<int>(cudaErrorInvalidValue);
     return launch_big_factor<T, kSolve>(h, r, l, xx, B, n, st);
+#else
+    return launch_tiled_factor<T, kSolve>(h, r, l, xx,
+                                          static_cast<int*>(work), B, n, st);
+#endif
   }
   // NC = 40 holds the QP's n = 39; NC = 64 every other n up to kMaxN
   if (n <= 40)
@@ -596,7 +674,7 @@ int launch_factor_solve(const void* H, const void* rhs, void* L, void* x,
 template <typename T>
 int launch_resolve(const void* L, const void* rhs, void* x, int B, int n,
                    void* stream) {
-  if (n < 1 || n > kBigMaxN || B < 0)
+  if (n < 1 || n > kLargeMaxN || B < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return static_cast<int>(cudaGetLastError());
   if (n > kMaxN) {
@@ -606,7 +684,12 @@ int launch_resolve(const void* L, const void* rhs, void* x, int B, int n,
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const ClusterPlan p = cluster_plan(n, sizeof(T));
     if (p.G) return launch_cluster_resolve<T>(l, r, xx, B, n, p, st);
+#ifdef LSC_CHOL_ONE_BLOCK
+    if (n > kBigMaxN) return static_cast<int>(cudaErrorInvalidValue);
     return launch_big_resolve<T>(l, r, xx, B, n, st);
+#else
+    return launch_tiled_solve<T>(l, r, xx, B, n, st);
+#endif
   }
   const size_t smem = static_cast<size_t>(kFsWarps) * n * n * sizeof(T);
   if (smem > 48 * 1024) {
@@ -627,14 +710,18 @@ int launch_resolve(const void* L, const void* rhs, void* x, int B, int n,
 
 extern "C" {
 
+// work: chol_tiled::work_ints(n, B) ints of device memory for the tiled
+// design (lsc_chol_tiled_work), null where another design runs
 int lsc_chol_factor_solve_f32(const void* H, const void* rhs, void* L,
-                              void* x, int B, int n, void* stream) {
-  return launch_factor_solve<float, true>(H, rhs, L, x, B, n, stream);
+                              void* x, void* work, int B, int n,
+                              void* stream) {
+  return launch_factor_solve<float, true>(H, rhs, L, x, work, B, n, stream);
 }
 
 int lsc_chol_factor_solve_f64(const void* H, const void* rhs, void* L,
-                              void* x, int B, int n, void* stream) {
-  return launch_factor_solve<double, true>(H, rhs, L, x, B, n, stream);
+                              void* x, void* work, int B, int n,
+                              void* stream) {
+  return launch_factor_solve<double, true>(H, rhs, L, x, work, B, n, stream);
 }
 
 int lsc_chol_resolve_f32(const void* L, const void* rhs, void* x, int B,
@@ -642,21 +729,37 @@ int lsc_chol_resolve_f32(const void* L, const void* rhs, void* x, int B,
   return launch_resolve<float>(L, rhs, x, B, n, stream);
 }
 
-int lsc_chol_factor_f32(const void* H, void* L, int B, int n,
+int lsc_chol_factor_f32(const void* H, void* L, void* work, int B, int n,
                         void* stream) {
-  return launch_factor_solve<float, false>(H, nullptr, L, nullptr, B, n,
-                                          stream);
+  return launch_factor_solve<float, false>(H, nullptr, L, nullptr, work, B,
+                                           n, stream);
 }
 
-int lsc_chol_factor_f64(const void* H, void* L, int B, int n,
+int lsc_chol_factor_f64(const void* H, void* L, void* work, int B, int n,
                         void* stream) {
-  return launch_factor_solve<double, false>(H, nullptr, L, nullptr, B, n,
-                                           stream);
+  return launch_factor_solve<double, false>(H, nullptr, L, nullptr, work,
+                                            B, n, stream);
 }
 
 int lsc_chol_resolve_f64(const void* L, const void* rhs, void* x, int B,
                          int n, void* stream) {
   return launch_resolve<double>(L, rhs, x, B, n, stream);
+}
+
+// ints of the tiled design's workspace at (n, B)
+long long lsc_chol_tiled_work(int n, int B) {
+  return static_cast<long long>(chol_tiled::work_ints(n, B));
+}
+
+// out: (entry, tile row, tile column) of the tiled factor's task t on B
+// matrices of size n, (b, -1, -1) for entry b's last task; returns the
+// number of tasks
+long long lsc_chol_tiled_task(int n, int B, long long t, int* out) {
+  const chol_tiled::Task tk = chol_tiled::task_of(t, n, B);
+  out[0] = tk.b;
+  out[1] = tk.i;
+  out[2] = tk.j;
+  return chol_tiled::task_count(n, B);
 }
 
 // out: G, the factor's and the resolve's shared-memory bytes a block
@@ -679,6 +782,26 @@ int lsc_chol_stamps(void* out, int reset) {
   if (err == cudaSuccess && reset) {
     const unsigned long long zero[chol_cluster::kStamps] = {};
     err = cudaMemcpyToSymbol(chol_cluster::lsc_chol_stamps, zero,
+                             sizeof zero);
+  }
+  return static_cast<int>(err);
+#else
+  (void)out;
+  (void)reset;
+  return -1;
+#endif
+}
+
+// The tiled design's clock stamps (chol_tiled::kTsStamps counters), as
+// lsc_chol_stamps.
+int lsc_chol_tiled_stamps(void* out, int reset) {
+#ifdef LSC_CHOL_STAMPS
+  cudaError_t err = cudaMemcpyFromSymbol(
+      out, chol_tiled::lsc_tiled_stamps,
+      sizeof(unsigned long long) * chol_tiled::kTsStamps);
+  if (err == cudaSuccess && reset) {
+    const unsigned long long zero[chol_tiled::kTsStamps] = {};
+    err = cudaMemcpyToSymbol(chol_tiled::lsc_tiled_stamps, zero,
                              sizeof zero);
   }
   return static_cast<int>(err);

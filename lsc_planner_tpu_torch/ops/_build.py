@@ -30,7 +30,8 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("chol.cu", "ipm.cu", "wavefront.cu", "corridor.cu")
 HEADERS = ("warp_chol.cuh",      # included by chol.cu and ipm.cu
-           "chol_cluster.cuh")   # included by chol.cu
+           "chol_cluster.cuh",   # included by chol.cu
+           "chol_tiled.cuh")     # included by chol.cu
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -47,17 +48,24 @@ build_log = None
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 _SIGNATURES = {
-    # inputs and outputs; B, n; stream
-    "lsc_chol_factor_solve_f32": [_PTR] * 4 + [_INT] * 2 + [_PTR],
-    "lsc_chol_factor_solve_f64": [_PTR] * 4 + [_INT] * 2 + [_PTR],
+    # inputs and outputs (and the tiled factor's workspace, or null); B, n;
+    # stream
+    "lsc_chol_factor_solve_f32": [_PTR] * 5 + [_INT] * 2 + [_PTR],
+    "lsc_chol_factor_solve_f64": [_PTR] * 5 + [_INT] * 2 + [_PTR],
     "lsc_chol_resolve_f32": [_PTR] * 3 + [_INT] * 2 + [_PTR],
-    "lsc_chol_factor_f32": [_PTR] * 2 + [_INT] * 2 + [_PTR],
-    "lsc_chol_factor_f64": [_PTR] * 2 + [_INT] * 2 + [_PTR],
+    "lsc_chol_factor_f32": [_PTR] * 3 + [_INT] * 2 + [_PTR],
+    "lsc_chol_factor_f64": [_PTR] * 3 + [_INT] * 2 + [_PTR],
     "lsc_chol_resolve_f64": [_PTR] * 3 + [_INT] * 2 + [_PTR],
     # n, element bytes; out (3 x long long)
     "lsc_chol_cluster_plan": [_INT, _INT, _PTR],
     # out (host, chol_cluster::kStamps x unsigned long long), reset
     "lsc_chol_stamps": [_PTR, _INT],
+    # out (host, chol_tiled::kTsStamps x unsigned long long), reset
+    "lsc_chol_tiled_stamps": [_PTR, _INT],
+    # n, B: the tiled workspace's ints (returns long long)
+    "lsc_chol_tiled_work": [_INT, _INT],
+    # n, B, task; out (3 x int): returns the number of tasks (long long)
+    "lsc_chol_tiled_task": [_INT, _INT, ctypes.c_longlong, _PTR],
     # 10 inputs, 5 outputs, scratch; scratch floats; rows_smem, qpb (from
     # the plan), D, N, nf, Ru, C, M, n1, iters, correctors; reg, s_min,
     # tol_gap, tol_rp, tol_rd, tol_step; stream
@@ -77,6 +85,7 @@ _SIGNATURES = {
     "lsc_expand_boxes_k": [],
 }
 _SIGNATURES["lsc_expand_boxes_f64"] = _SIGNATURES["lsc_expand_boxes_f32"]
+_LONG_RESULTS = ("lsc_chol_tiled_work", "lsc_chol_tiled_task")
 # the measurement build's (-DLSC_CORRIDOR_STAMPS): the same, then the
 # stamps (N, 4) uint64 before the stream
 _STAMPED = _SIGNATURES["lsc_expand_boxes_f32"][:-1] + [_PTR, _PTR]
@@ -147,7 +156,8 @@ def _load(path: Path) -> ctypes.CDLL:
         if hasattr(lib, name):
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = (ctypes.c_longlong if name in _LONG_RESULTS
+                          else ctypes.c_int)
     return lib
 
 
@@ -182,9 +192,10 @@ def load_library() -> ctypes.CDLL:
 def load_variant(sources, defines) -> tuple:
     """(library, nvcc's output or None when loaded as built before) of
     `sources` built with the preprocessor `defines` (such as
-    "LSC_CHOL_STAMPS" or "LSC_CHOL_MAX_G=0") besides NVCC_FLAGS: a
-    measurement build, apart from the package's own library (and built
-    while it builds, from another thread).  Raises as load_library does."""
+    "LSC_CHOL_STAMPS", "LSC_CHOL_MAX_G=0" or "LSC_CHOL_ONE_BLOCK") besides
+    NVCC_FLAGS: a measurement build, apart from the package's own library
+    (and built while it builds, from another thread).  Raises as
+    load_library does."""
     flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
     key = (tuple(sources), flags)
     with _variant_lock:

@@ -17,12 +17,15 @@ calls it.
 
 Up to ``WARP_MAX_N`` = 64 each kernel runs one warp a matrix (the IPM's
 n = 39).  Above it, up to ``MAX_N`` (the slack-relaxed QP's n = nv + C M:
-359 at 64 agents), one thread-block cluster a matrix with the factor in
-the cluster's shared memory where ``large_plan`` finds a cluster of one
-or two blocks that holds it (f32 up to n = 384, f64 up to 256), and one
-block a matrix with the factor in device memory past that.  The choice
-is by shape alone; either design is a kernel, and a kernel that cannot
-build or launch raises.
+359 at 64 agents, 525 at 96), one thread-block cluster a matrix with the
+factor in the cluster's shared memory where ``large_plan`` finds a
+cluster of one or two blocks that holds it (f32 up to n = 384, f64 up to
+256), and the tiled design past that (``csrc/chol_tiled.cuh``): one
+persistent launch of the factor for the whole batch, 64 x 64 tiles of L
+in device memory taken as tasks in the order ``tiled_tasks`` mirrors,
+then a warp-specialised solve, one block a matrix.  The choice is by
+shape alone; either design is a kernel, and a kernel that cannot build or
+launch raises.
 """
 from __future__ import annotations
 
@@ -33,8 +36,10 @@ import torch
 from . import _build
 
 WARP_MAX_N = 64        # the one-warp kernels' range
-MAX_N = 1024           # the large-n kernels' cap
+MAX_N = 4096           # the large-n kernels' cap (chol_tiled.cuh, kMaxN)
+CLUSTER_MAX_N = 1024   # the cluster kernels' (chol_cluster.cuh, kMaxNt)
 TILE = 32              # the cluster kernels' tile edge
+TILED_TILE = 64        # the tiled design's tile edge (chol_tiled.cuh, kT)
 SMEM_CAP = 232448      # shared-memory bytes a block of an H100 can have
 # the cluster sizes the plan takes (csrc/chol_cluster.cuh, kMaxG): at the
 # slack QP's B = 64, clusters of 4 or 8 blocks a matrix need two or four
@@ -46,33 +51,33 @@ _HDR = 16 + 4 * (2 * 32 + 32 * CLUSTER_SIZES[-1])   # bytes before a
 
 # launches of each kernel since the last reset (CUDA only; the plain
 # versions never count): the one-warp kernels (n <= WARP_MAX_N), the
-# cluster ones (*_cluster) and the block-a-matrix ones (*_large)
+# cluster ones (*_cluster) and the tiled ones (*_tiled)
 factor_solve_launches = 0
 resolve_launches = 0
 factor_launches = 0
 factor_solve_cluster_launches = 0
 resolve_cluster_launches = 0
 factor_cluster_launches = 0
-factor_solve_large_launches = 0
-resolve_large_launches = 0
-factor_large_launches = 0
+factor_solve_tiled_launches = 0
+resolve_tiled_launches = 0
+factor_tiled_launches = 0
 
 
 def reset_counts() -> None:
     global factor_solve_launches, resolve_launches, factor_launches
     global factor_solve_cluster_launches, resolve_cluster_launches
     global factor_cluster_launches
-    global factor_solve_large_launches, resolve_large_launches
-    global factor_large_launches
+    global factor_solve_tiled_launches, resolve_tiled_launches
+    global factor_tiled_launches
     factor_solve_launches = 0
     resolve_launches = 0
     factor_launches = 0
     factor_solve_cluster_launches = 0
     resolve_cluster_launches = 0
     factor_cluster_launches = 0
-    factor_solve_large_launches = 0
-    resolve_large_launches = 0
-    factor_large_launches = 0
+    factor_solve_tiled_launches = 0
+    resolve_tiled_launches = 0
+    factor_tiled_launches = 0
 
 
 def cluster_cuts(n: int, G: int) -> list:
@@ -124,10 +129,10 @@ def large_plan(n: int, dtype) -> tuple | None:
     """(G, shared-memory bytes a block) of the cluster design at n > 64:
     the smallest cluster of CLUSTER_SIZES whose largest block holds its
     tiles and buffers in SMEM_CAP; None where none does (f32 past n =
-    384, f64 past 256: the one-block kernels run) or n is outside
-    WARP_MAX_N < n <= MAX_N.  Mirrors csrc/chol.cu::cluster_plan; cached
-    (the wrappers ask at every call, 120 a slack-QP cycle)."""
-    if not WARP_MAX_N < n <= MAX_N:
+    384, f64 past 256: the tiled design runs) or n is outside
+    WARP_MAX_N < n <= CLUSTER_MAX_N.  Mirrors csrc/chol.cu::cluster_plan;
+    cached (the wrappers ask at every call, 120 a slack-QP cycle)."""
+    if not WARP_MAX_N < n <= CLUSTER_MAX_N:
         return None
     elem = torch.empty((), dtype=dtype).element_size()
     for G in CLUSTER_SIZES:
@@ -139,10 +144,52 @@ def large_plan(n: int, dtype) -> tuple | None:
 
 def large_design(n: int, dtype) -> str | None:
     """The kernel that runs at n: None (one warp a matrix, n <= 64),
-    "cluster" (large_plan has a plan) or "block"."""
+    "cluster" (large_plan has a plan) or "tiled"."""
     if n <= WARP_MAX_N:
         return None
-    return "cluster" if large_plan(n, dtype) is not None else "block"
+    return "cluster" if large_plan(n, dtype) is not None else "tiled"
+
+
+def tiled_tasks(n: int, tile: int = TILED_TILE) -> list:
+    """The tiled factor's tasks for one matrix, in the order the kernel
+    takes them (csrc/chol_tiled.cuh, task_of): [(i, j, ks)], tile (i, j)
+    of the lower triangle, with ks its k-tiles in the order its sum H_ij
+    - sum_k L_ik L_jk^T runs.  The order: (0, 0), then tile column by
+    tile column, column j's (j + 1, j), then the next diagonal tile (j +
+    1, j + 1), then (j + 2, j) .. .  Tile (i, j) reads tiles (i, k) and
+    (j, k) for k in ks and, for i > j, (j, j).  Over a batch of B the
+    kernel takes task p of this list for entries 0 .. B - 1 before task p
+    + 1 (tiled_task)."""
+    return [(i, j, list(range(j))) for i, j in _tile_order(n, tile)]
+
+
+@functools.lru_cache(maxsize=None)
+def _tile_order(n, tile):
+    nt = -(-n // tile)
+    order = [(0, 0)]
+    for j in range(nt - 1):
+        order += [(j + 1, j), (j + 1, j + 1)]
+        order += [(i, j) for i in range(j + 2, nt)]
+    return tuple(order)
+
+
+def tiled_task(t: int, n: int, B: int, tile: int = TILED_TILE) -> tuple:
+    """(entry, tile row, tile column) of task t of the tiled factor on B
+    matrices (csrc/chol_tiled.cuh, task_of): tiled_tasks' task t // B for
+    entry t % B, then each entry's last task (b, -1, -1), which fills
+    the entry's lower triangle with NaN when a pivot failed."""
+    tiles = _tile_order(n, tile)
+    if t >= B * len(tiles):
+        return t - B * len(tiles), -1, -1
+    i, j = tiles[t // B]
+    return t % B, i, j
+
+
+def tiled_work_ints(n: int, B: int, tile: int = TILED_TILE) -> int:
+    """Ints of the tiled factor's workspace (chol_tiled.cuh, work_ints):
+    the task counter, a failed flag an entry, a flag a tile an entry."""
+    nt = -(-n // tile)
+    return 1 + B * (1 + nt * (nt + 1) // 2)
 
 
 # ----------------------------------------------------------------------
@@ -217,13 +264,22 @@ def _suffix(dtype):
     return "f32" if dtype == torch.float32 else "f64"
 
 
-_COUNTER_SUFFIX = {None: "", "cluster": "_cluster", "block": "_large"}
+_COUNTER_SUFFIX = {None: "", "cluster": "_cluster", "tiled": "_tiled"}
 
 
 def _count(kind, ran):
     """Adds a launch of `kind` ("factor_solve", "resolve", "factor") of
     the kernel `ran` (large_design's answer) to its counter."""
     globals()[f"{kind}{_COUNTER_SUFFIX[ran]}_launches"] += 1
+
+
+def _work(ran, n, B, device):
+    """The tiled factor's workspace (the launch zeroes it), None for the
+    other designs."""
+    if ran != "tiled":
+        return None
+    return torch.empty(tiled_work_ints(n, B), dtype=torch.int32,
+                       device=device)
 
 
 def _factor_solve_cuda(H, rhs):
@@ -233,9 +289,11 @@ def _factor_solve_cuda(H, rhs):
     B = H3.shape[0]
     L = torch.empty_like(H3)
     x = torch.empty_like(r2)
+    work = _work(ran, n, B, H.device)
     err = _build.launch(
         getattr(lib, "lsc_chol_factor_solve_" + _suffix(H.dtype)), H.device,
-        H3.data_ptr(), r2.data_ptr(), L.data_ptr(), x.data_ptr(), B, n)
+        H3.data_ptr(), r2.data_ptr(), L.data_ptr(), x.data_ptr(),
+        None if work is None else work.data_ptr(), B, n)
     if err:
         raise RuntimeError(f"chol_factor_solve kernel launch failed: CUDA "
                            f"error {err}")
@@ -249,8 +307,10 @@ def _factor_cuda(H):
     ran = large_design(n, H.dtype)
     B = H3.shape[0]
     L = torch.empty_like(H3)
+    work = _work(ran, n, B, H.device)
     err = _build.launch(getattr(lib, "lsc_chol_factor_" + _suffix(H.dtype)),
-                        H.device, H3.data_ptr(), L.data_ptr(), B, n)
+                        H.device, H3.data_ptr(), L.data_ptr(),
+                        None if work is None else work.data_ptr(), B, n)
     if err:
         raise RuntimeError(f"cholesky_batched kernel launch failed: CUDA "
                            f"error {err}")

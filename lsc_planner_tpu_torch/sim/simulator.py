@@ -245,9 +245,9 @@ def launch_counts() -> dict:
             "factor_solve_cluster": chol.factor_solve_cluster_launches,
             "resolve_cluster": chol.resolve_cluster_launches,
             "cholesky_batched_cluster": chol.factor_cluster_launches,
-            "factor_solve_large": chol.factor_solve_large_launches,
-            "resolve_large": chol.resolve_large_launches,
-            "cholesky_batched_large": chol.factor_large_launches,
+            "factor_solve_tiled": chol.factor_solve_tiled_launches,
+            "resolve_tiled": chol.resolve_tiled_launches,
+            "cholesky_batched_tiled": chol.factor_tiled_launches,
             "fused_ipm": ipm.fused_launches,
             "wavefront": wavefront.wavefront_launches,
             "expand_boxes": corridor_ops.expand_launches}

@@ -15,7 +15,7 @@ or another one unpacked with `git archive`): the fused IPM in 3-D at the
 main path's shapes (B, C) = (1024, 32), (64, 64), (128, 128), Param's
 tolerances, with each QP's own iteration count; factor_solve, resolve and
 the factor alone at n = 39 and 64, f32 and f64, and at the large n of the
-slack QP (B = 64, n = 365, f32) and of the one-block kernels (n = 1024,
+slack QP (B = 64, n = 365, f32) and of the tiled design (n = 1024,
 f32); the face expansion's boxes on forest20's cycle-4 and cycle-21
 calls and the 30 m forest's seeds (expand_cases); each fused call's time,
 each large-n kernel's and each face expansion's (CUDA events, median of
@@ -30,18 +30,26 @@ times only from dumps made in one call on one card, in turns (A, B, B,
 A).
 
 `split` builds csrc/chol.cu alone with -DLSC_CHOL_STAMPS (clock64
-intervals of the first matrix's blocks, csrc/chol_cluster.cuh), once as
-the package builds it and once with -DLSC_CHOL_MAX_G=0 (the one-block
-kernels at every large n), apart from the package's library, and prints
-as JSON, for the cluster and the one-block kernels at the slack QP's B =
-64, n = 365 in f32 (IPM-like systems), each phase's cycles a launch of
-factor_solve, the factor alone and resolve (load, diagonal factors,
-panel solves, trailing updates, L out, forward and backward
-substitution, total) beside the event-timed ms of the stamped and of the
-unstamped build, and the card's name, power limit and SM clock.  The
-diagonal factors overlap the trailing updates in the cluster kernel
-(look-ahead); its other phases are intervals of the first block's thread
-0 between cluster barriers.
+intervals), once as the package builds it and once with
+-DLSC_CHOL_MAX_G=0 -DLSC_CHOL_ONE_BLOCK (the first design past the
+clusters, one block a matrix, at every large n), apart from the
+package's library, and prints as JSON, on IPM-like systems, each phase's
+cycles a launch of factor_solve, the factor alone and resolve beside the
+event-timed ms of the stamped and of the unstamped build, and the card's
+name, power limit and SM clock: for the cluster and the one-block kernels
+at the slack QP's B = 64, n = 365 in f32 (STAMPS: load, diagonal
+factors, panel solves, trailing updates, L out, forward and backward
+substitution, total; the first matrix's blocks, csrc/chol_cluster.cuh),
+and for the tiled design at B = 64, n = 1024 and B = 96, n = 525 in f32
+and B = 64, n = 365 in f64 (TILED_STAMPS, csrc/chol_tiled.cuh: the
+factor's flag waits, updates, POTRF, TRSM, tile writes and last tasks of
+the first matrix's tasks, as thread 0 of each task's block sees them,
+with the number of its tasks and k-tiles; the solve's chain (diagonal
+solves) and its waits for the streamers' partials, the streamers' loads
+and FMAs and their waits for the chain, summed over the streamers, and
+the solve's total, all in block 0).  The diagonal factors overlap the
+trailing updates in the cluster kernel (look-ahead); its other phases
+are intervals of the first block's thread 0 between cluster barriers.
 
 `corridor` builds csrc/corridor.cu alone for each K of CORRIDOR_KS
 (-DLSC_CORRIDOR_K, the tries a round speculates), with
@@ -54,12 +62,14 @@ cycles, cycles a try and a round, the event-timed ms of the stamped and
 the unstamped build, with ptxas's registers and spills; and the K the
 package's build takes, and the card's name, power limit and SM clock.
 
-`designs` times three builds of chol.cu in turns at B = 64 on IPM-like
+`designs` times four builds of chol.cu in turns at B = 64 on IPM-like
 systems, f32 and f64, at the n of DESIGN_CASES: the package's (clusters
-of 1 or 2 blocks where they hold the factor, else one block a matrix),
--DLSC_CHOL_MAX_G=0 (one block a matrix at every large n) and
--DLSC_CHOL_MAX_G=8 (clusters of up to 8 blocks): the measurement behind
-the plan's cluster sizes.
+of 1 or 2 blocks where they hold the factor, else the tiled design),
+-DLSC_CHOL_MAX_G=0 -DLSC_CHOL_ONE_BLOCK (one block a matrix at every
+large n), -DLSC_CHOL_MAX_G=8 (clusters of up to 8 blocks, the tiled
+design past them) and -DLSC_CHOL_MAX_G=0 (the tiled design at every
+large n): the measurement behind the plan's cluster sizes and its
+boundary.
 """
 import ctypes
 import json
@@ -196,11 +206,23 @@ STAMPS = ("load", "diagonal factors", "panel solves", "trailing updates",
           "tile updates", "cluster barrier waits", "L out",
           "forward substitution", "backward substitution", "solve flag waits",
           "solve publishing", "total")
+# csrc/chol_tiled.cuh's stamps (enum Stamp), in cycles but for the counts
+TILED_STAMPS = ("factor flag waits", "factor updates", "factor POTRF",
+                "factor TRSM", "factor tile writes", "factor last tasks",
+                "factor tasks (count)", "factor k-tiles (count)",
+                "solve chain", "solve chain waits", "solve streaming",
+                "solve streamer waits", "solve total",
+                "factor TRSM's wait for L_jj")
 # builds of csrc/chol.cu: the package's (the cluster kernels at the slack
-# QP's n = 365), the one-block kernels at every large n, clusters of up to
-# 8 blocks
-BUILDS = {"cluster": [], "block": ["LSC_CHOL_MAX_G=0"],
-          "clusters up to 8": ["LSC_CHOL_MAX_G=8"]}
+# QP's n = 365 in f32, the tiled design past the clusters), the first
+# design past the clusters (one block a matrix) at every large n,
+# clusters of up to 8 blocks, the tiled design at every large n
+BUILDS = {"cluster": [], "block": ["LSC_CHOL_MAX_G=0", "LSC_CHOL_ONE_BLOCK"],
+          "clusters up to 8": ["LSC_CHOL_MAX_G=8"],
+          "tiled": ["LSC_CHOL_MAX_G=0"]}
+# the tiled design's shapes that `split` stamps: (B, n, dtype)
+TILED_SPLIT = ((64, 1024, torch.float32), (96, 525, torch.float32),
+               (64, 365, torch.float64))
 
 
 def chol_builds(names, stamps):
@@ -220,19 +242,22 @@ def chol_builds(names, stamps):
 
 def chol_calls(H, r, L, x):
     """{kind: call(lib)} launching factor_solve, the factor alone and
-    resolve of `lib` (a build of csrc/chol.cu) on H, r into L, x."""
-    from lsc_planner_tpu_torch.ops import _build
+    resolve of `lib` (a build of csrc/chol.cu) on H, r into L, x (with the
+    tiled design's workspace, which the other designs do not read)."""
+    from lsc_planner_tpu_torch.ops import _build, chol
 
     B, n = r.shape
     sfx = "f32" if H.dtype == torch.float32 else "f64"
     dev = H.device
+    work = torch.empty(chol.tiled_work_ints(n, B), dtype=torch.int32,
+                       device=dev)
     return {
         "factor_solve": lambda lb: _build.launch(
             getattr(lb, "lsc_chol_factor_solve_" + sfx), dev, H.data_ptr(),
-            r.data_ptr(), L.data_ptr(), x.data_ptr(), B, n),
+            r.data_ptr(), L.data_ptr(), x.data_ptr(), work.data_ptr(), B, n),
         "factor": lambda lb: _build.launch(
             getattr(lb, "lsc_chol_factor_" + sfx), dev, H.data_ptr(),
-            L.data_ptr(), B, n),
+            L.data_ptr(), work.data_ptr(), B, n),
         "resolve": lambda lb: _build.launch(
             getattr(lb, "lsc_chol_resolve_" + sfx), dev, L.data_ptr(),
             r.data_ptr(), x.data_ptr(), B, n),
@@ -261,31 +286,35 @@ def split(path=None):
     designs = ("cluster", "block")
     stamped = chol_builds(designs, True)
     normal = chol_builds(designs, False)
-    B, n = 64, 365
-    H, r = large_inputs(B, n, n)
-    L, x = torch.empty_like(H), torch.empty_like(r)
-    stamps = (ctypes.c_ulonglong * len(STAMPS))()
-    calls = chol_calls(H, r, L, x)
-    out = {"device": torch.cuda.get_device_name(0), "B": B, "n": n,
-           "dtype": "float32", "phases": STAMPS}
-    for name in designs:
-        lib = stamped[name]
-        for kind, call in calls.items():
-            for lb in (lib, normal[name]):     # warm, and L for resolve
+    out = {"device": torch.cuda.get_device_name(0), "phases": STAMPS,
+           "tiled phases": TILED_STAMPS}
+    # (design, B, n, dtype, the build, its stamps' reader and names)
+    cases = [(name, 64, 365, torch.float32, name, "lsc_chol_stamps",
+              STAMPS) for name in designs] + \
+        [("tiled", B, n, dtype, "cluster", "lsc_chol_tiled_stamps",
+          TILED_STAMPS) for B, n, dtype in TILED_SPLIT]
+    for name, B, n, dtype, build, reader, names in cases:
+        H, r = (t.to(dtype) for t in large_inputs(B, n, n))
+        L, x = torch.empty_like(H), torch.empty_like(r)
+        stamps = (ctypes.c_ulonglong * len(names))()
+        lib = stamped[build]
+        read = getattr(lib, reader)
+        for kind, call in chol_calls(H, r, L, x).items():
+            for lb in (lib, normal[build]):    # warm, and L for resolve
                 if call(lb):
                     raise RuntimeError(f"{name} {kind}: launch failed")
             torch.cuda.synchronize()
-            if lib.lsc_chol_stamps(stamps, 1):
-                raise RuntimeError("lsc_chol_stamps failed")
+            if read(stamps, 1):
+                raise RuntimeError(f"{reader} failed")
             if call(lib):
                 raise RuntimeError(f"{name} {kind}: launch failed")
             torch.cuda.synchronize()
-            if lib.lsc_chol_stamps(stamps, 1):
-                raise RuntimeError("lsc_chol_stamps failed")
-            out[f"{name} {kind}"] = {
-                "cycles": dict(zip(STAMPS, map(int, stamps))),
+            if read(stamps, 1):
+                raise RuntimeError(f"{reader} failed")
+            out[f"{name} B={B} n={n} {str(dtype)[6:]} {kind}"] = {
+                "cycles": dict(zip(names, map(int, stamps))),
                 "ms_stamped": median_ms(lambda: call(lib)),
-                "ms": median_ms(lambda: call(normal[name]))}
+                "ms": median_ms(lambda: call(normal[build]))}
     out["smi"] = smi()
     emit(out, path)
 
@@ -391,10 +420,10 @@ DESIGN_CASES = tuple((torch.float32, n) for n in (65, 199, 288, 365, 399,
 
 
 def designs(path=None):
-    """The three BUILDS at B = 64 on IPM-like systems (DESIGN_CASES):
+    """The four BUILDS at B = 64 on IPM-like systems (DESIGN_CASES):
     ms of factor_solve, the factor alone and resolve (CUDA events, median
     of 20) of each, in turns (there and back), with the package's cluster
-    size (null: one block a matrix)."""
+    size (null: the tiled design) and design."""
     from lsc_planner_tpu_torch.ops import chol
 
     if not torch.cuda.is_available():
@@ -407,7 +436,8 @@ def designs(path=None):
         L, x = torch.empty_like(H), torch.empty_like(r)
         plan = chol.large_plan(n, dtype)
         case = {"dtype": str(dtype)[6:], "n": n,
-                "G": plan[0] if plan else None}
+                "G": plan[0] if plan else None,
+                "design": chol.large_design(n, dtype)}
         for kind, call in chol_calls(H, r, L, x).items():
             for name in BUILDS:
                 if call(libs[name]):

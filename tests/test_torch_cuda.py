@@ -1030,9 +1030,9 @@ def big_spd_system(B, n, seed, dev):
 LARGE_COUNTERS = {"cluster": ("factor_solve_cluster_launches",
                               "resolve_cluster_launches",
                               "factor_cluster_launches"),
-                  "block": ("factor_solve_large_launches",
-                            "resolve_large_launches",
-                            "factor_large_launches")}
+                  "tiled": ("factor_solve_tiled_launches",
+                            "resolve_tiled_launches",
+                            "factor_tiled_launches")}
 
 
 def large_counts():
@@ -1064,9 +1064,12 @@ def check_large_chol(dev, B, n, dtype):
     xr = chol.chol_resolve(Lk, R1)
     Fk = chol.cholesky_batched(H)
     torch.cuda.synchronize()
-    want = {d: (0, 0, 0) for d in (None, "cluster", "block")}
+    want = {d: (0, 0, 0) for d in (None, "cluster", "tiled")}
     want[ran] = (1, 2, 1)
     assert large_counts() == want
+    L2, x2 = chol.chol_factor_solve(H, R1)       # a second launch
+    assert torch.equal(bits(L2), bits(Lk))
+    assert torch.equal(bits(x2), bits(xk))
     assert torch.equal(xr, xk)
     assert torch.equal(Fk, Lk)
     assert torch.equal(torch.triu(Lk, 1), torch.zeros_like(Lk))
@@ -1106,11 +1109,11 @@ def check_large_chol(dev, B, n, dtype):
                                   (2, 1024)])
 def test_large_n_chol_kernels(cuda, B, n, dtype):
     """Past 64 the chol kernels run one cluster a matrix where a cluster
-    of one or two blocks holds the factor (chol.large_plan), else one block
-    a matrix: held as check_large_chol holds them, on the counters of the
+    of one or two blocks holds the factor (chol.large_plan), else the tiled
+    design: held as check_large_chol holds them, on the counters of the
     design the plan picks."""
     ran = check_large_chol(cuda, B, n, dtype)
-    assert ran == ("cluster" if chol.large_plan(n, dtype) else "block")
+    assert ran == ("cluster" if chol.large_plan(n, dtype) else "tiled")
 
 
 # n at the edges of each cluster size G (chol.large_plan): f32 G = 1 up to
@@ -1129,20 +1132,44 @@ def test_cluster_chol_kernels_at_plan_edges(cuda, dtype, n):
     assert check_large_chol(cuda, 3, n, dtype) == "cluster"
 
 
+# the tiled design's shapes: past the clusters (f32 n > 384, f64 n > 256),
+# the slack QP's n at 96 agents (525) and, in f64, at 64 (365), and past
+# the first design's cap of 1024
+TILED_CASES = [(torch.float32, n) for n in (385, 399, 525, 641, 1024, 1100,
+                                            1536)] + \
+    [(torch.float64, n) for n in (257, 365, 385, 1024, 1100)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,n", [(torch.float32, 385),
-                                     (torch.float32, 399),
-                                     (torch.float32, 641),
-                                     (torch.float32, 1024),
-                                     (torch.float64, 257),
-                                     (torch.float64, 365),
-                                     (torch.float64, 385),
-                                     (torch.float64, 1024)])
+@pytest.mark.parametrize("dtype,n", TILED_CASES)
 def test_block_chol_kernels_past_the_clusters(cuda, dtype, n):
-    """Where no cluster of the plan's sizes holds the factor, the
-    one-block kernels run (and hold) by the plan."""
+    """Where no cluster of the plan's sizes holds the factor, the tiled
+    design runs (and holds, check_large_chol: a second launch the same
+    bits, resolve factor_solve's x and the factor alone its L bit for bit,
+    a non-SPD entry NaN in that entry only) by the plan."""
     assert chol.large_plan(n, dtype) is None
-    assert check_large_chol(cuda, 3, n, dtype) == "block"
+    assert check_large_chol(cuda, 3, n, dtype) == "tiled"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [385, 525, 1100, 1536, chol.MAX_N])
+def test_tiled_task_order_matches_the_mirror(cuda, n):
+    """csrc/chol_tiled.cuh's task order (task_of, read back through
+    lsc_chol_tiled_task) is chol.tiled_task's at every task, and its
+    workspace chol.tiled_work_ints'."""
+    import ctypes
+
+    from lsc_planner_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+    out = (ctypes.c_int * 3)()
+    for B in (1, 3):
+        assert lib.lsc_chol_tiled_work(n, B) == chol.tiled_work_ints(n, B)
+        total = lib.lsc_chol_tiled_task(n, B, 0, out)
+        assert total == B * (len(chol.tiled_tasks(n)) + 1)
+        for t in range(total):
+            lib.lsc_chol_tiled_task(n, B, t, out)
+            assert tuple(out) == chol.tiled_task(t, n, B), (n, B, t)
 
 
 @pytest.mark.cuda
@@ -1166,12 +1193,11 @@ def test_cluster_plan_matches_the_kernels(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,n", [(torch.float32, 365),
-                                     (torch.float64, 250),
-                                     (torch.float32, 1024)])
+                                     (torch.float64, 250)] + TILED_CASES)
 def test_large_chol_captured_is_bit_equal(cuda, dtype, n):
     """factor_solve and two resolves captured in one CUDA graph and
     replayed give the uncaptured launches' bits (the cluster kernels at
-    365 and 250, the one-block kernels at 1024)."""
+    365 and 250, the tiled design at TILED_CASES)."""
     H64, R1d, R2d = big_spd_system(16, n, seed=n, dev=cuda)
     H, R1, R2 = H64.to(dtype), R1d.to(dtype), R2d.to(dtype)
 
@@ -1251,7 +1277,7 @@ def test_captured_mode_cycles_are_bit_equal(cuda, mode):
     if mode == "rsfc":
         assert launches["factor_solve_cluster"] == 4 * p.qp_iterations
         assert launches["factor_solve"] == 0
-        assert launches["factor_solve_large"] == 0
+        assert launches["factor_solve_tiled"] == 0
     else:
         assert launches["fused_ipm"] == 4
 

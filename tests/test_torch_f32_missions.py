@@ -22,11 +22,19 @@ the max trajectory difference between the packages and each one's step
 safety.  The cases of chip_smoke.py's MODE_CASES (phase 15: "bvc64",
 "rsfc64", "exp64", "circle64_2d", "circle128_2d", "rh64") fly that
 mission with the JAX package in f32 (a suffix "_f64": in f64; "_port":
-the port's CPU run in f32) through chip_smoke.fly_cycles, exp64 with its
+the port's CPU run, in f32, or in f64 after "_f64") through
+chip_smoke.fly_cycles, exp64 with its
 injected disturbance, and print cycles, distance, safety and QPFAILED.
 The cases of chip_smoke.py's ORCA_CASES (phase 16: "orca64",
 "orca64_goal", "orca64_2d", "orca1024", with the same suffixes) fly that
-mission through run() and print cycles, distance and safety.
+mission through run() and print cycles, distance and safety.  The case
+"rsfc64_f64_rounding" steps the port's CPU f64 rsfc64 (plain chol
+versions) and runs cycles 0 and 3 again from the same state with the
+chol calls rounded to f32 and with torch.cholesky_solve in f64: a line a
+cycle with each run's max primal residual and gap and its trajectories'
+difference from the plain run (chip_smoke.py phase 15's f64 precision
+gate, F64_PRIMAL_TOL and F64_GAP_RATIO).  "--threads=N" sets torch's CPU
+threads (default 1).
 """
 import dataclasses
 import math
@@ -235,7 +243,7 @@ def mode_run(name):
     cycles = cycles or 1000
     if name.endswith("_port"):
         sim = TSim(tm, chip_smoke.Param(**kw), device="cpu",
-                   dtype=torch.float32)
+                   dtype=torch.float64 if "_f64" in name else torch.float32)
         step = sim.cycle
     else:
         jkw = {k: getattr(jcfg, type(v).__name__)[v.name]
@@ -265,7 +273,7 @@ def orca_run(name):
     tm, kw, cycles = chip_smoke.orca_case(base)
     if name.endswith("_port"):
         sim = TSim(tm, chip_smoke.Param(**kw), device="cpu",
-                   dtype=torch.float32)
+                   dtype=torch.float64 if "_f64" in name else torch.float32)
     else:
         jkw = {k: getattr(jcfg, type(v).__name__)[v.name]
                if isinstance(v, enum.Enum) else v for k, v in kw.items()}
@@ -287,15 +295,68 @@ def orca_run(name):
                 ms_per_cycle=1e3 * float(r["wall_time"]) / r["iterations"])
 
 
+def rounding_runs(probe=(0, 3)):
+    """rsfc64 in f64 on the CPU with the plain chol versions, stepped for
+    max(probe) + 1 cycles; each cycle of probe run again from the same
+    state with the chol calls rounded to f32 and with
+    torch.cholesky_solve in f64: [(cycle, {run: (max primal residual, max
+    gap, max |traj diff| from the plain run (m), QPFAILED agents)})]."""
+    import chip_smoke
+    from lsc_planner_tpu_torch.ops import chol
+
+    def fs32(H, rhs):
+        L, x = chol.chol_factor_solve_plain(H.float(), rhs.float())
+        return L.double(), x.double()
+
+    def solve64(L, rhs):
+        return torch.cholesky_solve(rhs.unsqueeze(-1), L).squeeze(-1)
+
+    ways = {"f32 rounding": (fs32, lambda L, rhs: chol.chol_resolve_plain(
+                L.float(), rhs.float()).double()),
+            "f64 cholesky_solve": (lambda H, rhs: (
+                chol.cholesky_batched_plain(H),
+                solve64(chol.cholesky_batched_plain(H), rhs)), solve64)}
+    tm, kw, _ = chip_smoke.mode_case("rsfc64")
+    sim = TSim(tm, chip_smoke.Param(**kw), device="cpu",
+               dtype=torch.float64)
+    state, out = sim.initial_state(), []
+    for it in range(max(probe) + 1):
+        prev = state
+        state, (failed, res, gap) = chip_smoke.cycle_qp(sim, prev)
+        if it not in probe:
+            continue
+        runs = {"plain f64": (float(res.max()), float(gap.max()), 0.0,
+                              failed)}
+        fs, rs = chol.chol_factor_solve, chol.chol_resolve
+        for label, (f, r) in ways.items():
+            chol.chol_factor_solve, chol.chol_resolve = f, r
+            try:
+                other, (f2, r2, g2) = chip_smoke.cycle_qp(sim, prev)
+            finally:
+                chol.chol_factor_solve, chol.chol_resolve = fs, rs
+            runs[label] = (float(r2.max()), float(g2.max()),
+                           float((other.traj - state.traj).abs().max()), f2)
+        out.append((it, runs))
+    return out
+
+
 def main(names):
     """Print, a JSON line a case, the cycles, safety and distance of the
     JAX package's and the port's CPU runs in f32 and f64."""
     import json
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
-    torch.set_num_threads(1)
+    threads = [a for a in names if a.startswith("--threads=")]
+    names = [a for a in names if a not in threads]
+    torch.set_num_threads(int(threads[-1].split("=")[1]) if threads else 1)
     import chip_smoke
     for name in names:
+        if name == "rsfc64_f64_rounding":
+            for it, runs in rounding_runs():
+                print(json.dumps({"case": name, "cycle": it, **{
+                    k: dict(zip(("primal", "gap", "traj_diff", "qp_failed"),
+                                v)) for k, v in runs.items()}}), flush=True)
+            continue
         if name.split("_f64")[0].split("_port")[0] in chip_smoke.ORCA_CASES:
             print(json.dumps({"case": name, **orca_run(name)}), flush=True)
             continue
@@ -349,5 +410,7 @@ def main(names):
 
 if __name__ == "__main__":
     # JAX_PLATFORMS=cpu JAX_ENABLE_X64=1 PYTHONPATH=. \
-    #     python tests/test_torch_f32_missions.py [case ...]
-    main(sys.argv[1:] or list(CASES))
+    #     python tests/test_torch_f32_missions.py [--threads=N] [case ...]
+    flags = [a for a in sys.argv[1:] if a.startswith("--")]
+    main(flags + ([a for a in sys.argv[1:] if a not in flags] or
+                  list(CASES)))

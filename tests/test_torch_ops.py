@@ -230,9 +230,9 @@ def test_chol_check_of_the_factor_alone():
     assert H3 is H and r is None and batch is None and n == 4
     H3, r, batch, n = chol._check(torch.zeros(3, 2, 5, 5), None, "f")
     assert H3.shape == (6, 5, 5) and r is None and batch == (3, 2)
+    big = chol.MAX_N + 1       # past the cap (a view, no memory)
     for bad, err in ((torch.zeros(2, 3, 4), ValueError),
-                     (torch.zeros(2, chol.MAX_N + 1, chol.MAX_N + 1),
-                      ValueError),
+                     (torch.zeros(1, 1, 1).expand(2, big, big), ValueError),
                      (torch.zeros(2, 3, 3, dtype=torch.int32), TypeError)):
         with pytest.raises(err, match="cholesky_batched"):
             chol._check(bad, None, "cholesky_batched")
@@ -304,7 +304,7 @@ CLUSTER_LAST_N = {torch.float32: 384, torch.float64: 256}
 def test_large_plan_every_n(dtype):
     """Every 64 < n <= MAX_N has a large-n design, by shape alone: a
     cluster plan up to the largest n a cluster of CLUSTER_SIZES' largest
-    holds, the one-block kernels past it.  A plan's bytes are its largest
+    holds, the tiled design past it.  A plan's bytes are its largest
     block's, fit a block's SMEM_CAP, and no smaller cluster fits; n <= 64
     has no large-n design."""
     elem = torch.empty((), dtype=dtype).element_size()
@@ -312,7 +312,7 @@ def test_large_plan_every_n(dtype):
     for n in range(chol.WARP_MAX_N + 1, chol.MAX_N + 1):
         plan = chol.large_plan(n, dtype)
         if n > last:
-            assert plan is None and chol.large_design(n, dtype) == "block"
+            assert plan is None and chol.large_design(n, dtype) == "tiled"
             continue
         G, smem = plan
         assert chol.large_design(n, dtype) == "cluster"
@@ -359,9 +359,126 @@ def test_large_n_plain_versions_do_not_count():
     L, _ = chol.chol_factor_solve(H, torch.ones(1, 100, dtype=torch.float64))
     chol.chol_resolve(L, torch.ones(1, 100, dtype=torch.float64))
     assert (chol.factor_solve_cluster_launches, chol.resolve_cluster_launches,
-            chol.factor_cluster_launches, chol.factor_solve_large_launches,
-            chol.resolve_large_launches, chol.factor_large_launches) == \
+            chol.factor_cluster_launches, chol.factor_solve_tiled_launches,
+            chol.resolve_tiled_launches, chol.factor_tiled_launches) == \
         (0,) * 6
+
+
+# the tiled design's shapes: past the clusters, the slack QP's n at 96
+# agents (525), and past the first design's cap of 1024
+TILED_NS = (385, 399, 525, 641, 1024, 1100, 1536)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", TILED_NS)
+def test_tiled_schedule(n, dtype):
+    """The tiled factor's task order (chol.tiled_tasks, tiled_task: the
+    kernel's task_of) at n: every lower tile is produced by exactly one
+    task; every tile a task reads ((i, k) and (j, k) of its k-sum, and
+    L_jj for i > j) is produced earlier, for its own batch entry, in the
+    order over a batch; each k-sum runs in increasing k; each entry's last
+    task comes after all of its tiles; and the workspace has a flag for
+    each task."""
+    assert chol.large_design(n, dtype) == "tiled"
+    nt = -(-n // chol.TILED_TILE)
+    tasks = chol.tiled_tasks(n)
+    where = {}
+    for p, (i, j, ks) in enumerate(tasks):
+        assert 0 <= j <= i < nt and (i, j) not in where
+        assert ks == sorted(ks) == list(range(j))
+        reads = [(i, k) for k in ks] + [(j, k) for k in ks] + \
+            ([(j, j)] if i > j else [])
+        assert all(where.get(tile, p) < p for tile in reads), (i, j)
+        assert all(tile in where for tile in reads), (i, j)
+        where[(i, j)] = p
+    assert set(where) == {(i, j) for i in range(nt) for j in range(i + 1)}
+    B = 3
+    order = [chol.tiled_task(t, n, B) for t in range(B * (len(tasks) + 1))]
+    seen = set()
+    for b, i, j in order:
+        if i < 0:
+            assert all((b, a, c) in seen for a, c in where)
+            continue
+        reads = [(i, k) for k in range(j)] + [(j, k) for k in range(j)] + \
+            ([(j, j)] if i > j else [])
+        assert all((b, a, c) in seen for a, c in reads)
+        seen.add((b, i, j))
+    assert len(seen) == B * len(tasks)
+    assert chol.tiled_work_ints(n, B) == 1 + B + B * len(tasks)
+
+
+def _tiled_factor_emulated(H, tile):
+    """The tiled factor's arithmetic in plain torch (csrc/chol_tiled.cuh):
+    each lower tile (i, j) in the kernel's task order takes H_ij and, for
+    k = 0 .. j - 1 in increasing order, subtracts L_ik L_jk^T summed in
+    partial sums of its own one column of the k-tile at a time, then runs
+    the block's POTRF (potrf_blocked: in 16-column steps, the
+    diagonal block's column c its pivot's square root d and the entries
+    below times 1 / d, the later columns updated by it, the rows below it
+    solved against it, the
+    trailing triangle updated) or TRSM (column c times 1 / L_jj[c][c],
+    the later columns updated by L_jj's column c); the last tile row and
+    column padded with the identity."""
+    B, n = H.shape[0], H.shape[-1]
+    nt = -(-n // tile)
+    m = nt * tile
+    A = torch.eye(m, dtype=H.dtype).repeat(B, 1, 1)
+    A[:, :n, :n] = H
+    L = torch.zeros_like(A)
+
+    def blk(X, a, c):
+        return X[:, a * tile:(a + 1) * tile, c * tile:(c + 1) * tile]
+    for i, j, ks in chol.tiled_tasks(n, tile):
+        acc = blk(A, i, j).clone()
+        for k in ks:
+            Li, Lj = blk(L, i, k), blk(L, j, k)
+            part = torch.zeros_like(acc)
+            for kk in range(tile):
+                part += Li[:, :, kk, None] * Lj[:, None, :, kk]
+            acc -= part
+        if i == j:
+            pb = 16
+            for k0 in range(0, tile, pb):
+                k1 = k0 + pb
+                for c in range(k0, k1):       # the diagonal block
+                    d = torch.sqrt(acc[:, c, c])
+                    col = acc[:, c:k1, c] * (1.0 / d)[:, None]
+                    col[:, 0] = d
+                    acc[:, c:k1, c + 1:k1] -= \
+                        col[:, :, None] * col[:, None, 1:]
+                    acc[:, c:k1, c] = col
+                for c in range(k0, k1):       # the rows below it
+                    col = acc[:, k1:, c] * (1.0 / acc[:, c, c])[:, None]
+                    acc[:, k1:, c + 1:k1] -= \
+                        col[:, :, None] * acc[:, None, c + 1:k1, c]
+                    acc[:, k1:, c] = col
+                for k in range(k0, k1):       # the trailing triangle
+                    acc[:, k1:, k1:] -= \
+                        acc[:, k1:, k, None] * acc[:, None, k1:, k]
+            acc = torch.tril(acc)
+        else:
+            D = blk(L, j, j)
+            for c in range(tile):
+                col = acc[:, :, c] * (1.0 / D[:, c, c])[:, None]
+                acc[:, :, c + 1:] -= col[:, :, None] * D[:, None, c + 1:, c]
+                acc[:, :, c] = col
+        blk(L, i, j)[:] = acc
+    return L[:, :n, :n]
+
+
+@pytest.mark.parametrize("n", [100, 200])
+def test_tiled_emulation_matches_jax(rng, n):
+    """The tiled factor's tiles and accumulation order, emulated in f64
+    with a 32 tile, against the JAX package's factor off the TPU
+    (lsc_planner_tpu/ops/qp.py::_cholesky, jnp.linalg.cholesky) on the
+    same SPD inputs: max abs difference <= 1e-12 (unit-diagonal inputs,
+    factors O(1); f64 rounding in two summation orders)."""
+    from lsc_planner_tpu.ops import qp as jqp
+
+    H, _, _ = _ipm_like(rng, 3, n, np.float64)
+    want = np.asarray(jqp._cholesky(jnp.asarray(H)))
+    got = _tiled_factor_emulated(torch.as_tensor(H), 32).numpy()
+    assert np.abs(got - want).max() <= 1e-12
 
 
 def test_wavefront_cuda_branch_raises_without_gpu():
