@@ -224,6 +224,7 @@ import torch.distributed as dist
 from lsc_planner_tpu_torch import (GoalMode, ObstacleSpec, Param,
                                    PredictionMode, make_circle_mission,
                                    make_random_mission)
+from lsc_planner_tpu_torch import trace
 from lsc_planner_tpu_torch.config import PlannerMode
 from lsc_planner_tpu_torch.config import SP_EPSILON
 from lsc_planner_tpu_torch.convert import state_from_numpy, state_to_numpy
@@ -1900,7 +1901,8 @@ def fly_captured(sim, what, uncaptured, max_iterations=None,
                          f"wall / cycles, capture included), uncaptured "
                          f"{1e3 * uncaptured['average_planning_time']:.2f} "
                          f"({1e3 * uncaptured['wall_time'] / cycles:.2f}); "
-                         f"capture + instantiate {g.capture_seconds:.2f} s; "
+                         "capture + instantiate "
+                         f"{trace.last_seconds('graph.capture'):.2f} s; "
                          f"kernel launches captured in a block {block}")
     if not block or any(counts[k] * CAPTURE_K != v * (CAPTURE_K + 1)
                         for k, v in g.launches.items()):
@@ -3262,7 +3264,7 @@ def main():
     t0 = time.perf_counter()
     chol_builds = chol_builds_start()
     _build.load_library()
-    built = _build.build_seconds
+    built = trace.last_seconds("build.nvcc")
     phase("2 build", f"{_build.library_path().name}: nvcc "
                      f"{'%.2f s' % built if built is not None else 'cached'}"
                      f", load {time.perf_counter() - t0:.2f} s")

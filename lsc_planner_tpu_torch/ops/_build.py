@@ -20,15 +20,16 @@ import os
 import subprocess
 import tempfile
 import threading
-import time
 from pathlib import Path
 
 import torch
 
+from .. import trace
+
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("chol.cu", "ipm.cu", "wavefront.cu", "corridor.cu")
+SOURCES = ("chol.cu", "ipm.cu", "wavefront.cu", "corridor.cu", "trace.cu")
 HEADERS = ("warp_chol.cuh",      # included by chol.cu and ipm.cu
            "chol_cluster.cuh",   # included by chol.cu
            "chol_tiled.cuh")     # included by chol.cu
@@ -39,10 +40,10 @@ _lock = threading.Lock()
 _lib = None
 _variant_lock = threading.Lock()   # apart: a variant builds beside _lib
 _variants = {}
-# wall seconds of the nvcc build made by this process, and nvcc's output
-# (ptxas: registers, shared memory, spills per kernel); None: loaded a
-# library built earlier, or nothing loaded yet
-build_seconds = None
+# nvcc's output of the build made by this process (ptxas: registers, shared
+# memory, spills per kernel); None: loaded a library built earlier, or
+# nothing loaded yet.  The build's and the load's wall time are the set-up
+# spans build.nvcc and build.load (trace.py).
 build_log = None
 
 _PTR = ctypes.c_void_p
@@ -83,6 +84,8 @@ _SIGNATURES = {
                             [ctypes.c_int, _PTR],
     # the build's tries a round (LSC_CORRIDOR_K)
     "lsc_expand_boxes_k": [],
+    # the tracer's stage stamp: slot (int64, device); stream
+    "lsc_trace_stamp": [_PTR, _PTR],
 }
 _SIGNATURES["lsc_expand_boxes_f64"] = _SIGNATURES["lsc_expand_boxes_f32"]
 _LONG_RESULTS = ("lsc_chol_tiled_work", "lsc_chol_tiled_task")
@@ -171,20 +174,20 @@ def load_library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed.  Raises
     RuntimeError when there is no CUDA device or no nvcc: the CUDA path
     never falls back to the plain versions."""
-    global _lib, build_seconds, build_log
+    global _lib, build_log
     with _lock:
         if _lib is None:
             _need_cuda()
             path = library_path()
             with build_lock(path):
                 if not path.exists():
-                    t0 = time.perf_counter()
-                    build_log = _compile(path)
-                    build_seconds = time.perf_counter() - t0
-            lib = _load(path)
-            for name in _SIGNATURES:
-                if "_stamped_" not in name:
-                    getattr(lib, name)    # every entry point is there
+                    with trace.setup_span("build.nvcc"):
+                        build_log = _compile(path)
+            with trace.setup_span("build.load"):
+                lib = _load(path)
+                for name in _SIGNATURES:
+                    if "_stamped_" not in name:
+                        getattr(lib, name)    # every entry point is there
             _lib = lib
     return _lib
 

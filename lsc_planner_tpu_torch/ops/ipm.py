@@ -37,6 +37,7 @@ import ctypes
 
 import torch
 
+from .. import trace
 from . import _build
 
 TILE = 128          # the TPU kernel's lane tile, the unit of its count
@@ -291,6 +292,7 @@ def ipm_lsc_fused_plain(P_blk, q, y0, U, b_pairs, nsc, scale, b_pl, F_seg,
             break
 
     gap = _rowsum(s_sp * l_sp, s_sm * l_sm, s_pl * l_pl) / nr
+    trace.count("ipm.qp_iters", it_qp)
     return (y, torch.stack([l_sp, l_sm], dim=1), l_pl, gap,
             it_qp if qp_counts else tile_counts(it_qp))
 
@@ -395,6 +397,7 @@ def _fused_cuda(P_blk, q, y0, U, b_pairs, nsc, scale, b_pl, F_seg, sigma,
         raise RuntimeError(f"ipm_lsc_fused kernel launch failed: CUDA error "
                            f"{err}")
     fused_launches += 1
+    trace.count("ipm.qp_iters", it_qp)
     return y, lam_s, lam_p, gap, it_qp if qp_counts else tile_counts(it_qp)
 
 

@@ -17,6 +17,13 @@ JAX exit point change no iterate, and the reported ``iters`` (the JAX
 count) is tracked on the device.  While the stream captures a CUDA graph
 the factored path skips that read and runs every iteration: the same bits,
 with no host read inside the graph.
+
+With the tracer's counters on (``trace.py``) each ``_ipm`` call counts
+``ipm.iters_converged``, the first iteration after which every instance of
+the call met the exit test, and ``ipm.iters_run``, the iterations it ran.
+The dense path (no early exit) takes the exit test's tolerances for this
+count alone (``count_tol``): its done flags accumulate apart and feed no
+latch, so the iterates are those of the untraced solve, bit for bit.
 """
 from __future__ import annotations
 
@@ -24,6 +31,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from .. import trace
 from . import chol, ipm
 
 EXIT_CHECK_EVERY = 8
@@ -87,13 +95,16 @@ def _capturing(device) -> bool:
 
 def _ipm(P, q, mv, rmv, gram, b, y0, iters, reg, s_min,
          tol_gap: float = 0.0, tol_rp: float = 0.0, tol_rd: float = 0.0,
-         tol_scale=None, correctors: int = 0, tol_step: float = 0.0):
+         tol_scale=None, correctors: int = 0, tol_step: float = 0.0,
+         count_tol=None):
     """Shared Mehrotra predictor-corrector core (qp.py:135-380).
 
     mv(y) = A y;  rmv(w) = A^T w;  gram(d) = A^T diag(d) A.  Rows arrive
     pre-equilibrated and pre-masked.  With all of tol_gap, tol_rp, tol_rd
     positive, `iters` is a cap and each instance latches done once its gap,
-    primal and (dual residual or step) tests hold."""
+    primal and (dual residual or step) tests hold.  count_tol, (tol_gap,
+    tol_rp, tol_rd, tol_step) of a solve without that exit, is the test
+    the tracer's iters_converged counts by (module docstring)."""
     dtype, device = P.dtype, P.device
     nv = P.shape[-1]
     batch = P.shape[:-2]
@@ -111,6 +122,15 @@ def _ipm(P, q, mv, rmv, gram, b, y0, iters, reg, s_min,
     done_i = torch.zeros(batch, dtype=torch.bool, device=device)
     prev_step = torch.full(batch, float("inf"), dtype=dtype, device=device)
     it_used = torch.full((), iters, dtype=torch.int32, device=device)
+    counting = trace.counting()
+    count_on = counting and not exit_on and count_tol is not None
+    if count_on:
+        c_done = torch.zeros_like(done_i)
+        c_used = it_used.clone()
+
+    def exit_test(tg, trp, trd, tst):
+        stat = (r_d.abs().amax(-1) < trd) | (prev_step < tst)
+        return (mu < tg * tscale) & (r_p.abs().amax(-1) < trp) & stat
 
     def kkt_rhs(r_d, r_p, r_c):
         return -r_d - rmv((r_c + lam * r_p) / s)
@@ -126,15 +146,16 @@ def _ipm(P, q, mv, rmv, gram, b, y0, iters, reg, s_min,
         r_p = Ay - s - b
         mu = (s * lam).mean(-1)
         if exit_on:
-            stat = (r_d.abs().amax(-1) < tol_rd) | (prev_step < tol_step)
-            inst_done = ((mu < tol_gap * tscale) &
-                         (r_p.abs().amax(-1) < tol_rp) & stat)
-            done_i = done_i | inst_done
+            done_i = done_i | exit_test(tol_gap, tol_rp, tol_rd, tol_step)
             all_done = done_i.all()
             # the JAX loop stops after the body in which every instance
             # is first done: that body's count is it + 1
             it_used = torch.where(all_done & (it_used == iters),
                                   torch.full_like(it_used, it + 1), it_used)
+        elif count_on:
+            c_done = c_done | exit_test(*count_tol)
+            c_used = torch.where(c_done.all() & (c_used == iters),
+                                 torch.full_like(c_used, it + 1), c_used)
 
         D = lam / s
         H = P + gram(D)
@@ -200,6 +221,9 @@ def _ipm(P, q, mv, rmv, gram, b, y0, iters, reg, s_min,
                 bool(all_done):
             break
 
+    if counting and iters:
+        trace.count("ipm.iters_converged", c_used if count_on else it_used)
+        trace.count("ipm.iters_run", it + 1)
     obj = 0.5 * (y * _matvec(P, y)).sum(-1) + (q * y).sum(-1)
     primal_res = torch.clamp(b - mv(y), min=0.0).amax(-1)
     gap = (s * lam).mean(-1)
@@ -209,9 +233,14 @@ def _ipm(P, q, mv, rmv, gram, b, y0, iters, reg, s_min,
 
 def solve_qp(P, q, A, b, mask=None, y0=None, iters: int = 20,
              reg: float = 1e-8, s_min: float = 1.0, equilibrate: bool = True,
-             correctors: int = 0) -> QPSolution:
+             correctors: int = 0, count_tol=None) -> QPSolution:
     """Batched inequality-form QP over dense rows (no early exit).  With a
-    warm start y0 the solve runs in delta coordinates d = y - y0."""
+    warm start y0 the solve runs in delta coordinates d = y - y0.
+    count_tol: the exit test's (tol_gap, tol_rp, tol_rd, tol_step), for the
+    tracer's iters_converged alone (module docstring)."""
+    # the exit test's objective scale, made only when counted
+    tol_scale = (_objective_sigma(P) if count_tol is not None and
+                 trace.counting() else None)
     A, b = _masked(A, b, mask)
     if equilibrate:
         A, b = _equilibrate_rows(A, b)
@@ -227,12 +256,14 @@ def solve_qp(P, q, A, b, mask=None, y0=None, iters: int = 20,
 
     if y0 is not None:
         sol = _ipm(P, q + _matvec(P, y0), mv, rmv, gram, b - mv(y0), None,
-                   iters, reg, s_min, correctors=correctors)
+                   iters, reg, s_min, tol_scale=tol_scale,
+                   correctors=correctors, count_tol=count_tol)
         y = y0 + sol.y
         obj = 0.5 * (y * _matvec(P, y)).sum(-1) + (q * y).sum(-1)
         return sol._replace(y=y, obj=obj)
     return _ipm(P, q, mv, rmv, gram, b, None, iters, reg, s_min,
-                correctors=correctors)
+                tol_scale=tol_scale, correctors=correctors,
+                count_tol=count_tol)
 
 
 def solve_qp_lsc(P, q, A_st, b_st, normal, rhs, mask, F_seg, y0=None,

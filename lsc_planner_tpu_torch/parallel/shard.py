@@ -39,6 +39,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import trace
 from ..device import resolve_device, synchronize
 from ..sim import audit
 from ..sim.simulator import (CycleInfo, SwarmState, SyncSimulator,
@@ -382,12 +383,14 @@ class ShardedCycle:
         the JAX package's sharded body leaves out: per-agent obstacle
         predictions (the oracle's and the per-agent filters'), experiment
         mode's slack path, the ORCA planner, the K-NN overflow audit and
-        the QP's warm-start and iteration diagnostics."""
+        the QP's warm-start and iteration diagnostics.  Its stage marks
+        are the single cycle's (the exchange falls in predict)."""
         if dyn_pred is not None:
             raise ValueError("the sharded cycle takes no dynamic-obstacle "
                              "predictions (ORACLE and per-agent Kalman "
                              "prediction), as in the JAX package")
         sim, p = self.sim, self.sim.param
+        trace.mark("propagate")
         pos_l, vel_l, acc_l = sim.propagate(state)
         # patrol start/goal swap (purely per-agent; the single cycle's code)
         start_l, desired_goal_l = sim._patrol_swap(state, pos_l)
@@ -407,6 +410,7 @@ class ShardedCycle:
                                progress_best=progress_best)
         else:
             rescue_goal, rescue_active, rescue_phase = _no_rescue(state)
+        trace.mark("predict")
         init_l, pred_l = sim.predict_and_init(state.traj, pos_l, vel_l,
                                               state.seq,
                                               prev_goal=state.current_goal)
@@ -430,6 +434,7 @@ class ShardedCycle:
             rescue_active=rescue_active, dyn_pos=dyn_pos, dyn_vel=dyn_vel,
             **self._obs_attrs)
 
+        trace.mark("audit")
         # QPFAILED feasible fallback, as in the single cycle: a failing
         # agent flies its shifted previous solution
         qp_failed = res.primal_res > p.qp_failure_threshold

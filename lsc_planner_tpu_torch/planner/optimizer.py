@@ -20,6 +20,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import trace
 from ..config import Param, PlannerMode, SP_EPSILON
 from ..ops import bernstein as bz
 from ..ops import qp as qp_ops
@@ -431,6 +432,7 @@ class TrajOptimizer:
                      (p.qp_fused_mode == "auto" and
                       N >= p.qp_fused_min_agents)))
         if slack is None and (dense_bytes > 48 * 2 ** 20 or fused_ok):
+            trace.mark("ipm")
             sol = qp_ops.solve_qp_lsc(
                 P, q, self._t("A_static_y", dtype, dev), b_st, normal,
                 b_pl4, mask_pl4, F_seg, y0=y_warm, iters=p.qp_iterations,
@@ -484,9 +486,12 @@ class TrajOptimizer:
                 y_warm = torch.cat(
                     [y_warm, torch.zeros((N, S), dtype=dtype, device=dev)],
                     dim=1)
+        trace.mark("ipm")
         sol = qp_ops.solve_qp(P, q, A, b, mask=mask, y0=y_warm,
                               iters=p.qp_iterations, s_min=p.qp_s_min,
-                              correctors=p.qp_correctors)
+                              correctors=p.qp_correctors,
+                              count_tol=(p.qp_tol_gap, p.qp_tol_rp,
+                                         p.qp_tol_rd, p.qp_tol_step))
         return self._recover(sol, N, dtype, tmask, current_goal, gx3,
                              slack_w)
 

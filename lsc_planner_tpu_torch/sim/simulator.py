@@ -40,6 +40,7 @@ sim/logging.py's ResultLogger, and ``run(profile=True)`` adds
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import gc
 import math
@@ -49,6 +50,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import trace
 from ..config import (GoalMode, InitialTrajMode, Param, PlannerMode,
                       PredictionMode)
 from ..missions import Mission
@@ -96,6 +98,15 @@ class SwarmState(NamedTuple):
     slack_flags: Optional[torch.Tensor] = None   # (N,) bool
     path_floor: Optional[torch.Tensor] = None    # (N, 3)
     best_goal_dist: Optional[torch.Tensor] = None    # (N,)
+
+
+# profile_stages' keys (the JAX package's) and the tracer's stages in each
+STAGE_KEYS = {"obstacle_prediction": ("propagate", "predict"),
+              "initial_traj": (),       # shared with the prediction
+              "goal_planning": ("goal",),
+              "lsc_generation": ("planes",),
+              "sfc_generation": ("sfc",),
+              "traj_optimization": ("qp_assembly", "ipm")}
 
 
 class CycleInfo(NamedTuple):
@@ -279,55 +290,68 @@ class _CycleGraph:
     the static inputs, so each replay advances k cycles.
     ``launches``: the kernel launches one replay makes (the counters'
     increase during capture; a replay moves no counter).
-    ``capture_seconds``: host seconds of the capture and instantiation."""
+    ``trace``: the tracer's recording of the capture's stage stamps and
+    counters (each replay rewrites them; trace.stamps(graph) reads them),
+    None when it was captured with tracing off.  The set-up spans
+    graph.warm_up and graph.capture (the capture and instantiation) time
+    the construction."""
 
     def __init__(self, sim, k, state):
         dev = sim.device
         self.static = SwarmState(*[None if f is None else f.clone()
                                    for f in state])
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            sim.cycle(self.static)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        synchronize(dev)
+        self.trace = trace.new_recording(dev)
+        with trace.setup_span("graph.warm_up"), trace.recording(self.trace):
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                sim.cycle(self.static)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            synchronize(dev)
+        if self.trace is not None:
+            self.trace.reset()
         before = launch_counts()
         self.graph = torch.cuda.CUDAGraph()
-        t0 = time.perf_counter()
-        # no garbage collection while capturing: an unreachable graph of an
-        # earlier capture, collected now, would destroy its CUDA graph,
-        # which a capturing stream forbids (the capture would fail)
-        gc_enabled = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(self.graph):
-                out, self.outputs = _stack_cycles(sim.cycle, self.static, k)
-                pairs = [(dst, src) for dst, src in zip(self.static, out)
-                         if dst is not None and src is not dst]
-                # an output that shares memory with a static buffer is
-                # copied first, so that no copy below reads a buffer
-                # already written
-                held = {f.untyped_storage().data_ptr() for f in self.static
-                        if f is not None}
-                pairs = [(dst, src.clone()
-                          if src.untyped_storage().data_ptr() in held
-                          else src) for dst, src in pairs]
-                for dst, src in pairs:
-                    dst.copy_(src)
-        finally:
-            if gc_enabled:
-                gc.enable()
-        synchronize(dev)
-        self.capture_seconds = time.perf_counter() - t0
+        with trace.setup_span("graph.capture"), \
+                trace.recording(self.trace):
+            # no garbage collection while capturing: an unreachable graph
+            # of an earlier capture, collected now, would destroy its CUDA
+            # graph, which a capturing stream forbids (the capture would
+            # fail)
+            gc_enabled = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(self.graph):
+                    out, self.outputs = _stack_cycles(sim.cycle,
+                                                      self.static, k)
+                    pairs = [(dst, src) for dst, src in zip(self.static, out)
+                             if dst is not None and src is not dst]
+                    # an output that shares memory with a static buffer is
+                    # copied first, so that no copy below reads a buffer
+                    # already written
+                    held = {f.untyped_storage().data_ptr()
+                            for f in self.static if f is not None}
+                    pairs = [(dst, src.clone()
+                              if src.untyped_storage().data_ptr() in held
+                              else src) for dst, src in pairs]
+                    for dst, src in pairs:
+                        dst.copy_(src)
+                    trace.mark(trace.END)
+            finally:
+                if gc_enabled:
+                    gc.enable()
+            synchronize(dev)
         after = launch_counts()
         self.launches = {name: after[name] - before[name] for name in after}
 
     def __call__(self, state):
         if any(a is not b for a, b in zip(state, self.static)):
-            for dst, src in zip(self.static, state):
-                if dst is not None:
-                    dst.copy_(src)
-        self.graph.replay()
+            with trace.span("graph.copy_inputs"):
+                for dst, src in zip(self.static, state):
+                    if dst is not None:
+                        dst.copy_(src)
+        with trace.span("graph.replay"):
+            self.graph.replay()
         return self.static, self.outputs
 
 
@@ -365,7 +389,8 @@ class SyncSimulator:
         self.device = resolve_device(self.device)
         self.N = self.mission.qn
         self.M, self.n = p.M, p.n
-        # make_scan_cycle's CUDA graphs by (k, the state's shapes and dtypes)
+        # make_scan_cycle's CUDA graphs by (k, the tracer's switch, the
+        # state's shapes and dtypes)
         self._graphs = {}
         static_specs = [o for o in self.mission.obstacles
                         if o.kind == "static"]
@@ -395,6 +420,14 @@ class SyncSimulator:
         self._knn_cutoff = float(2.0 * np.max(arrs["max_vel"]) * p.M * p.dt +
                                  2.0 * np.max(arrs["radius"]))
 
+        with trace.setup_span("sim.tables"):
+            self._tables(arrs, static_specs, dyn_specs, t)
+
+    def _tables(self, arrs, static_specs, dyn_specs, t):
+        """The world's tables, made once: the ESDF with the static boxes,
+        the corridor builder, the dynamic obstacles' generator and the goal
+        planner's grids."""
+        p = self.param
         # static boxes are world geometry (simulator.py:351-380): folded
         # into the ESDF, so the corridor, the grid planner, the rescue ray
         # checks and the compatibility gate see them, and audited exactly
@@ -628,6 +661,7 @@ class SyncSimulator:
         obs_maxacc_all = (self.max_acc[:, 0] if obs_maxacc_global is None
                           else obs_maxacc_global)
 
+        trace.mark("goal")
         current_goal, path_floor = self.goal_planner.plan(
             pos=pos, vel=vel, init_traj=init, desired_goal=desired_goal,
             seq=seq, radius=radius, downwash=downwash,
@@ -638,6 +672,7 @@ class SyncSimulator:
             current_goal = torch.where(rescue_active[:, None], rescue_goal,
                                        current_goal)
 
+        trace.mark("planes")
         K = p.max_neighbors
         knn_overflow = None
         if 0 < K < O:
@@ -741,6 +776,7 @@ class SyncSimulator:
 
         # SFC corridors against the static world (generateFeasibleSFC,
         # traj_planner.cpp:1451-1491), their faces after the LSC rows
+        trace.mark("sfc")
         sfc = sfc_prev
         if self.corridor is not None:
             sfc, _ = update_sfc(sfc_prev, sfc_seed, current_goal,
@@ -752,6 +788,7 @@ class SyncSimulator:
             planes = cons.concat_planes(planes, n_ctrl=n + 1)
 
         # warm start from the (feasible) shifted previous solution
+        trace.mark("qp_assembly")
         y_warm = self.optimizer.extract_y(init).to(self.dtype)
         res = self.optimizer.solve(
             pos, vel, acc, current_goal, nominal_velocity=nominal_velocity,
@@ -777,8 +814,10 @@ class SyncSimulator:
         obstacles' positions and velocities (O_dyn, 3) and, from the oracle
         or the per-agent filters, their predictions (dynamic_inputs gives
         all three; without them the obstacles sit at the origin, as in the
-        JAX package).  Returns (new_state, CycleInfo)."""
+        JAX package).  Returns (new_state, CycleInfo).  Each stage starts
+        with its mark (trace.STAGES; no-ops unless tracing)."""
         p = self.param
+        trace.mark("propagate")
         if self.O_dyn and dyn_pos is None:
             dyn_pos = torch.zeros((self.O_dyn, 3), dtype=self.dtype,
                                   device=self.device)
@@ -807,6 +846,7 @@ class SyncSimulator:
             return self._cycle_orca(state, pos, vel, acc, start,
                                     desired_goal)
 
+        trace.mark("predict")
         init, prediction = self.predict_and_init(state.traj, pos, vel,
                                                  state.seq,
                                                  prev_goal=state.current_goal)
@@ -839,6 +879,7 @@ class SyncSimulator:
             dyn_pred=dyn_pred, obs_slack_global=obs_slack_global,
             self_slack=self_slack)
 
+        trace.mark("audit")
         # QPFAILED report + feasible fallback (simulator.py:890-898): a
         # failing agent keeps its shifted previous solution
         qp_failed = res.primal_res > p.qp_failure_threshold
@@ -893,8 +934,11 @@ class SyncSimulator:
         """The ORCA planner mode (planORCA, traj_planner.cpp:375-387,
         simulator.py:951-999): the new trajectory is a straight line at the
         ORCA velocity; no QP.  Dynamic obstacles are not among the ORCA
-        neighbours, as in the JAX package."""
+        neighbours, as in the JAX package.  Its stage marks: goal, planes
+        (the ORCA velocities; in the ORCA goal mode they belong to goal)
+        and audit."""
         p = self.param
+        trace.mark("goal")
         if p.goal_mode == GoalMode.ORCA:
             orca_v = self.orca_velocities(pos, vel, state.current_goal)
             current_goal, path_floor = self.goal_planner.plan(
@@ -907,8 +951,10 @@ class SyncSimulator:
                 desired_goal=desired_goal, seq=state.seq,
                 radius=self.radius, downwash=self.downwash,
                 prev_traj=state.traj)
+            trace.mark("planes")
             orca_v = self.orca_velocities(pos, vel, current_goal)
 
+        trace.mark("audit")
         traj = pred.constant_velocity_traj(pos, orca_v, self.M, self.n, p.dt)
         safety_step = audit.step_safety_ratio(
             traj, self.radius, self.downwash, p.dt,
@@ -942,77 +988,24 @@ class SyncSimulator:
     def profile_stages(self, state: SwarmState, n_cycles: int = 5) -> dict:
         """Per-stage times with the reference's stage taxonomy
         (PlanningTimeStatistics, include/sp_const.hpp:89-128;
-        simulator.py:1060-1146): each stage runs once to warm up, then
-        n_cycles times with the device synchronized after each, and its
-        mean host seconds are its time.  The cycle has no stage boundaries
-        of its own, so these are diagnostic numbers beside
-        ``cycle_fused_end_to_end``, the whole uncaptured cycle timed the
-        same way."""
-        p = self.param
-        N = self.N
-
-        def stage_pred(st):
-            pos, vel, _ = self.propagate(st)
-            return self.predict_and_init(st.traj, pos, vel, st.seq)
-
-        def stage_goal(pos, vel, init, st):
-            return self.goal_planner.plan(
-                pos=pos, vel=vel, init_traj=init,
-                desired_goal=st.desired_goal, seq=st.seq,
-                radius=self.radius, downwash=self.downwash,
-                prev_traj=st.traj)
-
-        K = p.max_neighbors
-        ones = torch.ones((N, K if 0 < K < N else N), dtype=torch.bool,
-                          device=self.device)
-
-        def stage_lsc(init, prediction, pos):
-            if 0 < K < N:
-                _, nbr = knn_select(pos, pos, self.self_mask, K)
-                return cons.lsc_planes(
-                    init, prediction[nbr], self.radius, self.downwash,
-                    self.radius[nbr], self.downwash[nbr], ones, ones,
-                    guard_margin=p.lsc_guard_margin)
-            return cons.lsc_planes(
-                init, prediction[None].expand(N, *prediction.shape),
-                self.radius, self.downwash,
-                self.radius[None].expand(N, N),
-                self.downwash[None].expand(N, N), ones, ~self.self_mask,
-                guard_margin=p.lsc_guard_margin)
-
-        times = {}
-
-        def timeit(name, fn, *args):
-            fn(*args)                       # warm-up
-            synchronize(self.device)
-            t0 = time.perf_counter()
+        simulator.py:1060-1146) from the tracer's stage marks: one warm-up
+        cycle, then n_cycles cycles from `state` with stamps on (device
+        stamps on the card, the host clock on the CPU); each key is the mean
+        seconds a cycle of its stages (STAGE_KEYS), ``total`` their sum and
+        ``cycle_fused_end_to_end`` the whole cycle, audit included."""
+        self.cycle(state)                   # warm-up
+        with trace.tracing(stamps=True), \
+                trace.recording(self.device) as rec:
             for _ in range(n_cycles):
-                outs = fn(*args)
-                synchronize(self.device)
-            times[name] = (time.perf_counter() - t0) / n_cycles
-            return outs
-
-        init, prediction = timeit("obstacle_prediction", stage_pred, state)
-        times["initial_traj"] = 0.0     # shared with the prediction
-        pos, vel, acc = self.propagate(state)
-        timeit("goal_planning", stage_goal, pos, vel, init, state)
-        planes = timeit("lsc_generation", stage_lsc, init, prediction, pos)
-        if self.corridor is not None:
-            timeit("sfc_generation", lambda: update_sfc(
-                state.sfc, pos, state.desired_goal, self.corridor,
-                ~state.sfc_initialized))
-        else:
-            times["sfc_generation"] = 0.0
-        planes_c = cons.concat_planes(planes, n_ctrl=self.n + 1)
-        y_warm = self.optimizer.extract_y(init).to(self.dtype)
-        timeit("traj_optimization", lambda: self.optimizer.solve(
-            pos, vel, acc, state.desired_goal,
-            nominal_velocity=self.nominal_velocity, max_vel=self.max_vel,
-            max_acc=self.max_acc, planes=planes_c, world_min=self.world_min,
-            world_max=self.world_max, y_warm=y_warm, dtype=self.dtype))
+                self.cycle(state)
+                trace.mark(trace.END)
+        spent = collections.Counter()
+        for stage, seconds in trace.durations(trace.stamps(rec)):
+            spent[stage] += seconds / n_cycles
+        times = {key: sum((spent[s] for s in stages), 0.0)
+                 for key, stages in STAGE_KEYS.items()}
         times["total"] = sum(times.values())
-        # the whole cycle, which the stages' sum does not make
-        timeit("cycle_fused_end_to_end", self.cycle, state)
+        times["cycle_fused_end_to_end"] = sum(spent.values())
         return times
 
     # ------------------------------------------------------------------
@@ -1172,7 +1165,7 @@ class SyncSimulator:
         captured at the first call for the state's shapes and kept on the
         simulator by (k, shapes, dtypes) (``cycle_graph``); ``multi.graph``
         is the one the last call replayed (its ``launches`` a block and
-        ``capture_seconds``).  What it returns are the graph's own buffers,
+        its tracer's ``trace``).  What it returns are the graph's own buffers,
         overwritten by the next call (clone what must outlive it); a state
         handed back in as it came out is not copied.  On the CPU multi runs
         the same k cycles eagerly: the tests' oracle, never taken by a CUDA
@@ -1185,13 +1178,18 @@ class SyncSimulator:
                              "state; dynamic obstacles are evaluated on the "
                              "host each cycle (use steps_per_dispatch=1)")
         if self.device.type != "cuda":
-            return lambda state: _stack_cycles(self.cycle, state, k)
+            def multi(state):
+                out = _stack_cycles(self.cycle, state, k)
+                trace.mark(trace.END)
+                return out
+            return multi
         return _ScanCycle(self, k)
 
     def cycle_graph(self, k: int, state: SwarmState) -> _CycleGraph:
-        """The CUDA graph of k cycles for the shapes of `state`, captured
-        from it at the first call and kept on the simulator."""
-        key = (k,) + tuple(None if f is None else (tuple(f.shape), f.dtype)
+        """The CUDA graph of k cycles for the shapes of `state` and the
+        tracer's switch (a stamped graph is never replayed untraced),
+        captured from it at the first call and kept on the simulator."""
+        key = (k, trace.graph_key()) + tuple(None if f is None else (tuple(f.shape), f.dtype)
                            for f in state)
         if key not in self._graphs:
             self._graphs[key] = _CycleGraph(self, k, state)
@@ -1256,22 +1254,24 @@ class SyncSimulator:
         for it in range(max_iter):
             prev_state = state
             t0 = time.perf_counter()
-            if self.obstacle_generator is not None:
-                dyn = self.dynamic_inputs(it * p.multisim_time_step,
-                                          whole(state) if chasing
-                                          else state)
-                state, info = cycle(state, *dyn)
-            else:
-                state, info = cycle(state)
+            with trace.span("run.dispatch"):
+                if self.obstacle_generator is not None:
+                    dyn = self.dynamic_inputs(it * p.multisim_time_step,
+                                              whole(state) if chasing
+                                              else state)
+                    state, info = cycle(state, *dyn)
+                else:
+                    state, info = cycle(state)
             # one device->host read per cycle
-            if ranked:
-                stats = cycle_fn.stats(state, info)
-            else:
-                stats = torch.stack([
-                    info.safety_step_min.double(),
-                    info.qp_failed.sum().double(),
-                    _norm(state.pos - state.desired_goal).max().double()])
-            safety, n_failed, goal_dist = stats.tolist()
+            with trace.span("run.read"):
+                if ranked:
+                    stats = cycle_fn.stats(state, info)
+                else:
+                    stats = torch.stack([
+                        info.safety_step_min.double(),
+                        info.qp_failed.sum().double(),
+                        _norm(state.pos - state.desired_goal).max().double()])
+                safety, n_failed, goal_dist = stats.tolist()
             plan_times.append(time.perf_counter() - t0)
             iters_done = it + 1
             if safety < 1.0:
@@ -1332,11 +1332,13 @@ class SyncSimulator:
         qp_failures = 0
         for block in range((max_iter + k - 1) // k):
             t0 = time.perf_counter()
-            state, (info, goal_dist, cum_dist) = multi(state)
+            with trace.span("run.dispatch"):
+                state, (info, goal_dist, cum_dist) = multi(state)
             # one device->host read a block
-            read = torch.cat([goal_dist.double(),
-                              info.safety_step_min.double(),
-                              info.qp_failed.sum(-1).double()]).cpu()
+            with trace.span("run.read"):
+                read = torch.cat([goal_dist.double(),
+                                  info.safety_step_min.double(),
+                                  info.qp_failed.sum(-1).double()]).cpu()
             plan_times.append((time.perf_counter() - t0) / k)
             gd, safety, failed = read.numpy().reshape(3, k)
             qp_failures += int(failed.sum())
