@@ -201,6 +201,13 @@ Phases, one line each; any failure raises and exits non-zero:
      the exchange's ms beside 10 cycles of the all_gather exchange on the
      same mission; 17e, dryrun_multichip(4, "gloo", "cuda"); the card's
      name and power limit beside the times
+ 18. the LSC planes kernel (csrc/planes.cu) against its plain version, bit
+     for bit, one launch a call, on the fourth cycle's call of the
+     benchmark's random1024 (lscbench/cell.py at RANDOM1024_SEED; (N, O,
+     M, K) = (1024, 32, 5, 6)) and of forest20 ((20, 20, 5, 6)): kernel
+     and plain ms (CUDA events, median of 50 and 20) and the bound.
+     Every launch count checked in phases 5-17 includes the planes
+     kernel's: one launch an LSC cycle (a rank's block's in phase 17)
 Then the kernels' JSON line (every kernel: launches on its main path,
 error against its plain version, kernel / plain / library ms, and the
 bound for the same work computed from this run's inputs), and last
@@ -213,6 +220,7 @@ import os
 import re
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -230,6 +238,7 @@ from lsc_planner_tpu_torch.config import SP_EPSILON
 from lsc_planner_tpu_torch.convert import state_from_numpy, state_to_numpy
 from lsc_planner_tpu_torch.ops import _build, chol, ipm, wavefront
 from lsc_planner_tpu_torch.ops import corridor as corridor_ops
+from lsc_planner_tpu_torch.ops import lsc_planes as lsc_ops
 from lsc_planner_tpu_torch.missions import make_lane_mission
 from lsc_planner_tpu_torch.ops.grid_search import GridPlanner
 from lsc_planner_tpu_torch.parallel import ranks, shard
@@ -309,6 +318,8 @@ FOREST30_TREES = 540
 # phase 12: cycles a dispatch, and the uncaptured cycles before its bit
 # comparison
 CAPTURE_K, CAPTURE_BEFORE = 10, 20
+# phase 18: the seed of the benchmark cell random1024's mission
+RANDOM1024_SEED = 3147521011
 # phase 13: dynamic obstacles of 0.3 m at 0.5 m/s (downwash 1, max_acc 1)
 DYN_SIZE, DYN_SPEED = 0.3, 0.5
 # cycles of the ORACLE and Kalman runs of dyn64, its Kalman filters'
@@ -1301,7 +1312,7 @@ def fly_circle64_fused(sim):
     torch.cuda.synchronize()
     cycles = summary["iterations"]
     check_mission(summary, param, MAIN_B, "circle64 fused")
-    check_launches("circle64 fused", fused_ipm=cycles)
+    check_launches("circle64 fused", fused_ipm=cycles, lsc_planes=cycles)
     ms_cycle = summary["wall_time"] / cycles * 1e3
     phase("7 circle64 fused", f"finished in {cycles} cycles (JAX CPU f32 "
                               f"XLA path: {JAX_CPU_F32_CYCLES}; the port's "
@@ -1329,7 +1340,8 @@ def fly_circle1024(sim):
         times.append(time.perf_counter() - t0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_wall
-    launches = check_launches("circle1024", fused_ipm=BIG_CYCLES)
+    launches = check_launches("circle1024", fused_ipm=BIG_CYCLES,
+                              lsc_planes=BIG_CYCLES)
     safety, failed, overflow, iters = (np.asarray(s) for s in zip(*stats))
     dist = float(state.distance)
     if not safety.min() >= 1.0:
@@ -1558,7 +1570,7 @@ def fly_forest20(dev):
         "forest20", wavefront=2 * cycles,
         factor_solve=cycles * param.qp_iterations,
         resolve=cycles * param.qp_iterations * (1 + param.qp_correctors),
-        expand_boxes=cycles)
+        expand_boxes=cycles, lsc_planes=cycles)
     ms_cycle = summary["wall_time"] / cycles * 1e3
     phase("10 forest20", f"{FOREST_N} agents, {FOREST_TREES} trees "
                          f"({100 * occ_share:.2f} % of the "
@@ -1611,7 +1623,8 @@ def fly_circle128_all_pairs(sim):
             info.qp_iters.double().mean()]).tolist())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_wall
-    launches = check_launches("circle128 all pairs", fused_ipm=ALL_CYCLES)
+    launches = check_launches("circle128 all pairs", fused_ipm=ALL_CYCLES,
+                              lsc_planes=ALL_CYCLES)
     safety, failed, iters = (np.asarray(v) for v in zip(*stats))
     dist = float(state.distance)
     if not safety.min() >= 1.0:
@@ -1822,6 +1835,119 @@ def compare_expand(dev, forest_sim):
     return main
 
 
+def random1024_sim(dev, seed=RANDOM1024_SEED):
+    """The benchmark cell random1024's simulator: the mission of its
+    traffic at `seed`, its configuration's Param and dtype
+    (lscbench/cell.py, which imports nothing of the program)."""
+    bench = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "lscbench")
+    if bench not in sys.path:
+        sys.path.insert(0, bench)
+    import cell as cell_mod
+    from lsc_planner_tpu_torch import config, missions
+    c = cell_mod.find("random1024")
+    mission = cell_mod.build_mission(missions, c.mission_arrays(seed),
+                                     c.config["agent"])
+    return SyncSimulator(mission, cell_mod.build_param(config, c.config),
+                         device=dev, dtype=getattr(torch, c.config["dtype"]))
+
+
+def capture_planes_call(sim, cycles_before):
+    """The inputs of the LSC planes call of one cycle of sim after
+    cycles_before cycles: (args, kwargs) of that constraints.lsc_planes
+    call."""
+    state = sim.initial_state()
+    for _ in range(cycles_before):
+        state, _ = sim.cycle(state)
+    seen = []
+    launch = constraints.lsc_planes
+
+    def record(*args, **kw):
+        seen.append(([a.clone() for a in args],
+                     {k: v.clone() if torch.is_tensor(v) else v
+                      for k, v in kw.items()}))
+        return launch(*args, **kw)
+    constraints.lsc_planes = record
+    try:
+        sim.cycle(state)
+    finally:
+        constraints.lsc_planes = launch
+    if len(seen) != 1:
+        raise AssertionError(f"{len(seen)} LSC planes calls in one cycle, "
+                             "expected 1")
+    return seen[0]
+
+
+def planes_ops(K, guard):
+    """The correctly rounded additions, subtractions, multiplications,
+    divisions and square roots of one hull of K control points in the
+    LSC planes' function (csrc/planes.cu, op for op the plain version's):
+    the downwash and the relative points, every subset's bordered system
+    (sizes 1 to 3), the interior test (K > 3), the normal, and each
+    point's margin and right-hand side."""
+    ops = 7 + 9 * K                      # downwash, 1 / dw; rel
+    for S in range(1, min(K, 3) + 1):
+        sub = 3 * S * (S + 1) + 2 * S + 3          # Gram, ridge
+        for j in range(S):                         # Cholesky
+            sub += 2 * j + 3 + (S - 1 - j) * (2 * j + 1)
+        sub += 2 * sum(2 * i + 1 for i in range(S))    # G w = 1
+        sub += 4 * S + 6 * S + 6                   # lam, cand, d2
+        ops += math.comb(K, S) * sub
+    if K > 3:
+        ops += K * 17 + 1                          # interior test
+    ops += 1 + 3 + 1                               # dist, normal, z / dw
+    ops += K * (3 + 4 + 2 + (4 if guard else 0) + 3 + 5)
+    return ops
+
+
+def planes_bound(args, kw, out):
+    """bound() of one LSC planes call: its inputs read once, the normals
+    and right-hand sides written once (the mask is a view), and
+    planes_ops a hull."""
+    N, O, M, K = args[1].shape[:4]
+    ins = [a for a in args if torch.is_tensor(a)] + \
+        [v for v in kw.values() if torch.is_tensor(v)]
+    guard = kw.get("guard_margin", 0.0) > 0.0
+    return bound(tensor_bytes(*ins, out.normal, out.rhs),
+                 N * O * M * planes_ops(K, guard))
+
+
+def compare_planes(dev, forest_sim):
+    """Phase 18: the LSC planes kernel against its plain version, bit for
+    bit, one launch a call, on the fourth cycle's call of the benchmark's
+    random1024 and of forest20, with kernel / plain ms and the bound.
+    Returns {name: (max abs error, kernel ms, plain ms, bound)}."""
+    out = {}
+    for name, sim in (("random1024 cycle 4", random1024_sim(dev)),
+                      ("forest20 cycle 4", forest_sim)):
+        args, kw = capture_planes_call(sim, 3)
+        want = lsc_ops.lsc_planes_plain(*args, **kw)
+        lsc_ops.reset_counts()
+        got = lsc_ops.lsc_planes(*args, **kw)
+        torch.cuda.synchronize()
+        if lsc_ops.lsc_planes_launches != 1:
+            raise AssertionError(f"lsc_planes {name}: "
+                                 f"{lsc_ops.lsc_planes_launches} launches "
+                                 "in one call")
+        diff = sum(int((bits(g) != bits(w)).sum()) for g, w in (
+            (got.normal, want.normal), (got.rhs, want.rhs)))
+        if diff or not torch.equal(got.mask, want.mask):
+            raise AssertionError(f"lsc_planes {name}: {diff} bits differ "
+                                 "from the plain version's")
+        t_k = median_ms(lambda: lsc_ops.lsc_planes(*args, **kw))
+        t_p = median_ms(lambda: lsc_ops.lsc_planes_plain(*args, **kw),
+                        reps=20)
+        b_ms, b_by = planes_bound(args, kw, want)
+        N, O, M, K = args[1].shape[:4]
+        phase("18 planes", f"lsc_planes {name}: (N, O, M, K) = "
+                           f"{(N, O, M, K)}, {N * O * M} hulls, bit-equal "
+                           f"to its plain version, one launch; {t_k:.4f} ms"
+                           f" vs plain {t_p:.4f} ms, bound {b_ms:.6f} ms "
+                           f"({b_by})")
+        out[name] = (0.0, t_k, t_p, (b_ms, b_by))
+    return out
+
+
 def differing_bits(a, b):
     """Bits that differ between tensors a and b of one dtype and shape
     (a bool counts one bit)."""
@@ -1955,7 +2081,8 @@ def fly_dynamic_mode(dev, mode, noise, min_obs, cycles=None):
     """One dyn64 run() under prediction `mode` (set after validated(), as
     the JAX package's tests set it) with observation noise `noise`:
     obstacle safety above min_obs, 40 factor_solve and 80 resolve launches
-    a cycle, and, run to the finish (cycles None), the mission gates; a
+    a cycle (and one planes launch a cycle and a QPFAILED report), and,
+    run to the finish (cycles None), the mission gates; a
     run of `cycles` cycles is held to finite positions.  Returns (summary,
     host step ms a cycle)."""
     param = Param(goal_mode=GoalMode.PRIOR_BASED, obs_observer_stddev=noise)
@@ -1964,6 +2091,7 @@ def fly_dynamic_mode(dev, mode, noise, min_obs, cycles=None):
     sim.param.prediction_mode = mode
     host = time_obstacle_step(sim)
     what = f"dyn64 {mode.name}" + (f" noise {noise} m" if noise else "")
+    reports = count_reports(sim)
     reset_launch_counts()
     summary = sim.run(max_iterations=cycles)
     torch.cuda.synchronize()
@@ -1979,7 +2107,8 @@ def fly_dynamic_mode(dev, mode, noise, min_obs, cycles=None):
                              f"{summary['safety_ratio_obs']} <= {min_obs}")
     check_launches(what, factor_solve=done * param.qp_iterations,
                    resolve=done * param.qp_iterations *
-                   (1 + param.qp_correctors))
+                   (1 + param.qp_correctors),
+                   lsc_planes=done + len(reports))
     host_ms = 1e3 * statistics.mean(host)
     phase("13 dynamic", f"{what}: {done} cycles"
                         f"{' (finished)' if cycles is None else ''}, safety "
@@ -2045,7 +2174,8 @@ def fly_dynamic(dev):
     finally:
         ipm.ipm_lsc_fused = launch
     check_mission(summary, param, BIG_N, "dyn1024", finished=False)
-    check_launches("dyn1024", fused_ipm=DYN1024_CYCLES)
+    check_launches("dyn1024", fused_ipm=DYN1024_CYCLES,
+                   lsc_planes=DYN1024_CYCLES)
     want_c = BIG_K + DYN1024_OBSTACLES
     if rows != [want_c] * DYN1024_CYCLES:
         raise AssertionError(f"dyn1024: fused calls at C = {rows}, expected "
@@ -2120,7 +2250,7 @@ def fly_forest20_bt(dev):
         "forest20 .bt", wavefront=2 * cycles,
         factor_solve=cycles * param.qp_iterations,
         resolve=cycles * param.qp_iterations * (1 + param.qp_correctors),
-        expand_boxes=cycles)
+        expand_boxes=cycles, lsc_planes=cycles)
     phase("14 worlds", f"forest20 .bt flown: finished in {cycles} cycles "
                        f"(JAX CPU f32: {JAX_CPU_F32_FOREST_BT_CYCLES}), "
                        f"safety {summary['safety_ratio_agent']:.4f}, 0 "
@@ -2153,7 +2283,7 @@ def fly_forest20_castray(dev, forest_stages):
     ms = 1e3 * (time.perf_counter() - t0) / CASTRAY_CYCLES
     c = CASTRAY_CYCLES
     check_launches(what, wavefront=2 * c, factor_solve=c * 40,
-                   resolve=c * 80, expand_boxes=c)
+                   resolve=c * 80, expand_boxes=c, lsc_planes=c)
     safety, failed = (np.asarray(v) for v in zip(*stats))
     if not safety.min() >= 1.0 or failed.sum():
         raise AssertionError(f"{what}: min safety {safety.min()}, "
@@ -2163,7 +2293,7 @@ def fly_forest20_castray(dev, forest_stages):
     torch.cuda.synchronize()
     k = CAPTURE_K + 1       # the warm-up cycle and the captured ones
     check_launches(what + " captured", wavefront=2 * k, factor_solve=k * 40,
-                   resolve=k * 80, expand_boxes=k)
+                   resolve=k * 80, expand_boxes=k, lsc_planes=k)
     got = summary["final_state"]
     diffs = {f: differing_bits(a, b) for f, a, b in zip(got._fields, got,
                                                           state)
@@ -2282,15 +2412,32 @@ def mode_sim(dev, name):
             cycles)
 
 
-def chol_launches(param, cycles, n, dtype=torch.float32):
-    """A dense-row mission's chol launches at its KKT size n: 40
+def chol_launches(param, cycles, n, dtype=torch.float32, reports=0):
+    """A dense-row mission's kernel launches at its KKT size n: 40
     factor_solve and 80 resolve a cycle, on the kernels chol.large_design
-    picks for n in the run's dtype."""
+    picks for n in the run's dtype, and one LSC planes launch a cycle in
+    the LSC planner mode and one a QPFAILED report (count_reports)."""
     sfx = {None: "", "cluster": "_cluster", "tiled": "_tiled"}[
         chol.large_design(n, dtype)]
+    lsc = param.planner_mode == PlannerMode.LSC
     return {"factor_solve" + sfx: cycles * param.qp_iterations,
             "resolve" + sfx: cycles * param.qp_iterations *
-            (1 + param.qp_correctors)}
+            (1 + param.qp_correctors),
+            "lsc_planes": (cycles if lsc else 0) + reports}
+
+
+def count_reports(sim):
+    """The list that sim's QPFAILED violation reports append to: run()
+    makes one for each cycle with a QPFAILED agent, and each computes the
+    LSC planes once (one planes launch, in any planner mode)."""
+    calls = []
+    report = sim.qp_violation_report
+
+    def counted(*args, **kw):
+        calls.append(1)
+        return report(*args, **kw)
+    sim.qp_violation_report = counted
+    return calls
 
 
 def kkt_n(sim, param):
@@ -2424,11 +2571,13 @@ def fly_slack(dev, name, dtype, ref, tol, design):
     tm, kw, cycles = mode_case(name)
     param = Param(**kw)
     sim = SyncSimulator(tm, param, device=dev, dtype=dtype)
+    reports = count_reports(sim)
     reset_launch_counts()
     summary = sim.run(max_iterations=cycles)
     torch.cuda.synchronize()
     n = kkt_n(sim, param)
-    launches = check_launches(name, **chol_launches(param, cycles, n, dtype))
+    launches = check_launches(name, **chol_launches(param, cycles, n, dtype,
+                                                    len(reports)))
     if chol.large_design(n, dtype) != design:
         raise AssertionError(f"{name}: n = {n} in {dtype} is on the "
                              f"{chol.large_design(n, dtype)} design, not "
@@ -2717,7 +2866,8 @@ def fly_circle128_2d(dev):
     reset_launch_counts()
     summary = sim.run(max_iterations=cycles)
     torch.cuda.synchronize()
-    launches = check_launches("circle128-2d", fused_ipm=cycles)
+    launches = check_launches("circle128-2d", fused_ipm=cycles,
+                              lsc_planes=cycles)
     check_mission(summary, param, sim.N, "circle128-2d", finished=False)
     dist = summary["total_flight_distance"]
     if not abs(dist - JAX_CPU_2D128[1]) <= 0.1 * JAX_CPU_2D128[1]:
@@ -3084,7 +3234,8 @@ def fly_sharded(dev, big_run):
 
     # 17b
     L = n // world
-    check_rank_launches("17b", flat, {"fused_ipm": cycles})
+    check_rank_launches("17b", flat, {"fused_ipm": cycles,
+                                      "lsc_planes": cycles})
     safety = min(float(r["safety"].min()) for r in flat)
     failed = int(sum(r["failed"].sum() for r in flat))
     dist_b = flat[0]["distance"]
@@ -3117,7 +3268,8 @@ def fly_sharded(dev, big_run):
                         f"{1e3 * p['cycle_total']:.2f} ms [{smi}]")
 
     # 17c
-    check_rank_launches("17c", grid, {"fused_ipm": cycles})
+    check_rank_launches("17c", grid, {"fused_ipm": cycles,
+                                      "lsc_planes": cycles})
     bits_c = sum(differing_bits(torch.as_tensor(g["traj"][c]),
                                 torch.as_tensor(f["traj"][c]))
                  for g, f in zip(grid, flat) for c in keep)
@@ -3146,7 +3298,7 @@ def fly_sharded(dev, big_run):
     check_rank_launches("17d f64", lane_run, {
         "factor_solve": s0["iterations"] * lane_param.qp_iterations,
         "resolve": s0["iterations"] * lane_param.qp_iterations *
-        (1 + lane_param.qp_correctors)})
+        (1 + lane_param.qp_correctors), "lsc_planes": s0["iterations"]})
     f64_ms = max(1e3 * s["average_planning_time"] for s in lane_run)
     phase("17 sharded", f"17d lanes{lanes_n} K={LANES_K} f64 on {world} "
                         "ranks, halo 1 with an axis:1 sort before every "
@@ -3165,7 +3317,8 @@ def fly_sharded(dev, big_run):
         raise AssertionError(f"17d f32: safety {s1['safety_ratio_agent']},"
                              f" {s1['qp_failures']} QPFAILED")
     check_rank_launches("17d f32", lane_f32,
-                        {"fused_ipm": s1["iterations"]})
+                        {"fused_ipm": s1["iterations"],
+                         "lsc_planes": s1["iterations"]})
     near = np.abs(fs["start"][:, 1]) <= 150.0
     far_y = np.sort(fs["start"][away, 1])
     span = f"{far_y[0]:.1f}..{far_y[-1]:.1f} m" if far_y.size else "none"
@@ -3309,7 +3462,8 @@ def main():
     check_mission(summary, param, qn, "circle64")
     launches = check_launches(
         "circle64", factor_solve=cycles * param.qp_iterations,
-        resolve=cycles * param.qp_iterations * (1 + param.qp_correctors))
+        resolve=cycles * param.qp_iterations * (1 + param.qp_correctors),
+        lsc_planes=cycles)
     ms_cycle = summary["wall_time"] / cycles * 1e3
     phase("5 mission", f"circle{qn} PRIOR_BASED f32: finished in {cycles} "
                        f"cycles (JAX CPU f32: {JAX_CPU_F32_CYCLES}), safety "
@@ -3387,6 +3541,10 @@ def main():
     # 17. the sharded cycle: a world of one on nccl, gloo ranks sharing
     # the card, the 2-axis layout, the halo on lanes1024, the dry run
     block_launches = fly_sharded(dev, big_run)
+
+    # 18. the LSC planes kernel vs its plain version, on the benchmark's
+    # random1024 and on forest20
+    planes = compare_planes(dev, forest)
 
     errs, times = results[MAIN_B]
     source = "lsc_planner_tpu_torch/csrc/chol.cu"
@@ -3488,6 +3646,16 @@ def main():
          "bound_by": f2[3][1], "library_ms": None},
         # phase 17b's path: each rank's block of circle1024, timed on the
         # first L of phase 8's cycle-4 QPs; launches on rank 0
+        {"name": "lsc_planes", "route": "cuda",
+         "source": "lsc_planner_tpu_torch/csrc/planes.cu",
+         "replaces": "none (planner/constraints.py::lsc_planes, left to XLA "
+                     "in the JAX package)",
+         "launches": forest_launches["lsc_planes"],
+         "max_abs_err": planes["random1024 cycle 4"][0],
+         "ms": planes["random1024 cycle 4"][1],
+         "plain_ms": planes["random1024 cycle 4"][2],
+         "bound_ms": planes["random1024 cycle 4"][3][0],
+         "bound_by": planes["random1024 cycle 4"][3][1], "library_ms": None},
         {"name": "ipm_lsc_fused (a rank's block, sharded)", "route": "cuda",
          "source": "lsc_planner_tpu_torch/csrc/ipm.cu",
          "replaces": "lsc_planner_tpu/ops/ipm_pallas.py:122",

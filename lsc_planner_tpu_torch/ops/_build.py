@@ -29,7 +29,8 @@ from .. import trace
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("chol.cu", "ipm.cu", "wavefront.cu", "corridor.cu", "trace.cu")
+SOURCES = ("chol.cu", "ipm.cu", "wavefront.cu", "corridor.cu", "trace.cu",
+           "planes.cu")
 HEADERS = ("warp_chol.cuh",      # included by chol.cu and ipm.cu
            "chol_cluster.cuh",   # included by chol.cu
            "chol_tiled.cuh")     # included by chol.cu
@@ -86,8 +87,14 @@ _SIGNATURES = {
     "lsc_expand_boxes_k": [],
     # the tracer's stage stamp: slot (int64, device); stream
     "lsc_trace_stamp": [_PTR, _PTR],
+    # init_traj, obs_pred, agent radius and downwash, obstacle radius and
+    # downwash, obs_is_agent, slack flags and sizes (or null); guard;
+    # normal, rhs; N, O, M, K; stream
+    "lsc_planes_f32": [_PTR] * 9 + [ctypes.c_double] + [_PTR] * 2 +
+                      [_INT] * 4 + [_PTR],
 }
 _SIGNATURES["lsc_expand_boxes_f64"] = _SIGNATURES["lsc_expand_boxes_f32"]
+_SIGNATURES["lsc_planes_f64"] = _SIGNATURES["lsc_planes_f32"]
 _LONG_RESULTS = ("lsc_chol_tiled_work", "lsc_chol_tiled_task")
 # the measurement build's (-DLSC_CORRIDOR_STAMPS): the same, then the
 # stamps (N, 4) uint64 before the stream

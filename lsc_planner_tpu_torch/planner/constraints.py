@@ -3,7 +3,8 @@ of lsc_planner_tpu/planner/constraints.py).
 
 Each generator is one batched tensor program over every (agent, obstacle,
 segment) triple (generateLSC / generateBVC / generateReciprocalRSFC,
-traj_planner.cpp:1254-1440).  Contractions over the 3-D
+traj_planner.cpp:1254-1440); the LSC planes are one kernel launch on the
+card (ops/lsc_planes.py, csrc/planes.cu).  Contractions over the 3-D
 coordinate are written as products and sums, never as matmuls, so world
 coordinates stay exact f32 on every device.  ``box_pair_planes``, the
 planes of a two-box SFC transition, is host-side numpy, as in the JAX
@@ -16,18 +17,9 @@ import torch
 
 from ..ops import geometry as geo
 from ..ops import hull as hull_ops
+from ..ops import lsc_planes as lsc_ops
+from ..ops.lsc_planes import pair_downwash
 from .optimizer import PlaneConstraints
-
-
-def pair_downwash(agent_radius, agent_downwash, obs_radius, obs_downwash,
-                  obs_is_agent):
-    """Combined downwash (traj_planner.cpp:1336-1345): agents mix both
-    coefficients; non-agents use 1.0 for the ego agent."""
-    dw_agent = ((agent_downwash * agent_radius + obs_downwash * obs_radius)
-                / (agent_radius + obs_radius))
-    dw_other = ((agent_radius + obs_downwash * obs_radius)
-                / (agent_radius + obs_radius))
-    return torch.where(obs_is_agent, dw_agent, dw_other)
 
 
 def lsc_planes(init_traj, obs_pred, agent_radius, agent_downwash,
@@ -43,36 +35,14 @@ def lsc_planes(init_traj, obs_pred, agent_radius, agent_downwash,
     the shifted previous solution feasible (see the JAX package).  With
     slack_flags (N, O) and obs_pred_sizes (N, O, M, n+1) (the disturbance
     path, traj_planner.cpp:1395-1400) a slack-flagged non-agent obstacle
-    takes the RSFC margin, its inflated size plus the agent's radius."""
-    N, O, M = obs_pred.shape[:3]
-
-    dw = pair_downwash(agent_radius[:, None], agent_downwash[:, None],
-                       obs_radius, obs_downwash, obs_is_agent)   # (N, O)
-    scale = torch.stack([torch.ones_like(dw), torch.ones_like(dw),
-                         1.0 / dw], dim=-1)                       # (N, O, 3)
-    init_t = init_traj[:, None] * scale[:, :, None, None, :]
-    obs_t = obs_pred * scale[:, :, None, None, :]
-
-    rel = init_t - obs_t                                  # (N, O, M, n1, 3)
-    normal_t, _ = hull_ops.hull_normal(rel)               # (N, O, M, 3)
-
-    collision_dist = agent_radius[:, None] + obs_radius   # (N, O)
-    e = (rel * normal_t[..., None, :]).sum(-1)            # rel_i . n_t
-    d = 0.5 * (collision_dist[..., None, None] + e)
-    if guard_margin > 0.0:
-        s0 = 0.5 * (e - collision_dist[..., None, None])
-        d = d + torch.clamp(0.5 * s0, 0.0, guard_margin)
-    if slack_flags is not None and obs_pred_sizes is not None:
-        use_rsfc = slack_flags & ~obs_is_agent
-        d_rsfc = obs_pred_sizes + agent_radius[:, None, None, None]
-        d = torch.where(use_rsfc[..., None, None], d_rsfc, d)
-
-    # untransform the normal (z divided by downwash, traj_planner.cpp:1403)
-    normal = torch.cat([normal_t[..., :2],
-                        normal_t[..., 2:3] / dw[..., None, None]], dim=-1)
-    rhs = d + (obs_pred * normal[..., None, :]).sum(-1)
-    mask = obs_mask[..., None].expand(N, O, M)
-    return PlaneConstraints(normal=normal, rhs=rhs, mask=mask)
+    takes the RSFC margin, its inflated size plus the agent's radius.
+    One kernel launch on the card, the plain PyTorch program on the CPU
+    (ops/lsc_planes.py)."""
+    return lsc_ops.lsc_planes(init_traj, obs_pred, agent_radius,
+                              agent_downwash, obs_radius, obs_downwash,
+                              obs_is_agent, obs_mask, slack_flags=slack_flags,
+                              obs_pred_sizes=obs_pred_sizes,
+                              guard_margin=guard_margin)
 
 
 def bvc_planes(init_traj, obs_pred, agent_radius, agent_downwash,

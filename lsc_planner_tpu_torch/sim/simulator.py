@@ -58,6 +58,7 @@ from ..device import resolve_device, synchronize
 from ..ops import bernstein as bz
 from ..ops import chol, ipm, wavefront
 from ..ops import corridor as corridor_ops
+from ..ops import lsc_planes as lsc_ops
 from ..ops import orca as orca_ops
 from ..ops.geometry import knn_select
 from ..planner import constraints as cons
@@ -244,7 +245,7 @@ def _update_rescue(state, pos, desired_goal, stall_count, progress, p,
 
 def reset_launch_counts() -> None:
     """Sets every kernel wrapper's launch counter (ops/*.py) to 0."""
-    for mod in (chol, ipm, wavefront, corridor_ops):
+    for mod in (chol, ipm, wavefront, corridor_ops, lsc_ops):
         mod.reset_counts()
 
 
@@ -261,7 +262,8 @@ def launch_counts() -> dict:
             "cholesky_batched_tiled": chol.factor_tiled_launches,
             "fused_ipm": ipm.fused_launches,
             "wavefront": wavefront.wavefront_launches,
-            "expand_boxes": corridor_ops.expand_launches}
+            "expand_boxes": corridor_ops.expand_launches,
+            "lsc_planes": lsc_ops.lsc_planes_launches}
 
 
 def _stack_cycles(cycle, state, k):

@@ -32,14 +32,16 @@ two at the main path's shape (B = 64, n = 39, f32, IPM-like systems), the
 factor alone (cholesky_batched) at the same shape, factor_solve and the
 factor alone at the fused IPM's batch of circle1024 (B = 1024, names
 ending in _b1024), the face expansion on forest20's cycle-4 call
-(expand_boxes_forest20), and the wavefront kernel on forest20's cycle-4
+(expand_boxes_forest20), the wavefront kernel on forest20's cycle-4
 priority grids (N = 20, (11, 41, 41)) and on chip_smoke's 30 m forest
-((21, 121, 121)), and prints as one
+((21, 121, 121)), and the LSC planes kernel on the cycle-4 calls of
+forest20 ((20, 20, 5, 6)) and of the benchmark's random1024 ((1024, 32,
+5, 6)), through constraints.lsc_planes, and prints as one
 JSON line: each wrapper's device us a launch (200 launches captured in
-one CUDA graph, 20 for the wavefront and the face expansion, replayed,
-CUDA events over the replay / launches: no host time), its host us a call
-(2,000 calls enqueued without a synchronize, 200 for the wavefront and
-the face expansion) and its
+one CUDA graph, 20 for the wavefront, the face expansion and random1024's
+planes, replayed, CUDA events over the replay / launches: no host time),
+its host us a call (2,000 calls enqueued without a synchronize, 200 for
+those three) and its
 CUDA-event us a call (median of 50, as chip_smoke phase 4); and the host
 us of reading the current stream with a device guard and
 torch.cuda.current_stream against the raw stream (ops/_build.py::launch).
@@ -62,6 +64,7 @@ from chip_smoke import CAPTURE_K  # noqa: E402
 from lsc_planner_tpu_torch import GoalMode, Param, trace  # noqa: E402
 from lsc_planner_tpu_torch.ops import chol, wavefront  # noqa: E402
 from lsc_planner_tpu_torch.ops import corridor as corridor_ops  # noqa: E402
+from lsc_planner_tpu_torch.planner import constraints  # noqa: E402
 from lsc_planner_tpu_torch.sim.simulator import SyncSimulator  # noqa: E402
 
 
@@ -131,11 +134,18 @@ def time_kernels(smi):
     expand = chip_smoke.capture_expand_call(forest, 3)
     calls["expand_boxes_forest20"] = lambda: corridor_ops.expand_boxes(
         *expand)
+    for name, sim in (("lsc_planes_forest20", forest),
+                      ("lsc_planes_random1024",
+                       chip_smoke.random1024_sim(dev))):
+        args, kw = chip_smoke.capture_planes_call(sim, 3)
+        calls[name] = (lambda args=args, kw=kw:
+                       constraints.lsc_planes(*args, **kw))
     # launches a graph and host-timed calls: fewer for the wavefront,
     # whose launches are longer and whose outputs (held by the graph) are
-    # up to 25 MB, and for the face expansion, whose launches are longer
+    # up to 25 MB, for the face expansion, whose launches are longer, and
+    # for random1024's planes (6 MB of outputs a call)
     counts = {name: (20, 200) if name in grids or name.startswith(
-        "expand") else (200, 2000) for name in calls}
+        ("expand", "lsc_planes_random")) else (200, 2000) for name in calls}
 
     def guarded():
         with torch.cuda.device(dev):

@@ -850,7 +850,7 @@ def test_captured_cycles_are_bit_equal(cuda, case):
     fused IPM) and forest20 (grid planner, wavefront, corridor, chol),
     also with the exact castRay and with the VELOCITY prediction's
     slow-down against the ESDF.  The launch counters record the captured
-    block and do not move on a replay."""
+    block (one LSC planes launch a cycle) and do not move on a replay."""
     from lsc_planner_tpu_torch import (GoalMode, Param, PredictionMode,
                                        make_circle_mission, missions)
     from lsc_planner_tpu_torch.sim.simulator import SyncSimulator
@@ -885,6 +885,7 @@ def test_captured_cycles_are_bit_equal(cuda, case):
             (1 + p.qp_correctors)
     if case.startswith("forest20"):
         assert launches["wavefront"] == 20 and launches["expand_boxes"] == 10
+    assert launches["lsc_planes"] == 10
 
 
 def factored_problem(rng, N, C, dtype, device):
@@ -1254,8 +1255,9 @@ def test_fused_kernel_2d_matches_plain(cuda, B, C):
 def test_captured_mode_cycles_are_bit_equal(cuda, mode):
     """4 captured cycles equal 4 uncaptured ones bit for bit: an 8-agent
     circle under RECIPROCAL_RSFC (the slack QP at n = 45 + 7 x 5 = 80 on
-    the large-n chol kernels, a cluster of one block a matrix) and a
-    130-agent 2-D circle (the fused IPM at ndim 2)."""
+    the large-n chol kernels, a cluster of one block a matrix; no LSC
+    planes) and a 130-agent 2-D circle (the fused IPM at ndim 2, one LSC
+    planes launch a cycle)."""
     from lsc_planner_tpu_torch import (GoalMode, Param, PlannerMode,
                                        make_circle_mission)
     from lsc_planner_tpu_torch.sim.simulator import SyncSimulator
@@ -1278,8 +1280,10 @@ def test_captured_mode_cycles_are_bit_equal(cuda, mode):
         assert launches["factor_solve_cluster"] == 4 * p.qp_iterations
         assert launches["factor_solve"] == 0
         assert launches["factor_solve_tiled"] == 0
+        assert launches["lsc_planes"] == 0
     else:
         assert launches["fused_ipm"] == 4
+        assert launches["lsc_planes"] == 4
 
 
 def orca_inputs(N, dtype, device, seed=0):
@@ -1495,3 +1499,187 @@ def test_geometry_and_fista_card_match_cpu(cuda, dtype, tol):
         scale = max(1.0, float(want[k][finite].abs().max()))
         assert float((got[k][finite] - want[k][finite]).abs().max()) <= \
             tol * scale, k
+
+
+# ------------------------------------------------------------ LSC planes
+def degenerate_hulls(rng, K, big):
+    """Relative control-point hulls (H, K, 3) that stress the enumeration
+    of ops/hull.py::_closest_point_enum: every point the same, collinear
+    points, the origin inside (the interior test's +x fallback, K > 3),
+    equal-distance ties between subsets (duplicated points, a mirrored
+    pair), every point at the origin, a line through the origin, a hull
+    closer than the normal's eps, a tiny hull far out, axis-aligned points
+    with signed zeros, points whose Gram entries overflow (`big`: every
+    subset infeasible, so the first candidate is taken) and a NaN point."""
+    p = rng.normal(size=3) * 2.0
+    d = rng.normal(size=3)
+    t = rng.uniform(-1.0, 1.0, size=K)
+    inside = rng.normal(size=(K, 3))
+    inside -= inside.mean(0)
+    pair = np.array([[1.0, 0.5, 0.0], [1.0, -0.5, 0.0]])
+    ties = np.resize(np.concatenate([pair, pair[:1]]), (K, 3))
+    axis = np.resize(np.array([[2.0, 0.0, -0.0], [2.0, -0.0, 0.0],
+                               [3.0, 0.0, 0.0]]), (K, 3))
+    nan = rng.normal(size=(K, 3))
+    nan[K // 2, 1] = np.nan
+    return np.stack([
+        np.repeat(p[None], K, 0), p + t[:, None] * d, inside, ties,
+        np.zeros((K, 3)), t[:, None] * d, inside * 1e-12 + 1e-11,
+        p + rng.normal(size=(K, 3)) * 1e-6, axis, -axis,
+        rng.normal(size=(K, 3)) * big, nan])
+
+
+def lsc_planes_case(case, shape, dtype, device, seed=0):
+    """(arguments, keyword arguments) of lsc_planes at shape (N, O, M, K):
+    "random", trajectories of a swarm at about 0.5 agents a cubic metre,
+    each agent's obstacles the predictions of random others (a tenth of
+    them its own, so hulls hold the origin), random radii, downwash,
+    agent flags and masks; "guard", the same with a guard band that
+    clamps at both ends; "slack", the same with slack flags and RSFC sizes;
+    "degenerate", degenerate_hulls and random hulls in turn (zero
+    trajectories against the negated hulls at downwash 1, so the relative
+    points are the hulls exactly)."""
+    N, O, M, K = shape
+    rng = np.random.default_rng(seed)
+    kw = {}
+    if case == "degenerate":
+        big = 1e25 if dtype == torch.float32 else 1e160
+        hulls = degenerate_hulls(rng, K, big)
+        H = N * O * M
+        rel = rng.normal(size=(H, K, 3))
+        idx = np.arange(0, H, 2)
+        rel[idx] = hulls[idx // 2 % len(hulls)]
+        init = np.zeros((N, M, K, 3))
+        obs = -rel.reshape(N, O, M, K, 3)
+        ar, adw = np.full(N, 0.15), np.ones(N)
+        orad, odw = np.full((N, O), 0.15), np.ones((N, O))
+    else:
+        side = max(2.0, (N / 0.5) ** (1.0 / 3.0))
+        pos = rng.uniform(0.0, side, size=(N, 1, 1, 3))
+        steps = rng.normal(size=(N, M * K, 3)) * 0.05
+        init = pos + np.cumsum(steps, axis=1).reshape(N, M, K, 3)
+        other = rng.integers(0, N, size=(N, O))
+        own = rng.uniform(size=(N, O)) < 0.1
+        other = np.where(own, np.arange(N)[:, None], other)
+        obs = init[other] + rng.normal(size=(N, O, M, K, 3)) * 0.02
+        ar = 0.15 + rng.uniform(0.0, 0.05, size=N)
+        adw = rng.uniform(1.5, 2.5, size=N)
+        orad = 0.15 + rng.uniform(0.0, 0.05, size=(N, O))
+        odw = rng.uniform(1.5, 2.5, size=(N, O))
+        if case == "guard":
+            kw["guard_margin"] = 0.04
+        if case == "slack":
+            kw["guard_margin"] = 0.004
+            kw["slack_flags"] = torch.as_tensor(
+                rng.uniform(size=(N, O)) < 0.5, device=device)
+            kw["obs_pred_sizes"] = torch.as_tensor(
+                rng.uniform(0.1, 0.4, size=(N, O, M, K)), dtype=dtype,
+                device=device)
+    is_agent = rng.uniform(size=(N, O)) < 0.8
+    mask = rng.uniform(size=(N, O)) < 0.9
+
+    def t(a, dt=dtype):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
+                               device=device)
+    args = (t(init), t(obs), t(ar), t(adw), t(orad), t(odw),
+            t(is_agent, torch.bool), t(mask, torch.bool))
+    return args, kw
+
+
+def same_bits(a, b):
+    """a and b bit for bit, NaNs compared as NaN (their payloads are not
+    the function's)."""
+    return bool(((bits(a) == bits(b)) | (a.isnan() & b.isnan())).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case,shape", [
+    ("random", (64, 32, 5, 6)), ("guard", (64, 32, 5, 6)),
+    ("slack", (64, 32, 5, 6)), ("degenerate", (8, 16, 5, 6)),
+    ("random", (1024, 32, 5, 6)), ("random", (20, 19, 5, 6)),
+    ("random", (20, 20, 5, 6)), ("degenerate", (5, 7, 3, 4)),
+    ("random", (3, 5, 2, 1)), ("random", (3, 5, 2, 2)),
+    ("random", (3, 5, 2, 3)), ("degenerate", (3, 5, 2, 3)),
+    ("random", (33, 9, 4, 5)), ("random", (33, 9, 4, 7)),
+    ("degenerate", (6, 9, 4, 8)), ("guard", (1, 1, 1, 6))])
+def test_lsc_planes_kernel_matches_plain(cuda, case, shape, dtype):
+    """The LSC planes kernel against its plain version on the same card
+    tensors, bit for bit (normals and right-hand sides), in one launch:
+    random swarms (the benchmark cells' shapes among them), the guard band,
+    the slack branch, degenerate hulls, and every hull size 1 to 8."""
+    from lsc_planner_tpu_torch.ops import lsc_planes as lsc_ops
+
+    args, kw = lsc_planes_case(case, shape, dtype, cuda, seed=sum(shape))
+    lsc_ops.reset_counts()
+    got = lsc_ops.lsc_planes(*args, **kw)
+    want = lsc_ops.lsc_planes_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert lsc_ops.lsc_planes_launches == 1
+    assert same_bits(got.normal, want.normal)
+    assert same_bits(got.rhs, want.rhs)
+    assert torch.equal(got.mask, want.mask)
+    if case == "degenerate":         # the +x fallback and the overflow
+        assert bool((want.normal[..., 0] == 1.0).any())
+        assert bool(torch.isnan(want.rhs).any())
+
+
+@pytest.mark.cuda
+def test_lsc_planes_kernel_refuses_and_routes(cuda):
+    """A dtype the kernel lacks raises; hulls of more than 8 points run the
+    plain version (FISTA) on the card, with no launch."""
+    from lsc_planner_tpu_torch.ops import lsc_planes as lsc_ops
+
+    args, kw = lsc_planes_case("random", (4, 3, 2, 6), torch.float32, cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        lsc_ops.lsc_planes(*[a.half() if a.is_floating_point() else a
+                             for a in args])
+    args, kw = lsc_planes_case("random", (4, 3, 2, 9), torch.float32, cuda)
+    lsc_ops.reset_counts()
+    got = lsc_ops.lsc_planes(*args)
+    want = lsc_ops.lsc_planes_plain(*args)
+    assert lsc_ops.lsc_planes_launches == 0
+    assert same_bits(got.rhs, want.rhs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["circle130_knn", "forest20"])
+def test_captured_cycles_with_the_planes_kernel_equal_plain(cuda, case,
+                                                            monkeypatch):
+    """10 cycles captured in one CUDA graph, through the LSC planes kernel,
+    equal 10 uncaptured cycles with constraints.lsc_planes replaced by the
+    plain version, bit for bit in every SwarmState field: a 130-agent
+    circle with K-NN pruning (K = 32, the fused IPM) and forest20 (all
+    pairs, the chol path).  One planes launch a cycle (one an LSC
+    plan_block)."""
+    from lsc_planner_tpu_torch import (GoalMode, Param, make_circle_mission,
+                                       missions)
+    from lsc_planner_tpu_torch.ops import lsc_planes as lsc_ops
+    from lsc_planner_tpu_torch.planner import constraints as cons
+    from lsc_planner_tpu_torch.sim.simulator import SyncSimulator
+
+    if case == "circle130_knn":
+        qn = 130
+        r = max(4.0, 0.45 * qn / np.pi)
+        m = make_circle_mission(qn, radius=r, world=(-r - 2, -r - 2, 0,
+                                                     r + 2, r + 2, 2.5))
+        p = Param(goal_mode=GoalMode.PRIOR_BASED, max_neighbors=32)
+        before = 5
+    else:
+        m, before = forest_mission(missions, 0), 3
+        p = Param(goal_mode=GoalMode.PRIOR_BASED)
+    sim = SyncSimulator(m, p, device=cuda)
+    state = sim.initial_state()
+    for _ in range(before):
+        state, _ = sim.cycle(state)
+    with monkeypatch.context() as mp:
+        mp.setattr(cons, "lsc_planes", lsc_ops.lsc_planes_plain)
+        want = state
+        for _ in range(10):
+            want, _ = sim.cycle(want)
+    multi = sim.make_scan_cycle(10)
+    got, _ = multi(state)
+    torch.cuda.synchronize()
+    diffs = state_bit_diffs(got, want)
+    assert not any(diffs.values()), diffs
+    assert multi.graph.launches["lsc_planes"] == 10
