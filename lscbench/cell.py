@@ -10,14 +10,20 @@ configuration and traffic; the files hold the rest:
 - ``workloads/<cell>.json``: what the harness does in the cell besides
   (which dispatches the check keeps, how many the traced run profiles) and
   the limits of the numbers ``check.py`` compares;
-- ``metrics/<metric>.py``: one reader a metric (``read(record)``).
+- ``metrics/<metric>.py``: one reader a metric (``read(record)``);
+- ``reference/<name>/``: the plain reference the check judges the
+  program by, the package the configuration names under its key
+  ``"reference"`` (``lsc`` where it has none; the contract a package keeps
+  is ``reference/__init__.py``'s).
 
-Nothing here imports the program or the reference: ``build_mission`` and
-``build_param`` take the package's ``missions`` and ``config`` modules.
+Nothing here imports the program: ``build_mission`` and ``build_param``
+take the package's ``missions`` and ``config`` modules, and
+``Cell.reference`` loads the reference only when asked.
 """
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import importlib.util
 import json
 import sys
@@ -46,6 +52,7 @@ def _in_cell(metric: dict, cell: str) -> bool:
 @dataclasses.dataclass
 class Cell:
     name: str
+    config_name: str
     chips: int
     config: dict
     traffic: dict
@@ -78,13 +85,37 @@ class Cell:
             path = path.with_name(f"{metric.split('.', 1)[0]}.py")
         return _module(path)
 
+    def reference(self, module: str = ""):
+        """The module `module` ("config", "sim.simulator"; "" for the
+        package itself) of the plain reference the configuration names:
+        the package reference/<name>/ of this cell's bench_dir, where
+        <name> is the configuration's "reference" ("lsc" where it has
+        none).  LookupError where <name> is no plain identifier or names
+        no package there."""
+        name = self.config.get("reference", "lsc")
+        folder = self.bench_dir / "reference"
+        if not (isinstance(name, str) and name.isidentifier()
+                and (folder / name / "__init__.py").is_file()):
+            raise LookupError(
+                f"configuration {self.config_name} names the reference "
+                f"{name!r}, and {folder}/ holds no package of that name")
+        return importlib.import_module(
+            ".".join(filter(None, (_module(folder).__name__, name, module))))
+
 
 def _module(path: Path):
-    """The module of a Python file of the benchmark, loaded by its path
-    (once a process: later calls return the same module)."""
+    """The module of a Python file of the benchmark, or the package of a
+    folder of it, loaded by its path under a name of its own (once a
+    process: later calls return the same module), so that each copy of
+    the benchmark runs its own files."""
     key = f"lscbench_{path.parent.name}_{path.stem}_{abs(hash(str(path)))}"
     if key not in sys.modules:
-        spec = importlib.util.spec_from_file_location(key, path)
+        if path.is_dir():
+            spec = importlib.util.spec_from_file_location(
+                key, path / "__init__.py",
+                submodule_search_locations=[str(path)])
+        else:
+            spec = importlib.util.spec_from_file_location(key, path)
         mod = importlib.util.module_from_spec(spec)
         sys.modules[key] = mod
         spec.loader.exec_module(mod)
@@ -102,7 +133,8 @@ def find(name: str, root: Path = ROOT, bench_dir: Path = BENCH_DIR) -> Cell:
     configs = {c["name"]: c for c in bench["configs"]}
     config = _load(root / configs[w["config"]]["file"])
     return Cell(
-        name=name, chips=int(w["chips"]), config=config,
+        name=name, config_name=w["config"], chips=int(w["chips"]),
+        config=config,
         traffic=_load(bench_dir / "traffic" / f"{w['traffic']}.json"),
         workload=_load(bench_dir / "workloads" / f"{name}.json"),
         end_to_end=[m for m in bench["end_to_end"] if _in_cell(m, name)],

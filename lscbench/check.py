@@ -1,6 +1,6 @@
-"""Whether the timed path planned correctly: the plain reference
-(``reference/lsc``, plain PyTorch, float64) judges the dispatches a run
-keeps.
+"""Whether the timed path planned correctly: the plain reference the
+cell's configuration names (``reference/<name>/``, ``lsc`` by default;
+plain PyTorch, float64) judges the dispatches a run keeps.
 
 A graph replay exposes the swarm state only between dispatches, so the
 reference follows the program step by step from the program's own state:
@@ -80,10 +80,11 @@ def holds(value, limit, kind) -> bool:
     raise ValueError(kind)
 
 
-def reference_modules():
-    from reference.lsc import config, missions
-    from reference.lsc.sim import audit, simulator
-    return config, missions, simulator, audit
+def reference_modules(c):
+    """The config, missions, sim.simulator and sim.audit modules of the
+    plain reference cell c's configuration names (``Cell.reference``)."""
+    return tuple(c.reference(m) for m in ("config", "missions",
+                                          "sim.simulator", "sim.audit"))
 
 
 def _as(state_cls, state, dtype, device):
@@ -131,7 +132,7 @@ def judge(c, arrays: dict, keeps: list, window_safety_min: float,
     {name: value} of figures printed beside them and not compared).  The
     reference runs in float64 on `device`, in the run's process, after the
     program's state is freed."""
-    rconfig, rmissions, rsim_mod, raudit = reference_modules()
+    rconfig, rmissions, rsim_mod, raudit = reference_modules(c)
     limits = c.workload["limits"]
     guarantees = c.config["guarantees"]
     param = cell_mod.build_param(rconfig, c.config)

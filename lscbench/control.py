@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""The check's control: the plain reference put in the program's place
-and run in the nearest precision below the configuration's, float32 with
-TF32 matmuls (the configurations state float32 with TF32 off, as the
-port's ``device.exact_float32`` sets it), on the card at the cell's own
-size.  Its dispatches are judged by ``check.py`` exactly as the
-program's are, and ``correct`` has to come out false.
+"""The check's control: the plain reference the cell's configuration
+names (``reference/<name>/``) put in the program's place and run in the
+nearest precision below the configuration's, float32 with TF32 matmuls
+(the configurations state float32 with TF32 off, as the port's
+``device.exact_float32`` sets it), on the card at the cell's own size.
+Its dispatches are judged by ``check.py`` exactly as the program's are,
+and ``correct`` has to come out false.
 
     python3 lscbench/control.py --workload <cell> --seeds 11,12,13 \
         [--precision tf32|f32]
@@ -27,21 +28,21 @@ sys.path.insert(0, str(BENCH_DIR))
 sys.path.insert(1, str(BENCH_DIR.parent))
 
 
-def reference_program(device="cuda"):
-    """The reference as the system under test: its SyncSimulator with the
-    k-cycle dispatch that ``make_scan_cycle`` gives on the CPU (k eager
-    cycles, the outputs stacked as a replay's)."""
-    from reference import lsc
-    from reference.lsc import config, missions
-    from reference.lsc.sim import simulator
+def reference_program(c, device="cuda"):
+    """The plain reference cell c's configuration names, as the system
+    under test: its SyncSimulator with the k-cycle dispatch that
+    ``make_scan_cycle`` gives on the CPU (k eager cycles, the outputs
+    stacked as a replay's)."""
+    simulator = c.reference("sim.simulator")
 
     class Sim(simulator.SyncSimulator):
         def make_scan_cycle(self, k):
             return lambda state: simulator._stack_cycles(self.cycle, state,
                                                          k)
-    return types.SimpleNamespace(package=lsc, config=config,
-                                 missions=missions, SyncSimulator=Sim,
-                                 device=device)
+    return types.SimpleNamespace(package=c.reference(),
+                                 config=c.reference("config"),
+                                 missions=c.reference("missions"),
+                                 SyncSimulator=Sim, device=device)
 
 
 def run_control(cell_name, seed, precision="tf32", device="cuda",
@@ -59,7 +60,7 @@ def run_control(cell_name, seed, precision="tf32", device="cuda",
     try:
         t0 = time.perf_counter()
         res = window.run_cell(c, seed, 0.0, False, lambda: time.perf_counter()
-                              - t0, program=reference_program(device),
+                              - t0, program=reference_program(c, device),
                               until_kept=True)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False

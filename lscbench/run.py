@@ -5,8 +5,9 @@ run of one cell on one H100.
     python3 lscbench/run.py --workload <cell> --seed <n> --seconds <s> \
         --trace <0|1>
 
-A run: checks for a CUDA card (none, or fewer than the cell asks for:
-exit 2, no result); makes the cell's mission from --seed
+A run: checks that the configuration names a plain reference the
+benchmark holds, and for a CUDA card (none, or fewer than the cell asks
+for: exit 2, no result); makes the cell's mission from --seed
 (``traffic/``); builds ``SyncSimulator(mission, Param(...),
 device="cuda")``; warms up the cell's one shape, a CUDA graph of k
 planning cycles (``cycle_graph(k, state)``: the kernels' nvcc build on a
@@ -19,11 +20,12 @@ whose agents are all home, or that has run ``restart_after_cycles``,
 restarts from its initial state (copied into the graph's inputs, no new
 capture).  After the window: with --trace 1 a stretch of dispatches under
 torch.profiler and the per-layer metrics' probes; the device's peak
-memory; the program freed; the plain reference judges the dispatches the
-check kept (``check.py``).  Prints the numbers compared, each beside its
-limit, as the last lines of standard error, and one JSON line last on
-standard output.  Imports nothing of JAX or of the JAX package; exits 3,
-with no result, if either is loaded when the run ends.
+memory; the program freed; the configuration's plain reference judges
+the dispatches the check kept (``check.py``).  Prints the numbers
+compared, each beside its limit, as the last lines of standard error, and
+one JSON line last on standard output.  Imports nothing of JAX or of the
+JAX package; exits 3, with no result, if either is loaded when the run
+ends.
 """
 from __future__ import annotations
 
@@ -101,6 +103,11 @@ def main(argv=None, program=None, root=None, bench_dir=None) -> int:
     import cell as cell_mod
     import window
     c = cell_mod.find(args.workload, root or ROOT, bench_dir or BENCH_DIR)
+    try:
+        c.reference()
+    except LookupError as e:
+        print(f"lscbench: {e}", file=sys.stderr)
+        return 2
     if program is None:
         if not torch.cuda.is_available():
             print("lscbench: torch.cuda.is_available() is False: the "

@@ -272,7 +272,7 @@ def test_reference_follows_the_port_in_f64():
     arrays = swarm.generate(dict(c.traffic, agents=5, trees=12), SEED)
     import lsc_planner_tpu_torch as port
     from lsc_planner_tpu_torch.sim.simulator import SyncSimulator
-    rconfig, rmissions, rsim_mod, _ = check.reference_modules()
+    rconfig, rmissions, rsim_mod, _ = check.reference_modules(c)
     f64 = torch.float64
     sims = [SyncSimulator(cell_mod.build_mission(port.missions, arrays,
                                                  c.config["agent"]),
@@ -340,6 +340,93 @@ def test_faults_make_correct_false(tmp_path, capsys, cell, kind):
 
 
 # ---------------------------------------------------------------------------
+# the configuration's reference
+
+_MOVED_CYCLE = """
+
+
+_planned_cycle = SyncSimulator.cycle
+
+
+def _moved_cycle(self, state):
+    new, info = _planned_cycle(self, state)
+    return new._replace(traj=new.traj + 0.3), info
+
+
+SyncSimulator.cycle = _moved_cycle
+"""
+
+
+def name_reference(bench, reference):
+    """tiny_empty's configuration with its "reference" set to
+    `reference` (taken out where None)."""
+    path = bench / "configs" / "tiny_empty.json"
+    cfg = json.loads(path.read_text())
+    cfg.pop("reference", None)
+    if reference is not None:
+        cfg["reference"] = reference
+    path.write_text(json.dumps(cfg))
+
+
+def twin_root(tmp_path):
+    """tiny_root with reference/lsc_twin/: a copy of reference/lsc/ whose
+    SyncSimulator.cycle moves every planned trajectory by 0.3 m, a
+    package that exists only in this copy of the benchmark."""
+    root, bench = tiny_root(tmp_path)
+    twin = bench / "reference" / "lsc_twin"
+    shutil.copytree(bench / "reference" / "lsc", twin)
+    sim = twin / "sim" / "simulator.py"
+    sim.write_text(sim.read_text() + _MOVED_CYCLE)
+    return root, bench
+
+
+def test_the_check_judges_by_the_configurations_reference(tmp_path, capsys):
+    """A configuration that names reference/lsc_twin/ is judged by it (the
+    sound port reads correct false against the moved plans); without the
+    key the same cell is judged by reference/lsc/ and reads true."""
+    root, bench = twin_root(tmp_path)
+    for reference, want in (("lsc_twin", False), (None, True)):
+        name_reference(bench, reference)
+        rc, line = run_line(capsys, root, bench, "tiny_empty", port_on_cpu())
+        assert rc == 0
+        assert line["correct"] is want, (reference, line["checks"])
+
+
+@pytest.mark.parametrize("reference", ["rsfc", "lsc.ops", "../lsc", 3])
+def test_a_missing_reference_ends_the_run(tmp_path, capsys, reference):
+    """A configuration naming no package under reference/ ends the run
+    before the window: non-zero, no result, a message naming it."""
+    root, bench = tiny_root(tmp_path)
+    name_reference(bench, reference)
+    rc = run.main(["--workload", "tiny_empty", "--seed", str(SEED),
+                   "--seconds", "1", "--trace", "0"], program=port_on_cpu(),
+                  root=root, bench_dir=bench)
+    out, err = capsys.readouterr()
+    assert rc != 0
+    assert out.strip() == ""
+    assert len(err.strip().splitlines()) == 1
+    assert repr(reference) in err and "tiny_empty" in err
+
+
+def test_the_control_runs_the_configurations_reference(tmp_path):
+    """control.reference_program puts the named package's simulator in
+    the program's place (reference/lsc/ where the key is absent), loaded
+    from the cell's own benchmark folder."""
+    import control
+    root, bench = twin_root(tmp_path)
+    for reference, folder in (("lsc_twin", "lsc_twin"), (None, "lsc")):
+        name_reference(bench, reference)
+        c = cell_mod.find("tiny_empty", root, bench)
+        prog = control.reference_program(c, device="cpu")
+        pkg = bench / "reference" / folder
+        assert Path(prog.package.__file__) == pkg / "__init__.py"
+        base = c.reference("sim.simulator")
+        assert Path(base.__file__) == pkg / "sim" / "simulator.py"
+        assert issubclass(prog.SyncSimulator, base.SyncSimulator)
+        assert Path(prog.config.__file__) == pkg / "config.py"
+
+
+# ---------------------------------------------------------------------------
 # imports
 
 _IMPORT_ALL = """
@@ -378,11 +465,23 @@ def test_the_harness_loads_no_jax():
     assert not top & set(run.FORBIDDEN), top & set(run.FORBIDDEN)
 
 
-def test_the_reference_loads_nothing_of_the_program():
-    top = _top_level(["check", "reference.lsc.sim.simulator",
-                      "reference.lsc.world.corridor"])
+def _reference_modules(package):
+    """Every module of reference/<package>/, by its dotted name."""
+    folder = BENCH / "reference"
+    return sorted(".".join(("reference",) + p.relative_to(folder)
+                           .with_suffix("").parts).removesuffix(".__init__")
+                  for p in (folder / package).rglob("*.py"))
+
+
+@pytest.mark.parametrize("package", sorted(
+    p.name for p in (BENCH / "reference").iterdir()
+    if (p / "__init__.py").is_file()))
+def test_the_reference_loads_nothing_of_the_program(package):
+    """Every module of every reference package loads nothing of the port,
+    of JAX or of the JAX package."""
+    top = _top_level(["check", *_reference_modules(package)])
     assert "reference" in top
-    assert not top & {"lsc_planner_tpu_torch", "lsc_planner_tpu", "jax"}
+    assert not top & {"lsc_planner_tpu_torch", *run.FORBIDDEN}
 
 
 def test_forbidden_names_are_compared_whole(monkeypatch):
